@@ -1,0 +1,301 @@
+"""The port's main-path slice as a whole against the JAX package, plus
+its precision map, sketch RNG and numpy hand-over.
+
+The same numpy A and Omega go to ``rsvd_with_omega`` in both packages
+(torch's Philox and JAX's threefry streams cannot match).  In f32 the
+JAX side runs the Pallas ``fused_cholqr1`` in interpret mode and the
+port runs its plain PyTorch version, as each does on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rsvd_kamaneh_raganato_terrana_tpu.rsvd import driver as jdrv
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import device, rng
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import (
+    from_numpy,
+    to_numpy,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.entry import CONFIG, entry
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
+    SVDMethod,
+    svd,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver as tdrv
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _gapped_operator(m=384, n=256, seed=0, dtype=np.float32):
+    """As tests/test_polar.py:158-163, rectangular: geometric spectrum
+    1 .. 1e-3 with random singular vectors."""
+    r = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(r.standard_normal((m, n)))
+    v, _ = np.linalg.qr(r.standard_normal((n, n)))
+    s = np.geomspace(1.0, 1e-3, n)
+    return ((u * s) @ v.T).astype(dtype)
+
+
+def _omega(n, l, seed=1, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal((n, l)).astype(dtype)
+
+
+def _sines(x, y):
+    """Sines of the principal angles between span(x) and span(y)."""
+    qx, _ = np.linalg.qr(x.astype(np.float64))
+    qy, _ = np.linalg.qr(y.astype(np.float64))
+    # from the residual (I - Qx Qx^T) Qy, not sqrt(1 - cos^2), which
+    # cannot resolve a sine below sqrt(eps) ~ 1.5e-8
+    return np.linalg.svd(qy - qx @ (qx.T @ qy), compute_uv=False)
+
+
+def _both(a, omega, **kw):
+    out_j = jdrv.rsvd_with_omega(jnp.asarray(a), jnp.asarray(omega), **kw)
+    out_t = tdrv.rsvd_with_omega(from_numpy(a), from_numpy(omega), **kw)
+    return ([np.asarray(x) for x in out_j], [to_numpy(x) for x in out_t])
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_slice_f32_matches_jax(precision):
+    """(i) The slice's configuration (K1 everywhere) in f32, k=16, l=24."""
+    a = _gapped_operator()
+    k = 16
+    omega = _omega(a.shape[1], k + 8)
+    kw = dict(CONFIG, k=k, precision=precision)
+    (u_j, s_j, v_j), (u_t, s_t, v_t) = _both(a, omega, **kw)
+    assert u_t.shape == (384, k) and s_t.shape == (k,) and v_t.shape == (
+        256, k)
+    assert u_t.dtype == np.float32
+    # f32 roundoff through q=2 power rounds of two differently ordered
+    # eliminations: 3e-7 relative measured; 1e-4 is the slice bound
+    assert np.max(np.abs(s_t - s_j)) / s_j[0] <= 1e-4
+    e_j = np.linalg.norm(a - (u_j * s_j) @ v_j.T)
+    e_t = np.linalg.norm(a - (u_t * s_t) @ v_t.T)
+    assert abs(e_t / e_j - 1.0) <= 1e-3
+    # sigma_16 / sigma_17 ~ 1.03 on this spectrum: roundoff / gap ~ 1e-5
+    assert _sines(u_t, u_j).max() <= 1e-3
+    assert _sines(v_t, v_j).max() <= 1e-3
+
+
+def test_slice_f64_production_config_matches_jax():
+    """(ii) entry()'s production configuration of the JAX package
+    (robust / robust1, reorth='half', eigh tail) in f64."""
+    a = _gapped_operator(dtype=np.float64)
+    k = 16
+    omega = _omega(a.shape[1], k + 8, dtype=np.float64)
+    kw = dict(q=2, k=k, method="eigh", qr_method="robust",
+              interior_qr="robust1", reorth="half", precision="highest")
+    (u_j, s_j, v_j), (u_t, s_t, v_t) = _both(a, omega, **kw)
+    assert s_t.dtype == np.float64
+    # same f64 algorithm: LAPACK/BLAS summation order only
+    np.testing.assert_allclose(s_t, s_j, rtol=1e-10)
+    assert _sines(u_t, u_j).max() <= 1e-8
+    assert _sines(v_t, v_j).max() <= 1e-8
+
+
+def test_slice_runs_kernel_path_once_per_orthonormalization(monkeypatch):
+    """q=2 with reorth='half' orthonormalizes q + 1 = 3 times, each one a
+    call of the K1 wrapper."""
+    calls = []
+    real = kernels.fused_cholqr1
+
+    def counting(y):
+        calls.append(tuple(y.shape))
+        return real(y)
+
+    monkeypatch.setattr(kernels, "fused_cholqr1", counting)
+    a = _gapped_operator()
+    tdrv.rsvd_with_omega(from_numpy(a), from_numpy(_omega(256, 24)),
+                         **dict(CONFIG, k=16, precision="highest"))
+    assert calls == [(384, 24)] * 3
+
+
+def test_import_leaves_jax_out():
+    """(iii) The port imports torch and never jax."""
+    code = ("import sys\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.entry\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.kernels\n"
+            "print('jax' in sys.modules, 'torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "True"]
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(finish="utv"),
+    dict(finish="rowspace"),
+    dict(finish="rowspace_utv"),
+    dict(method="jacobi"),
+    dict(method="power"),
+    dict(method="eigh_pallas"),
+    dict(qr_method="polar_fused"),
+    dict(interior_qr="polar"),
+    dict(precision="bf16"),
+    dict(precision="int8"),
+    dict(precision="high"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_unported_options_raise(kwargs):
+    """(iv) Unported options raise before any work is done."""
+    a = from_numpy(_gapped_operator(48, 32))
+    kw = dict(method="eigh", qr_method="robust")
+    kw.update(kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdrv.rsvd_with_omega(a, from_numpy(_omega(32, 8)), q=1, **kw)
+
+
+def test_rsvd_default_method_is_jacobi_and_raises():
+    with pytest.raises(NotImplementedError, match="jacobi"):
+        tdrv.rsvd(from_numpy(_gapped_operator(48, 32)), k=4)
+
+
+def test_fused_sketch_raises():
+    with pytest.raises(NotImplementedError, match="K4"):
+        tdrv.rsvd(from_numpy(_gapped_operator(48, 32)), k=4,
+                  method="eigh", sketch="fused")
+
+
+def test_sparse_operand_raises():
+    a = from_numpy(_gapped_operator(48, 32)).to_sparse()
+    with pytest.raises(NotImplementedError, match="sparse"):
+        tdrv.rsvd_with_omega(a, from_numpy(_omega(32, 8)), q=1,
+                             method="eigh")
+
+
+def test_unknown_finish_raises_value_error():
+    with pytest.raises(ValueError, match="unknown finish"):
+        tdrv.rsvd_with_omega(from_numpy(_gapped_operator(48, 32)),
+                             from_numpy(_omega(32, 8)), method="eigh",
+                             finish="sideways")
+
+
+def test_rsvd_is_rsvd_with_omega_on_the_seeded_sketch():
+    """rsvd() = rsvd_core() = rsvd_with_omega(generate_omega(seed))."""
+    a = from_numpy(_gapped_operator(96, 64))
+    kw = dict(q=1, method="eigh", qr_method="cholqr1_fused",
+              interior_qr="cholqr1_fused", reorth="half")
+    u, s, v = tdrv.rsvd(a, k=8, p=6, seed=5, **kw)
+    omega = tdrv.generate_omega(5, 64, 14)
+    u2, s2, v2 = tdrv.rsvd_with_omega(a, omega, k=8, **kw)
+    assert torch.equal(s, s2) and torch.equal(u, u2) and torch.equal(v, v2)
+    # and it is a good rank-8 approximation: within 2% of the SVD optimum
+    # on this gapped spectrum (q=1 power round)
+    s_all = np.linalg.svd(to_numpy(a), compute_uv=False)
+    best = np.sqrt(np.sum(s_all[8:] ** 2))
+    err = float(tdrv.reconstruction_error(a, u, s, v))
+    assert err <= 1.02 * best
+
+
+def test_rsvd_refuses_complex_input():
+    with pytest.raises(TypeError, match="real"):
+        tdrv.rsvd(torch.zeros((8, 8), dtype=torch.complex64), k=2,
+                  method="eigh")
+
+
+def test_entry_runs_the_slice_on_cpu():
+    fn, (a,) = entry(device="cpu", m=160, n=128)
+    u, s, v = fn(a)
+    assert u.shape == (160, 64) and s.shape == (64,) and v.shape == (128, 64)
+    assert torch.isfinite(u).all() and torch.isfinite(s).all()
+    assert torch.all(s[:-1] >= s[1:])
+    # Q orthonormal at f32 cholqr1 accuracy (Gaussian A: cond(Y) ~ 3)
+    assert (u.T @ u - torch.eye(64)).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("method", ["eigh", "xla"])
+def test_small_svd_matches_numpy(method):
+    b = _gapped_operator(80, 24, seed=3, dtype=np.float64).T
+    u, s, v = (to_numpy(x) for x in svd(from_numpy(b), method))
+    s_ref = np.linalg.svd(b, compute_uv=False)
+    # Gram-eigh: sigma_i to eps * (sigma_1 / sigma_i)^2; spectrum spans
+    # ~1e-3 here, so 1e-9 relative to sigma_1 bounds both engines
+    np.testing.assert_allclose(s, s_ref, atol=1e-9 * s_ref[0])
+    np.testing.assert_allclose((u * s) @ v.T, b, atol=1e-9)
+
+
+def test_svd_method_keeps_every_member():
+    assert {m.value for m in SVDMethod} == {
+        "jacobi", "power", "parallel_jacobi", "eigh", "eigh_pallas",
+        "xla", "auto"}
+    with pytest.raises(NotImplementedError, match="auto"):
+        svd(torch.eye(4, dtype=torch.float64), "auto")
+
+
+def test_precision_map_restores_tf32_setting():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with device.ieee_fp32():
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_default_precision_is_f32_on_cpu():
+    """JAX's DEFAULT precision is f32 on the CPU, and so is the port's."""
+    r = np.random.default_rng(4)
+    a = from_numpy(r.standard_normal((32, 16)).astype(np.float32))
+    b = from_numpy(r.standard_normal((16, 8)).astype(np.float32))
+    out = device.matmul_at(a, b, "default")
+    assert out.dtype == torch.float32
+    assert torch.equal(out, device.matmul_at(a, b, "highest"))
+
+
+def test_mixed_bf16_product_accumulates_in_f32():
+    """The JAX _mm rule: bf16 A x f32 small operand -> the small side is
+    rounded to bf16 and the product returns in f32, never in bf16."""
+    r = np.random.default_rng(5)
+    a = from_numpy(r.standard_normal((32, 16)), dtype=torch.bfloat16)
+    b = from_numpy(r.standard_normal((16, 8)).astype(np.float32))
+    out = tdrv._mm(a, b, "default")
+    assert out.dtype == torch.float32
+    ref = a.double() @ b.to(torch.bfloat16).double()
+    # exact bf16 products, f32 accumulation over 16 terms
+    assert (out.double() - ref).abs().max() <= 1e-5
+
+
+def test_sketch_rng_is_seeded_and_on_the_generator_device():
+    g1, g2 = rng.key_from_seed(7), rng.key_from_seed(7)
+    x1 = rng.sketch_matrix(g1, 400, 50)
+    x2 = rng.sketch_matrix(g2, 400, 50)
+    assert torch.equal(x1, x2) and x1.device == g1.device
+    assert not torch.equal(x1, rng.sketch_matrix(rng.key_from_seed(8),
+                                                 400, 50))
+    # standard normal: mean 0, variance 1 over 20000 draws (5 sigma)
+    assert abs(float(x1.mean())) <= 5 / np.sqrt(2e4)
+    assert abs(float(x1.var()) - 1.0) <= 5 * np.sqrt(2 / 2e4)
+    rad = rng.sketch_matrix(rng.key_from_seed(7), 40, 5, torch.float64,
+                            "rademacher")
+    assert rad.dtype == torch.float64
+    assert set(rad.unique().tolist()) == {-1.0, 1.0}
+    with pytest.raises(ValueError, match="unknown sketch"):
+        rng.sketch_matrix(rng.key_from_seed(0), 4, 2, kind="sobol")
+
+
+def test_convert_round_trips_numpy_and_jax_arrays():
+    x = np.random.default_rng(6).standard_normal((5, 3)).astype(np.float32)
+    t = from_numpy(jnp.asarray(x))
+    assert t.dtype == torch.float32 and np.array_equal(to_numpy(t), x)
+    tb = from_numpy(jnp.asarray(x, dtype=jnp.bfloat16))
+    assert tb.dtype == torch.bfloat16
+    assert np.array_equal(to_numpy(tb),
+                          np.asarray(jnp.asarray(x, jnp.bfloat16),
+                                     np.float32))
+    assert from_numpy(x, dtype=torch.float64).dtype == torch.float64
