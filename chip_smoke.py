@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold every
-kernel of that path to its plain PyTorch version.
+"""Drive the PyTorch port's main path and its serving path on one CUDA
+card and hold every kernel of those paths to its plain PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
 
 Phases (any failure raises; nothing is caught):
 1. Build every kernel from ``csrc/`` with nvcc for sm_90a.
-2. Each kernel against its plain version on the card, at the main path's
-   shapes and at ragged ones; a rank-deficient panel must give
-   non-finite output from both.  ``--kernels-only`` stops here.
+2. Each kernel against its plain version on the card, at the paths'
+   shapes and at ragged ones; K2's intermediates (``stage``) against the
+   plain ones; a rank-deficient panel must give non-finite (K1) or
+   unhealthy (K2) output from both.  Kernel, plain version and library
+   yardsticks are timed with CUDA events.  ``--kernels-only`` stops here.
 3. The main path -- ``entry()``'s rank-64 rSVD (k=64, p=16, q=2) of a
    4096 x 4096 f32 operand made from seed 0, and the same configuration
-   through ``rsvd()`` -- for precision 'highest' and 'default'.  Each
-   call must launch K1 exactly q + 1 = 3 times; its reconstruction error
-   is compared with a numpy f64 rSVD of the same k, p and q
-   (``err_ratio_vs_numpy``, as bench.py computes it); its singular values
-   with the same call run through the plain version; both are timed
-   with CUDA events.
-4. A ``kernels`` JSON line, the card's name and power limit, and as the
+   through ``rsvd()`` -- for precision 'highest' and 'default' (K1 for
+   every orthonormalization: q + 1 = 3 launches per call), and the same
+   configuration with ``interior_qr='polar_fused'`` through
+   ``rsvd_with_omega`` (2 K2 launches and 1 K1 launch per call).
+   Reconstruction errors are compared with a numpy f64 rSVD of the same
+   k, p and q (``err_ratio_vs_numpy``, as bench.py computes it);
+   singular values with the same call through the plain versions.
+4. The serving path: ``rsvd_serving(prepare_operand(A), k=64, p=16,
+   q=2)`` on phase 3's operand, for storage 'int8' (pre-quantized),
+   'bf16' and 'default', with 'cholqr1' interiors (no kernel) and
+   'polar_fused' interiors (2 K2 launches per call); each must be healthy
+   and within 1% of the numpy rSVD's error.  Then int8 serving of two
+   operands drawn on the card, each against the port's own 'highest'
+   finish='project' rSVD: a ragged 4099 x 4001 (k=64) and the HBM-bound
+   16384 x 16384 (k=128).  One ``torch.profiler`` pass over each of
+   these two calls, and over the 4096^2 int8 serving call with each
+   interior.
+5. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -33,25 +46,45 @@ from unittest import mock
 import numpy as np
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch import rsvd
+from rsvd_kamaneh_raganato_terrana_tpu_torch import (
+    factor_health,
+    prepare_operand,
+    rsvd,
+    rsvd_serving,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import device
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.entry import CONFIG, entry
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import _build, kernels
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     generate_omega,
+    reconstruction_error,
+    rsvd_with_omega,
 )
 
 M = N = 4096
 K, P, Q = 64, 16, 2
+BIG, BIG_K = 16384, 128   # the HBM-bound serving point
+RAGGED = (4099, 4001)     # widths that are not multiples of 16
 ERR_RATIO_MAX = 1.01     # rSVD error within 1% of the f64 numpy rSVD
 # max |ds| / s_1, kernel path vs plain path.  'highest' differs by fp32
 # roundoff only; under 'default' an fp32-level change in Q can flip the
 # bf16 rounding of single GEMM operands (bf16 eps 3.9e-3)
 SIGMA_TOL = {"highest": 1e-4, "default": 5e-4}
-Q_TOL = 1e-4             # max |dQ| (Q has orthonormal columns)
-R_TOL = 1e-4             # max |dR| / max |R|
-ORTH_TOL = 1e-4          # max |Q^T Q - I| of the kernel's Q
+Q_TOL = 1e-4             # K1: max |dQ| (Q has orthonormal columns)
+R_TOL = 1e-4             # K1: max |dR| / max |R|
+ORTH_TOL = 1e-4          # max |Q^T Q - I| of a kernel's Q
+K2_Q_TOL = 2e-4          # K2: max |dQ|, the JAX fused-vs-composed bound
+K2_STAGE_TOL = 1e-4      # K2: max |d stage| / max |stage|
+K2_SYM_TOL = 1e-5        # K2: max |R - R^T| / max |R|, cond ~1
+K2_NORM_TOL = 1e-3       # K2: column norms of R against Y's, relative
+SERVING_PLAIN_TOL = 1e-3  # polar serving, kernel vs plain K2 recon error
+# the H100 SXM's published peaks: dense fp32 FLOP/s and HBM3 bytes/s
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+POLAR_ITERS = 8
+K2_STAGES = ("gram", "gt", "w1", "h1", "h2", "h4", "h8")
 
 
 def log(msg):
@@ -78,6 +111,13 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def numpy_rsvd(a, l, q, seed=0):
     """The numpy baseline of bench.py:87-99, in f64."""
     rng = np.random.default_rng(seed)
@@ -94,23 +134,65 @@ def recon_err(a, u, s, v):
     return float(np.linalg.norm(a - (u[:, :K] * s[:K]) @ v[:, :K].T))
 
 
-def phase_kernels(a):
-    """Phase 2: K1 against its plain version; returns the kernels-line
-    fields measured here."""
+def plain_kernels():
+    """Both kernel wrappers swapped for their plain versions."""
+    return mock.patch.multiple(
+        kernels, fused_cholqr1=kernels.fused_cholqr1_reference,
+        polar_qr_fused=kernels.polar_qr_fused_reference)
+
+
+def reset_counts():
+    kernels.fused_cholqr1.launches = 0
+    kernels.polar_qr_fused.launches = 0
+
+
+def counts():
+    return kernels.fused_cholqr1.launches, kernels.polar_qr_fused.launches
+
+
+def panels(a):
+    """Phase 2's panels: Y = A Omega at the paths' 4096 x 80, a cond-100
+    panel (tests/test_polar.py:28-33), ragged and tall ones."""
     omega = generate_omega(0, N, K + P, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     y_main = device.matmul_at(a, omega, "highest")
-    panels = {
-        "main Y = A @ Omega 4096x80": y_main,
-        "ragged 4099x17": torch.randn(4099, 17, device="cuda",
-                                      generator=gen),
-        "ragged 1000x128": torch.randn(1000, 128, device="cuda",
-                                       generator=gen),
-        "panel 16384x80": torch.randn(16384, 80, device="cuda",
-                                      generator=gen),
+    u, _ = torch.linalg.qr(torch.randn(4096, 80, device="cuda",
+                                       generator=gen))
+    v, _ = torch.linalg.qr(torch.randn(80, 80, device="cuda", generator=gen))
+    s = torch.logspace(2, 0, 80, device="cuda")
+    with device.ieee_fp32():
+        y_cond = (u * s) @ v.T
+    return y_main, {
+        "main Y = A @ Omega 4096x80": (y_main, True),
+        "cond-100 4096x80": (y_cond, False),
+        "ragged 4099x17": (torch.randn(4099, 17, device="cuda",
+                                       generator=gen), True),
+        "ragged 1000x128": (torch.randn(1000, 128, device="cuda",
+                                        generator=gen), True),
+        "panel 16384x80": (torch.randn(16384, 80, device="cuda",
+                                       generator=gen), True),
     }
+
+
+def rank_deficient():
+    y = torch.randn(1000, 64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    y[:, 32:] = y[:, :32]                          # exact rank 32 < l
+    return y
+
+
+def orth_err(q):
+    with device.ieee_fp32():
+        gram = q.T @ q
+    return float((gram - torch.eye(q.shape[1], device="cuda")).abs().max())
+
+
+def phase_k1(y_main, all_panels):
+    """K1 against its plain version; returns its kernels-line fields."""
     worst_q = worst_r = 0.0
-    for name, y in panels.items():
+    for name, (y, _) in all_panels.items():
+        if name.startswith("cond"):
+            continue
         q, r = kernels.fused_cholqr1(y)
         q0, r0 = kernels.fused_cholqr1_reference(y)
         torch.cuda.synchronize()
@@ -118,24 +200,18 @@ def phase_kernels(a):
         check(bool(torch.isfinite(q).all() and torch.isfinite(r).all()),
               f"{name}: non-finite output")
         dq = float((q - q0).abs().max())
-        dr = float((r - r0).abs().max())
-        dr_rel = dr / float(r0.abs().max())
-        with device.ieee_fp32():
-            gram = q.T @ q
-        orth = float((gram - torch.eye(y.shape[1], device="cuda"))
-                     .abs().max())
+        dr_rel = float((r - r0).abs().max()) / float(r0.abs().max())
+        orth = orth_err(q)
         lower = float(torch.tril(r, -1).abs().max())
-        log(f"  K1 {name}: max|dQ|={dq:.3e} max|dR|={dr:.3e} "
-            f"(rel {dr_rel:.3e}) max|Q^T Q - I|={orth:.3e} "
-            f"max|tril(R)|={lower:.1e}")
+        log(f"  K1 {name}: max|dQ|={dq:.3e} max|dR|/max|R|={dr_rel:.3e} "
+            f"max|Q^T Q - I|={orth:.3e} max|tril(R)|={lower:.1e}")
         check(dq <= Q_TOL and dr_rel <= R_TOL,
               f"{name}: kernel vs plain dQ={dq} dR/R={dr_rel}")
         check(orth <= ORTH_TOL and lower == 0.0,
               f"{name}: |Q^T Q - I|={orth} |tril(R)|={lower}")
         worst_q, worst_r = max(worst_q, dq), max(worst_r, dr_rel)
 
-    y_def = torch.randn(1000, 64, device="cuda", generator=gen)
-    y_def[:, 32:] = y_def[:, :32]                  # exact rank 32 < l
+    y_def = rank_deficient()
     for label, fn in (("kernel", kernels.fused_cholqr1),
                       ("plain", kernels.fused_cholqr1_reference)):
         q, r = fn(y_def)
@@ -143,21 +219,111 @@ def phase_kernels(a):
         log(f"  K1 rank-deficient 1000x64 ({label}): finite={finite}")
         check(not finite, f"rank-deficient panel gave finite {label} output")
 
+    m, l = y_main.shape
     ms = cuda_ms(lambda: kernels.fused_cholqr1(y_main), 50)
     plain_ms = cuda_ms(lambda: kernels.fused_cholqr1_reference(y_main), 10)
-    log(f"  K1 at 4096x80: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    lib_ms = cuda_ms(lambda: torch.linalg.qr(y_main, mode="reduced"), 20)
+    # the symmetric Gram ml(l+1), the triangular apply Y (L^-1)^T
+    # ml(l+1), Cholesky and triangular inverse (2/3) l^3; Y read, Q and R
+    # written.  At 4096 x 80 the two times tie within 1%
+    bound_ms, bound_by = bound(2 * m * l * (l + 1) + 2 * l ** 3 / 3,
+                               4 * (2 * m * l + l * l))
+    log(f"  K1 at {m}x{l}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.linalg.qr {lib_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us "
+        f"({bound_by})")
     return dict(max_abs_err=worst_q, max_rel_err_r=worst_r, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_us=bound_ms * 1e3, bound_by=bound_by)
 
 
-def phase_main_path(prec, forward, a, a64, err_np):
-    """Phase 3 for one precision: the counted run, accuracy, the plain
-    path, timings.  Returns (K1 launches, summary dict)."""
-    kernels.fused_cholqr1.launches = 0
+def k2_unhealthy(q, r):
+    """factor_health of a polar factorization as the JAX suite reads it
+    (tests/test_polar.py:87-103): U = Q, s = R's sorted column norms."""
+    s = torch.sort(torch.linalg.norm(r, dim=0), descending=True).values
+    return not factor_health(q, s, q)["ok"]
+
+
+def phase_k2(y_main, all_panels):
+    """K2 and its stages against the plain version; returns its
+    kernels-line fields."""
+    worst_q = worst_stage = 0.0
+    for name, (y, well_conditioned) in all_panels.items():
+        q, r = kernels.polar_qr_fused(y)
+        q0, r0 = kernels.polar_qr_fused_reference(y)
+        torch.cuda.synchronize()
+        check(q.shape == q0.shape and r.shape == r0.shape, name)
+        check(bool(torch.isfinite(q).all() and torch.isfinite(r).all()),
+              f"{name}: non-finite K2 output")
+        dq = float((q - q0).abs().max())
+        sym = float((r - r.T).abs().max() / r.abs().max())
+        sym0 = float((r0 - r0.T).abs().max() / r0.abs().max())
+        with device.ieee_fp32():
+            norms = torch.linalg.norm(r, dim=0) / torch.linalg.norm(y, dim=0)
+        dnorm = float((norms - 1.0).abs().max())
+        orth = orth_err(q)
+        stage_err = {}
+        for st in K2_STAGES:
+            got = kernels.polar_qr_fused(y, stage=st)
+            want = kernels.polar_qr_fused_reference(y, stage=st)
+            stage_err[st] = float((got - want).abs().max()
+                                  / want.abs().max())
+        log(f"  K2 {name}: max|dQ|={dq:.3e} max|Q^T Q - I|={orth:.3e} "
+            f"max|R-R^T|/max|R|={sym:.2e} (plain {sym0:.2e}) "
+            f"max|colnorm(R)/colnorm(Y)-1|="
+            f"{dnorm:.2e} stages " + " ".join(
+                f"{k}={v:.1e}" for k, v in stage_err.items()))
+        check(dq <= K2_Q_TOL, f"{name}: K2 vs plain dQ={dq}")
+        check(not well_conditioned or orth <= ORTH_TOL,
+              f"{name}: K2 |Q^T Q - I|={orth}")
+        # R = W_s G is symmetric up to W_s's roundoff, which grows with
+        # cond(Y)^2: held to 1e-5 when well-conditioned, else to 4x the
+        # plain version's own asymmetry
+        check(sym <= max(K2_SYM_TOL, 0.0 if well_conditioned else 4 * sym0)
+              and dnorm <= K2_NORM_TOL,
+              f"{name}: K2 R symmetry {sym} (plain {sym0}), column norms "
+              f"{dnorm}")
+        check(max(stage_err.values()) <= K2_STAGE_TOL,
+              f"{name}: K2 stages {stage_err}")
+        worst_q = max(worst_q, dq)
+        worst_stage = max(worst_stage, max(stage_err.values()))
+
+    y_def = rank_deficient()
+    for label, fn in (("kernel", kernels.polar_qr_fused),
+                      ("plain", kernels.polar_qr_fused_reference)):
+        bad = k2_unhealthy(*fn(y_def))
+        log(f"  K2 rank-deficient 1000x64 ({label}): unhealthy={bad}")
+        check(bad, f"rank-deficient panel gave healthy {label} K2 factors")
+
+    m, l = y_main.shape
+    ms = cuda_ms(lambda: kernels.polar_qr_fused(y_main), 50)
+    plain_ms = cuda_ms(lambda: kernels.polar_qr_fused_reference(y_main), 10)
+    lib_ms = cuda_ms(lambda: torch.linalg.qr(y_main, mode="reduced"), 20)
+    comp_ms = cuda_ms(lambda: polar_qr(y_main), 20)
+    # the symmetric Gram ml(l+1) and the full apply Y W_s 2ml^2; 4 l x l
+    # products of 2l^3 per step (3 in the first, plus R = W_s G); Y read,
+    # Q and R written
+    bound_ms, bound_by = bound(m * l * (l + 1) + 2 * m * l * l
+                               + 8 * POLAR_ITERS * l ** 3,
+                               4 * (2 * m * l + l * l))
+    log(f"  K2 at {m}x{l}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.linalg.qr {lib_ms:.4f} ms, polar_qr composition "
+        f"{comp_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    return dict(max_abs_err=worst_q, max_rel_err_stage=worst_stage, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                polar_qr_composition_ms=comp_ms, bound_ms=bound_ms,
+                bound_us=bound_ms * 1e3, bound_by=bound_by)
+
+
+def phase_main_path(label, forward, a, a64, err_np, prec, want):
+    """Phase 3 for one configuration: the counted run, accuracy, the plain
+    path, timings.  ``want`` = (K1, K2) launches per call.  Returns
+    ((K1, K2) launches, summary dict)."""
+    reset_counts()
     u, s, v = forward(a)
     torch.cuda.synchronize()
-    launches = kernels.fused_cholqr1.launches
-    check(launches == Q + 1, f"K1 launched {launches} times, not {Q + 1}")
+    launches = counts()
+    check(launches == want, f"{label}: (K1, K2) launches {launches}, "
+          f"not {want}")
     check(u.shape == (M, K) and s.shape == (K,) and v.shape == (N, K),
           f"shapes {u.shape} {s.shape} {v.shape}")
     check(all(bool(torch.isfinite(x).all()) for x in (u, s, v)),
@@ -165,18 +331,144 @@ def phase_main_path(prec, forward, a, a64, err_np):
     u_np, s_np, v_np = (to_numpy(x).astype(np.float64) for x in (u, s, v))
     err_ratio = recon_err(a64, u_np, s_np, v_np) / err_np
     orth = float(np.abs(u_np.T @ u_np - np.eye(K)).max())
-    with mock.patch.object(kernels, "fused_cholqr1",
-                           kernels.fused_cholqr1_reference):
+    with plain_kernels():
         _, s_plain, _ = forward(a)
         plain_ms = cuda_ms(lambda: forward(a), 5)
     dsigma = float((s - s_plain).abs().max() / s_plain[0])
     ms = cuda_ms(lambda: forward(a), 10)
     out = dict(err_ratio_vs_numpy=err_ratio, max_rel_dsigma_vs_plain=dsigma,
-               u_orth=orth, ms=ms, plain_ms=plain_ms, k1_launches=launches)
+               u_orth=orth, ms=ms, plain_ms=plain_ms, k1_launches=launches[0],
+               k2_launches=launches[1])
     check(err_ratio <= ERR_RATIO_MAX, f"err ratio {out}")
     check(dsigma <= SIGMA_TOL[prec], f"sigma vs plain {out}")
     check(orth <= 1e-3, f"U orthogonality {out}")
     return launches, out
+
+
+def serving_run(label, operand, a64, err_np, interior):
+    """One counted serving call and its checks; returns (K2 launches,
+    summary dict)."""
+    storage = label
+
+    def call():
+        return rsvd_serving(operand, k=K, p=P, q=Q, interior_qr=interior,
+                            storage=storage)
+
+    reset_counts()
+    u, s, v, health = call()
+    torch.cuda.synchronize()
+    k1, k2 = counts()
+    want = 2 if interior == "polar_fused" else 0
+    check(k1 == 0 and k2 == want,
+          f"serving {label}/{interior}: (K1, K2) launches {(k1, k2)}")
+    check(health["ok"], f"serving {label}/{interior}: unhealthy {health}")
+    u_np, s_np, v_np = (to_numpy(x).astype(np.float64) for x in (u, s, v))
+    err = recon_err(a64, u_np, s_np, v_np)
+    out = dict(storage=storage, interior_qr=interior,
+               err_ratio_vs_numpy=err / err_np, health=health,
+               ms=cuda_ms(call, 10), k2_launches=k2)
+    if interior == "polar_fused":
+        with plain_kernels():
+            u0, s0, v0, _ = call()
+            out["plain_ms"] = cuda_ms(call, 5)
+        err0 = recon_err(a64, *(to_numpy(x).astype(np.float64)
+                                for x in (u0, s0, v0)))
+        out["rel_err_diff_vs_plain"] = abs(err / err0 - 1.0)
+        check(out["rel_err_diff_vs_plain"] <= SERVING_PLAIN_TOL,
+              f"serving {label}: kernel vs plain K2 {out}")
+    check(out["err_ratio_vs_numpy"] <= ERR_RATIO_MAX,
+          f"serving {label}/{interior}: err ratio {out}")
+    return k2, out
+
+
+def phase_drawn_point(rows, cols, k, seed):
+    """Int8 serving of a rows x cols operand drawn on the card, k, p=16,
+    q=2, against the port's own 'highest' finish='project' rSVD."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(rows, cols, device="cuda", generator=gen)
+    quant_ms = cuda_ms(lambda: prepare_operand(a), 3)
+    a8 = prepare_operand(a)
+
+    def call():
+        return rsvd_serving(a8, k=k, p=P, q=Q)
+
+    u, s, v, health = call()
+    check(health["ok"], f"{rows}x{cols} int8 serving: unhealthy {health}")
+    ms = cuda_ms(call, 5)
+    u_r, s_r, v_r = rsvd(a, k=k, p=P, q=Q, method="eigh",
+                         qr_method="robust", precision="highest",
+                         finish="project")
+    with device.ieee_fp32():
+        ratio = float(reconstruction_error(a, u, s, v)
+                      / reconstruction_error(a, u_r, s_r, v_r))
+    out = dict(shape=[rows, cols], k=k, quantize_ms=quant_ms, ms=ms,
+               err_ratio_vs_highest_project=ratio, health_ok=health["ok"],
+               stored_layout_shapes=[list(x.shape) for x in a8.layouts],
+               stored_bytes=sum(x.numel() for x in a8.layouts),
+               profile=profile_serving(a8, "cholqr1", k))
+    check(ratio <= ERR_RATIO_MAX, f"{rows}x{cols} int8 serving {out}")
+    del a, a8
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_serving(a8, interior, k=K):
+    """One torch.profiler pass over 10 int8 serving calls with the given
+    interiors: device time by kernel group, host syncs and the device
+    idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        return rsvd_serving(a8, k=k, p=P, q=Q, interior_qr=interior)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups = {}
+    busy = 0.0
+    syncs = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dur = e.time_range.elapsed_us()
+            busy += dur
+            name = e.name.lower()
+            if any(t in name for t in ("ns_iterate", "gram_partials",
+                                       "apply_right")):
+                key = "K2 (ns_iterate / gram_partials / apply_right)"
+            elif "i8" in name or "s8" in name or "imma" in name \
+                    or "int8" in name:
+                key = "int8 GEMMs"
+            elif any(t in name for t in ("potrf", "getrf", "trsm",
+                                         "trtri", "cholesky", "syrk")):
+                key = "cholqr1 factor and solve"
+            elif "gemm" in name or "nvjet" in name or "xmma" in name:
+                key = "other GEMMs"
+            else:
+                key = "other kernels"
+            groups[key] = groups.get(key, 0.0) + dur
+        elif "Synchronize" in e.name or e.name == "aten::_local_scalar_dense":
+            syncs += 1
+    out = {k: v / 10e3 for k, v in sorted(groups.items(),
+                                          key=lambda kv: -kv[1])}
+    summary = dict(ms_per_call_by_group=out,
+                   wall_ms_per_call=wall_us / 10e3,
+                   device_busy_ms_per_call=busy / 10e3,
+                   idle_share=(1.0 - busy / wall_us) if busy else None,
+                   host_sync_events_per_call=syncs / 10)
+    if not busy:
+        log("  profiler saw no device time")
+    top = sorted(((e.key, e.device_time_total if hasattr(
+        e, "device_time_total") else 0.0) for e in prof.key_averages()),
+        key=lambda kv: -kv[1])[:12]
+    for key, t in top:
+        log(f"    {t / 10e3:9.4f} ms/call  {key[:90]}")
+    return summary
 
 
 def main(argv):
@@ -199,7 +491,10 @@ def main(argv):
 
     log("phase 2: kernels against their plain versions")
     fwd_hi, (a,) = entry(device="cuda", m=M, n=N, precision="highest")
-    k1 = phase_kernels(a)
+    y_main, all_panels = panels(a)
+    k1 = phase_k1(y_main, all_panels)
+    k2 = phase_k2(y_main, all_panels)
+    del all_panels
     if "--kernels-only" in argv:
         log("stopping after phase 2 (--kernels-only)")
         return 0
@@ -212,40 +507,76 @@ def main(argv):
     log(f"  numpy f64 rSVD baseline: err {err_np:.6f} "
         f"({time.perf_counter() - t0:.1f} s)")
     fwd_def, _ = entry(device="cuda", m=M, n=N, precision="default")
-    total_launches = 0
+    omega = generate_omega(0, N, K + P, device="cuda")
+
+    def fwd_polar(x):        # entry()'s configuration, polar interiors
+        return rsvd_with_omega(x, omega, precision="default",
+                               **dict(CONFIG, interior_qr="polar_fused"))
+    k1_launches = k2_launches = 0
     summary = {}
-    for prec, fwd in (("highest", fwd_hi), ("default", fwd_def)):
-        launches, out = phase_main_path(prec, fwd, a, a64, err_np)
-        total_launches += launches
-        summary[prec] = out
-        log(f"  main path [{prec}]: " + json.dumps(out))
+    for label, prec, fwd, want in (
+            ("highest", "highest", fwd_hi, (Q + 1, 0)),
+            ("default", "default", fwd_def, (Q + 1, 0)),
+            ("default, polar_fused interiors", "default", fwd_polar,
+             (1, 2))):
+        launches, out = phase_main_path(label, fwd, a, a64, err_np, prec,
+                                        want)
+        k1_launches += launches[0]
+        k2_launches += launches[1]
+        summary[label] = out
+        log(f"  main path [{label}]: " + json.dumps(out))
     # the same configuration through the public rsvd()
-    kernels.fused_cholqr1.launches = 0
+    reset_counts()
     _, s_r, _ = rsvd(a, k=K, p=P, seed=0, precision="default",
                      **{k: v for k, v in CONFIG.items() if k != "k"})
     torch.cuda.synchronize()
-    launches = kernels.fused_cholqr1.launches
-    check(launches == Q + 1 and bool(torch.isfinite(s_r).all()),
-          f"rsvd(): K1 launches {launches}")
-    total_launches += launches
-    log(f"  rsvd() [default]: K1 launches {launches}, s[0]={float(s_r[0]):.4f}")
+    launches = counts()
+    check(launches == (Q + 1, 0) and bool(torch.isfinite(s_r).all()),
+          f"rsvd(): (K1, K2) launches {launches}")
+    k1_launches += launches[0]
+    log(f"  rsvd() [default]: (K1, K2) launches {launches}, "
+        f"s[0]={float(s_r[0]):.4f}")
+
+    log("phase 4: serving path")
+    quant_ms = cuda_ms(lambda: prepare_operand(a), 10)
+    a8 = prepare_operand(a)
+    log(f"  prepare_operand (int8 quantization) 4096^2: {quant_ms:.4f} ms")
+    serving = {"quantize_ms": quant_ms, "runs": []}
+    for storage, operand in (("int8", a8), ("bf16", a), ("default", a)):
+        for interior in ("cholqr1", "polar_fused"):
+            n_k2, out = serving_run(storage, operand, a64, err_np, interior)
+            k2_launches += n_k2
+            serving["runs"].append(out)
+            log(f"  serving [{storage}, {interior}]: " + json.dumps(out))
+    serving["ragged_point"] = phase_drawn_point(*RAGGED, K, seed=3)
+    log(f"  serving [int8, {RAGGED[0]}x{RAGGED[1]}, k={K}]: "
+        + json.dumps(serving["ragged_point"]))
+    serving["hbm_point"] = phase_drawn_point(BIG, BIG, BIG_K, seed=0)
+    log(f"  serving [int8, {BIG}^2, k={BIG_K}]: "
+        + json.dumps(serving["hbm_point"]))
+    for interior in ("polar_fused", "cholqr1"):
+        key = f"profile_int8_{interior}"
+        serving[key] = profile_serving(a8, interior)
+        log(f"  profile [int8, {interior}, 4096^2]: "
+            + json.dumps(serving[key]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    kernels_line = {"kernels": [{
-        "name": "fused_cholqr1",
-        "route": "cuda",
-        "source": "rsvd_kamaneh_raganato_terrana_tpu_torch/csrc/cholqr1.cu",
-        "replaces": "rsvd_kamaneh_raganato_terrana_tpu/linalg/"
-                    "pallas_kernels.py:321",
-        "launches": total_launches,
-        "max_abs_err": k1["max_abs_err"],
-        "max_rel_err_r": k1["max_rel_err_r"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }], "main_path": summary}
+    pkg = "rsvd_kamaneh_raganato_terrana_tpu_torch"
+    kernels_line = {"kernels": [
+        dict(name="fused_cholqr1", route="cuda",
+             source=f"{pkg}/csrc/cholqr1.cu",
+             replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
+                      "pallas_kernels.py:321",
+             launches=k1_launches, **k1),
+        dict(name="polar_qr_fused", route="cuda",
+             source=f"{pkg}/csrc/polar.cu",
+             replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
+                      "polar.py:257",
+             launches=k2_launches, **k2),
+    ], "main_path": summary, "serving": serving}
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())
     log(json.dumps({"ok": True, "device": {

@@ -8,20 +8,43 @@ It imports ``torch`` and never ``jax``.
 
 Layer map (the ported part so far):
 
-- ``core``   -- precision map (``device``), seeded sketch RNG (``rng``),
-               numpy <-> tensor hand-over (``convert``).
+- ``core``   -- precision map and storage modes (``device``), seeded
+               sketch RNG on the card (``rng``), numpy <-> tensor
+               hand-over (``convert``).
 - ``ops``    -- the primitive products the QR/SVD/driver layers use.
-- ``linalg`` -- CholeskyQR family and ``qr_reduced``, the Gram-eigh SVD
-               tail, and the hand-written Hopper kernels (``kernels``,
-               sources in ``csrc/``, built by ``linalg/_build.py``).
-- ``rsvd``   -- the randomized SVD driver (``finish='project'``).
+- ``linalg`` -- CholeskyQR family and ``qr_reduced``, Newton--Schulz
+               polar (``polar``), the Gram-eigh SVD tail, and the
+               hand-written Hopper kernels (``kernels``: K1
+               ``fused_cholqr1``, K2 ``polar_qr_fused``; sources in
+               ``csrc/``, built by ``linalg/_build.py``).
+- ``rsvd``   -- the randomized SVD driver (finishes 'project',
+               'rowspace', 'utv', 'rowspace_utv'; bf16 and int8
+               storage), the serving preset (``serving``), the health
+               check and subspace angles (``diagnostics``) and UTV
+               (``utv``).
 """
 
 __version__ = "0.1.0"
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import SVDMethod  # noqa: F401
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.diagnostics import (  # noqa: F401
+    factor_health,
+    principal_angles,
+    subspace_distance,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
+    Int8Stored,
     generate_omega,
+    quantize_int8_rows,
     rsvd,
     rsvd_with_omega,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.serving import (  # noqa: F401
+    prepare_operand,
+    rsvd_serving,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.utv import (  # noqa: F401
+    rutv,
+    rutv_reconstruct,
+    utv_rescore,
 )

@@ -10,8 +10,12 @@
   the TPU.  On the CPU it runs in f32, which is what JAX's DEFAULT
   precision gives on the CPU.  A product is never returned rounded to
   bf16.
-- ``'high'``, ``'bf16'``/``'bfloat16'`` and ``'int8'`` are not ported
-  yet (ROADMAP.md, queue 1) and raise ``NotImplementedError``.
+- ``'bf16'``/``'bfloat16'`` and ``'int8'`` are storage modes of the
+  driver (A cast once to bf16, or quantized to row-scaled int8); their
+  dense products get the numerics of ``'default'``, as the JAX
+  ``_PRECISIONS`` map gives them (rsvd/driver.py:65-74).
+- ``'high'`` is not ported yet (ROADMAP.md, queue 1) and raises
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,19 +24,27 @@ import contextlib
 
 import torch
 
-PORTED_PRECISIONS = ("highest", "default")
-_UNPORTED_PRECISIONS = ("high", "bf16", "bfloat16", "int8")
+#: the storage modes, read by the driver; their dense products run at
+#: 'default'
+STORAGE_BF16 = ("bf16", "bfloat16")
+STORAGE_INT8 = ("int8",)
+PORTED_PRECISIONS = ("highest", "default") + STORAGE_BF16 + STORAGE_INT8
+_UNPORTED_PRECISIONS = ("high",)
 
 
 def resolve_precision(precision) -> str:
-    """Canonical precision name; raises for names not ported yet."""
+    """The numerics of ``precision``: 'highest' or 'default' (the storage
+    modes map to 'default'); raises for names not ported yet."""
     name = str(precision).lower()
+    if name in STORAGE_BF16 + STORAGE_INT8:
+        return "default"
     if name in PORTED_PRECISIONS:
         return name
     if name in _UNPORTED_PRECISIONS:
         raise NotImplementedError(
             f"precision={precision!r} is not ported to the PyTorch package "
-            "yet (ROADMAP.md, queue 1); use 'highest' or 'default'")
+            "yet (ROADMAP.md, queue 1); use 'highest', 'default', 'bf16' "
+            "or 'int8'")
     raise ValueError(f"unknown precision {precision!r}")
 
 

@@ -13,11 +13,12 @@ import torch
 
 
 def key_from_seed(seed, device=None) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from an int ``seed``;
-    an existing generator is returned as it is."""
+    """A ``torch.Generator`` on ``device`` (the card, ``"cuda"``, unless
+    the caller names another) seeded from an int ``seed``; an existing
+    generator is returned as it is."""
     if isinstance(seed, torch.Generator):
         return seed
-    gen = torch.Generator(device=torch.device(device or "cpu"))
+    gen = torch.Generator(device=torch.device(device or "cuda"))
     gen.manual_seed(int(seed))
     return gen
 

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, ``build/lib<name>-<hash>.so`` inside
 the package, and is loaded with ``ctypes``.  ``<hash>`` covers the
-source and the flags, so an edited source rebuilds and an unchanged one
-is reused.  All sources build in parallel, one ``nvcc`` each.  The build
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  All sources build in parallel, one ``nvcc`` each.  The build
 needs ``nvcc`` for ``sm_90a`` (CUDA toolkit under ``$CUDA_HOME`` or
 ``/usr/local/cuda``) and nothing outside the package's own sources.
 """
@@ -43,8 +43,17 @@ def sources():
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def headers():
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def library_path(src: Path) -> Path:
+    """Library built from ``src``; its name hashes the source, every
+    shared header in ``csrc/`` and the flags."""
     digest = hashlib.sha256(src.read_bytes())
+    for header in headers():
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     gram,
     matmul,
@@ -128,14 +129,18 @@ def qr_reduced(a, method: str = "robust"):
     ``linalg/kernels.py::fused_cholqr1``; its plain PyTorch version on
     the CPU) and ``householder``.
 
-    ``cholqr1_fused`` keeps the JAX dtype guard -- f32 panels go to the
-    kernel, other dtypes to ``cholesky_qr1`` -- but not the JAX size
-    guard: that bound (m x 128 x 8 B <= 12 MiB) is the TPU's VMEM, and
-    the Hopper kernel streams Y from device memory, so every f32 panel
-    goes through the kernel whatever its size.
+    ``polar`` is the GEMM-only Newton--Schulz polar factorization of
+    ``linalg/polar.py`` (R symmetric, NOT triangular; rank deficiency out
+    of domain), and ``polar_fused`` the same as the hand-written Hopper
+    kernel K2 (``linalg/kernels.py::polar_qr_fused``; its plain PyTorch
+    version on the CPU).
 
-    ``polar`` / ``polar_fused`` are not ported yet (kernel K2) and raise
-    ``NotImplementedError``.
+    ``cholqr1_fused`` and ``polar_fused`` keep the JAX dtype guard -- f32
+    panels go to the kernel, other dtypes to ``cholesky_qr1`` /
+    ``polar_qr`` -- but not the JAX size guard: that bound (m x 128 x
+    8 B <= 12 MiB) is the TPU's VMEM, and the Hopper kernels stream Y
+    from device memory, so every f32 panel goes through the kernel
+    whatever its size.
     """
     if a.dtype in (torch.bfloat16, torch.float16):
         # no low-precision Cholesky/QR: factor in f32, hand back the
@@ -154,10 +159,12 @@ def qr_reduced(a, method: str = "robust"):
         if a.dtype == torch.float32:
             return kernels.fused_cholqr1(a)
         return cholesky_qr1(a)
-    if method in ("polar", "polar_fused"):
-        raise NotImplementedError(
-            f"qr_method={method!r} (Newton-Schulz polar, kernel K2) is not "
-            "ported to the PyTorch package yet (ROADMAP.md, queue 2)")
+    if method == "polar":
+        return polar_qr(a)
+    if method == "polar_fused":
+        if a.dtype == torch.float32:
+            return kernels.polar_qr_fused(a)
+        return polar_qr(a)
     if method == "cholqr2":
         return cholesky_qr2(a)
     if method == "cholqr3":

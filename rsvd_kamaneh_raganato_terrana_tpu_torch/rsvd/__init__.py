@@ -1,10 +1,26 @@
-"""Randomized SVD driver."""
+"""Randomized SVD driver, serving preset, diagnostics and UTV."""
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.diagnostics import (  # noqa: F401
+    factor_health,
+    principal_angles,
+    subspace_distance,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
+    Int8Stored,
     generate_omega,
+    quantize_int8_rows,
     reconstruct,
     reconstruction_error,
     rsvd,
     rsvd_core,
     rsvd_with_omega,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.serving import (  # noqa: F401
+    prepare_operand,
+    rsvd_serving,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.utv import (  # noqa: F401
+    rutv,
+    rutv_reconstruct,
+    utv_rescore,
 )

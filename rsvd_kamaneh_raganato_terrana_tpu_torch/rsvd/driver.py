@@ -1,20 +1,22 @@
 """Randomized SVD driver (Halko-Martinsson-Tropp stage A/B), the JAX
-package's ``rsvd/driver.py`` for ``finish='project'``:
+package's ``rsvd/driver.py``:
 
   stage A:  Y = A Omega  ->  Q = orth(Y)  ->  q rounds of power-iteration
             subspace refinement with re-orthonormalization,
-  stage B:  B = Q^T A  ->  small SVD of B  ->  U = Q U_tilde.
+  stage B:  B = Q^T A  ->  small SVD of B  ->  U = Q U_tilde,
 
-The stage-A GEMMs go to ``torch.matmul``/``torch.mm`` at the requested
-precision (``core/device.py``); the orthonormalizations go through
-``linalg.qr.qr_reduced``, whose ``cholqr1_fused`` method is the
-hand-written Hopper kernel K1.
+with the finishes 'project', 'rowspace', 'utv' and 'rowspace_utv', and
+the stage-A storage modes 'bf16' (A cast once) and 'int8' (row-scaled
+int8, :class:`Int8Stored`, products on ``torch._int_mm``).
+
+The dense stage-A GEMMs go to ``torch.matmul``/``torch.mm`` at the
+requested precision (``core/device.py``); the orthonormalizations go
+through ``linalg.qr.qr_reduced``, whose ``cholqr1_fused`` and
+``polar_fused`` methods are the hand-written Hopper kernels K1 and K2.
 
 Not ported yet (ROADMAP.md), each raising ``NotImplementedError``: the
-finishes ``'rowspace'``, ``'utv'`` and ``'rowspace_utv'``; ``Int8Stored``
-operands and ``precision='int8'``; ``'high'``/``'bf16'`` precisions;
-sparse operands; ``sketch='fused'`` (kernel K4); the SVD engines other
-than ``'eigh'`` and ``'xla'``.
+``'high'`` precision; sparse operands; ``sketch='fused'`` (kernel K4);
+the SVD engines other than ``'eigh'`` and ``'xla'``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from typing import Optional
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
+    STORAGE_BF16,
+    STORAGE_INT8,
     matmul_at,
     resolve_precision,
 )
@@ -33,6 +37,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import (
     orthonormal_basis,
+    qr_reduced,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
     SVDMethod,
@@ -43,17 +48,168 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
 )
 
-_UNPORTED_FINISHES = ("rowspace", "utv", "rowspace_utv")
-_UNPORTED_QR = ("polar", "polar_fused")
+_FINISHES = ("project", "rowspace", "utv", "rowspace_utv")
+# The longest contraction whose int32 sums cannot wrap: each product of
+# two int8 values is at most 127^2 in magnitude.  Kept a multiple of 16,
+# so that every chunk of an aligned operand stays aligned.
+_INT8_CHUNK = (2 ** 31 - 1) // (127 * 127) // 16 * 16
 
 
 def generate_omega(key_or_seed, n: int, l: int, dtype=torch.float32,
                    kind: str = "gaussian", device=None):
     """The n x l Gaussian test matrix, drawn from a ``torch.Generator``
-    seeded from ``key_or_seed`` on ``device`` (or from the generator
-    passed in, on its own device)."""
+    seeded from ``key_or_seed`` on ``device`` (the card unless the caller
+    names another; a generator passed in draws on its own device)."""
     key = key_from_seed(key_or_seed, device)
     return sketch_matrix(key, n, l, dtype, kind)
+
+
+class Int8Stored:
+    """Row-scaled int8 storage of the stage-A operand: A ~ diag(s) Q8.
+
+    Every stage-A pass reads one byte per element and contracts on the
+    int8 path (``torch._int_mm``, int32 accumulation), with the scales
+    folded into the small operands:
+
+        A B   ~ diag(s) (Q8 B8) diag(t),   B ~ B8 diag(t)  (per-column)
+        A^T C ~ Q8^T quant(diag(s) C) diag(t')
+
+    cuBLASLt runs the int8 product fast only with the big operand in
+    row-major order and the small one column-major (on an H100 the five
+    int8 products of a 4096^2 serving call took 0.72 ms of device time
+    with Q8^T read column-major, 0.06 ms row-major), and takes int8
+    operands only at aligned shapes.  So the operand is held in both
+    layouts, made once when it is built: ``layouts`` = (Q8, Q8^T), each
+    row-major and zero-padded as :func:`_int8_layouts` says.  It takes
+    two bytes per element, where the JAX package's takes one; each pass
+    reads one.  ``q8`` is the unpadded m x n view of the first layout.
+    A plain holder (no autograd: quantization is not differentiable);
+    ``.T`` flips a flag and copies nothing, and ``_mm`` dispatches on
+    it."""
+
+    def __init__(self, q8, row_scale, transposed: bool = False,
+                 layouts=None):
+        if layouts is None:
+            layouts = _int8_layouts(q8)
+        self.layouts = layouts
+        self.q8 = layouts[0][:q8.shape[0], :q8.shape[1]]
+        self.row_scale = row_scale
+        self.transposed = transposed
+
+    @property
+    def T(self):
+        return Int8Stored(self.q8, self.row_scale, not self.transposed,
+                          self.layouts)
+
+    @property
+    def shape(self):
+        m, n = self.q8.shape
+        return (n, m) if self.transposed else (m, n)
+
+    @property
+    def dtype(self):          # logical compute dtype of the products
+        return self.row_scale.dtype
+
+    @property
+    def device(self):
+        return self.q8.device
+
+
+def _as_operand(a):
+    """A tensor or :class:`Int8Stored` stays where it is; anything else
+    (a numpy array, a list) becomes a tensor on the card."""
+    if isinstance(a, (torch.Tensor, Int8Stored)):
+        return a
+    return torch.as_tensor(a, device="cuda")
+
+
+def quantize_int8_rows(a) -> Int8Stored:
+    """Per-row absmax int8 quantization of A (the serving storage mode):
+    scale = max(|A_i,:|, tiny) / 127, Q8 = round(A / scale), rounding
+    half to even as ``jnp.round`` does.  Builds both stored layouts of
+    Q8 here (:class:`Int8Stored`), so no served call transposes or pads
+    the operand."""
+    a = _as_operand(a)
+    out_dtype = torch.promote_types(a.dtype, torch.float32)
+    absmax = torch.amax(torch.abs(a), dim=1, keepdim=True)
+    scale = torch.clamp(absmax, min=torch.finfo(out_dtype).tiny) / 127.0
+    q8 = torch.round(a / scale).to(torch.int8)
+    return Int8Stored(q8, scale[:, 0].to(out_dtype))
+
+
+def _quant_cols(b):
+    """(B8, t): per-column int8 quantization of a small dense operand."""
+    t = torch.clamp(torch.amax(torch.abs(b), dim=0, keepdim=True),
+                    min=torch.finfo(b.dtype).tiny) / 127.0
+    return torch.round(b / t).to(torch.int8), t
+
+
+def _int8_width(d: int) -> int:
+    """A padded int8 dimension: a multiple of 16 (16-byte rows), and more
+    than 16 (``_int_mm``'s least row count on CUDA)."""
+    return max(32, -(-d // 16) * 16)
+
+
+def _int8_layouts(q8):
+    """(Q8, Q8^T), each row-major and zero-padded to ``_int8_width`` in
+    both dimensions, so that either is a left operand cuBLASLt's int8
+    product takes as it is.  Zero rows and columns leave every product
+    exact.  An aligned, contiguous Q8 is used as it is."""
+    m, n = q8.shape
+    shape = (_int8_width(m), _int8_width(n))
+    if shape == (m, n) and q8.is_contiguous() and q8.data_ptr() % 16 == 0:
+        fwd = q8
+    else:
+        fwd = q8.new_zeros(shape)
+        fwd[:m, :n] = q8
+    return fwd, fwd.T.contiguous()
+
+
+def _int8_product(x8, y8):
+    """The exact integer product x8 @ y8[:x8.shape[1]] of a left operand
+    laid out by :func:`_int8_layouts` and a small int8 matrix with at most
+    x8.shape[1] rows: int32, or int64 where the contraction is chunked.
+
+    y8 is copied column-major (cuBLASLt is fast with x8 row-major and y8
+    column-major), with zero rows up to x8's width and zero columns up to
+    a multiple of 8 (``_int_mm``'s rule on CUDA); the big operand is read
+    as it is.  ``torch._int_mm`` accumulates in int32, which wraps for
+    contractions longer than ``_INT8_CHUNK`` (~133,000); such a
+    contraction is cut into chunks of at most that length, summed in
+    int64.  The same code runs on the CPU, where ``_int_mm`` has no shape
+    rules."""
+    k = x8.shape[1]
+    cols = y8.shape[1]
+    y8 = torch.nn.functional.pad(y8, (0, -cols % 8, 0, k - y8.shape[0]))
+    y8 = y8.T.contiguous().T                     # column-major
+    if k <= _INT8_CHUNK:
+        return torch._int_mm(x8, y8)[:, :cols]
+    out = torch.zeros((x8.shape[0], y8.shape[1]), dtype=torch.int64,
+                      device=x8.device)
+    for k0 in range(0, k, _INT8_CHUNK):
+        k1 = min(k0 + _INT8_CHUNK, k)
+        out += torch._int_mm(x8[:, k0:k1], y8[k0:k1])
+    return out[:, :cols]
+
+
+def _int8_mm(a: Int8Stored, b):
+    """A @ B (or A^T @ B when ``a.transposed``) on the int8 path; the
+    result in b's dtype widened to at least f32.  For contractions up to
+    ``_INT8_CHUNK`` the integer sums are the JAX int32 ``dot_general``'s
+    to the bit."""
+    out_dtype = torch.promote_types(b.dtype, torch.float32)
+    m, n = a.q8.shape
+    fwd, bwd = a.layouts
+    if a.transposed:
+        # A^T B = Q8^T (diag(s) B): fold the row scales into the small
+        # operand BEFORE quantizing it
+        b8, t = _quant_cols(b * a.row_scale[:, None].to(b.dtype))
+        z = _int8_product(bwd, b8)[:n]
+        return z.to(out_dtype) * t.to(out_dtype)
+    b8, t = _quant_cols(b)
+    y = _int8_product(fwd, b8)[:m]
+    return (y.to(out_dtype) * a.row_scale[:, None].to(out_dtype)
+            * t.to(out_dtype))
 
 
 def _check_dense(x):
@@ -64,10 +220,17 @@ def _check_dense(x):
 
 
 def _mm(a, b, precision=DOT_PRECISION):
-    """A @ B with the JAX driver's dtype rules: same dtype -> product in
-    that dtype; a bf16 operand mixed with a wider one -> the SMALL side is
-    rounded to bf16 and the product accumulates and returns in the wide
-    dtype (never widening the big operand); any other mix promotes."""
+    """A @ B with the JAX driver's dtype rules: an :class:`Int8Stored`
+    operand takes the int8 path (precision does not apply); same dtype ->
+    product in that dtype; a bf16 operand mixed with a wider one -> the
+    SMALL side is rounded to bf16 and the product accumulates and returns
+    in the wide dtype (never widening the big operand); any other mix
+    promotes."""
+    if isinstance(a, Int8Stored):
+        return _int8_mm(a, b)
+    if isinstance(b, Int8Stored):
+        # X @ A = (A^T @ X^T)^T: one transposed int8 product
+        return _int8_mm(b.T, a.T).T
     _check_dense(a)
     _check_dense(b)
     if a.dtype != b.dtype:
@@ -124,22 +287,41 @@ def subspace_iteration(a, omega, q: int, qr_method: str = "robust",
                         interior_qr)
 
 
-def _check_ported(method, qr_method, interior_qr, precision, finish):
-    """Refuse unported options before any work is done."""
+def _fold_weights(tri):
+    """Column norms of a triangular (or, from polar, symmetric) middle
+    factor -- the UTV finishes' decomposition weights -- and their
+    divide-safe floor.  Norms accumulate in at least f32, never narrower
+    than the input."""
+    acc = torch.promote_types(tri.dtype, torch.float32)
+    s = torch.linalg.norm(tri.to(acc), dim=0).to(tri.dtype)
+    return s, torch.clamp(s, min=torch.finfo(acc).tiny)
+
+
+def _check_ported(method, precision, finish):
+    """Refuse unported or unknown options before any work is done."""
     check_ported(method)
     resolve_precision(precision)
-    for name in (qr_method, interior_qr):
-        if name in _UNPORTED_QR:
-            raise NotImplementedError(
-                f"qr_method={name!r} (Newton-Schulz polar, kernel K2) is "
-                "not ported to the PyTorch package yet (ROADMAP.md)")
-    if finish in _UNPORTED_FINISHES:
-        raise NotImplementedError(
-            f"finish={finish!r} is not ported to the PyTorch package yet "
-            "(ROADMAP.md, queue 1); use 'project'")
-    if finish != "project":
+    if finish not in _FINISHES:
         raise ValueError(f"unknown finish {finish!r} (use 'project', "
                          "'rowspace', 'utv' or 'rowspace_utv')")
+
+
+def _stage_operand(a, precision):
+    """The operand stage A reads: A cast once to bf16 for the 'bf16'
+    storage mode, quantized to :class:`Int8Stored` for 'int8', else A.
+    An :class:`Int8Stored` is read as it is under any precision."""
+    if isinstance(a, Int8Stored):
+        return a
+    if precision in STORAGE_BF16 and a.dtype.itemsize > 2:
+        return a.to(torch.bfloat16)
+    if precision in STORAGE_INT8:
+        return quantize_int8_rows(a)
+    return a
+
+
+def _sorted_by_weight(u, s, v):
+    order = torch.argsort(-s, stable=True)    # weights are near-sorted
+    return u[:, order], s[order], v[:, order]
 
 
 def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
@@ -147,20 +329,65 @@ def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
                     precision: str = "highest",
                     reorth: str = "full", interior_qr: Optional[str] = None,
                     finish: str = "project"):
-    """rSVD given an explicit sketch matrix Omega (n x l).
+    """rSVD given an explicit sketch matrix Omega (n x l).  Returns
+    (U, s, V) truncated to k (all l when k = 0).
 
-    ``finish='project'`` (reference semantics): 2q+2 passes over A --
-    sketch, q power rounds, projection B = Q^T A -- then the small SVD of
-    B by ``method`` and U = Q U_tilde.  Returns (U, s, V) truncated to k
-    (all l when k = 0).  The default ``method='jacobi'`` is kept from the
-    JAX signature and raises until the Jacobi engine is ported; pass
-    ``method='eigh'`` or ``'xla'``."""
-    _check_ported(method, qr_method, interior_qr, precision, finish)
-    q_mat = subspace_iteration(a, omega, q, qr_method, precision, reorth,
-                               interior_qr)                  # m x l
-    b = _mm(q_mat.T, a, precision)                          # l x n
-    u_t, s, v = small_svd(b, method)
-    u = _mm(q_mat, u_t)
+    ``precision``: 'highest' | 'default' | 'bf16' (A cast once to bf16,
+    'default' numerics) | 'int8' (A quantized once to row-scaled int8).
+    ``a`` may be a pre-quantized :class:`Int8Stored` under any precision
+    (the JAX package raises for one under 'bf16').
+
+    ``finish``:
+    - ``'project'`` (reference semantics): 2q+2 passes over A -- sketch,
+      q power rounds, projection B = Q^T A -- then the small SVD of B by
+      ``method`` and U = Q U_tilde.
+    - ``'rowspace'`` (q >= 1): stop stage A at the co-range block
+      Z = A^T Q, orthonormalize it and factor C = A Z_q directly: 2q+1
+      passes, half a power iteration behind 'project'.
+    - ``'utv'``: 'project''s passes, but B^T = V R by a thin QR instead
+      of the Gram eigh; A ~ (Q L / ||L_col||) diag(||L_col||) V^T with
+      L = R^T.  s are decomposition WEIGHTS, not singular values; U has
+      unit columns, V is orthonormal.
+    - ``'rowspace_utv'`` (q >= 1): the rowspace stage A ending in one
+      thin QR of C; the same weight / unit-column contract as 'utv'.
+
+    The default ``method='jacobi'`` is kept from the JAX signature and
+    raises until the Jacobi engine is ported; pass ``method='eigh'`` or
+    ``'xla'``."""
+    _check_ported(method, precision, finish)
+    a_stage = _stage_operand(a, precision)
+    if finish in ("rowspace", "rowspace_utv"):
+        if q < 1:
+            raise ValueError(f"finish={finish!r} needs q >= 1 (its final "
+                             "half-round IS a power iteration)")
+        inner = qr_method if interior_qr is None else interior_qr
+        y = _mm(a_stage, omega, precision)
+        q_mat = _interior_basis(y, inner)
+        # q-1 full rounds, every basis interior (the tail re-orthonormalizes)
+        q_mat = power_refine(a_stage, q_mat, q - 1, inner, precision, reorth,
+                             interior_qr)
+        z = _mm(a_stage.T, q_mat, precision)            # n x l co-range
+        z_q = orthonormal_basis(z, qr_method)           # final (full) QR
+        c = _mm(a_stage, z_q, precision)                # m x l: LAST pass
+        if finish == "rowspace_utv":
+            q_c, t = qr_reduced(c, qr_method)
+            s, safe = _fold_weights(t)
+            u, s, v = _sorted_by_weight(_mm(q_c, t / safe[None, :]), s, z_q)
+        else:
+            u_t, s, v_small = small_svd(c.T, method)    # c = v_small s u_t^T
+            u, v = v_small, _mm(z_q, u_t)
+    else:
+        q_mat = subspace_iteration(a_stage, omega, q, qr_method, precision,
+                                   reorth, interior_qr)      # m x l
+        b = _mm(q_mat.T, a_stage, precision)                 # l x n
+        if finish == "utv":
+            v, r = qr_reduced(b.T, qr_method)                # B^T = V R
+            el = r.T                                         # B = L V^T
+            s, safe = _fold_weights(el)
+            u, s, v = _sorted_by_weight(_mm(q_mat, el / safe[None, :]), s, v)
+        else:
+            u_t, s, v = small_svd(b, method)
+            u = _mm(q_mat, u_t)
     if k > 0:
         u, s, v = u[:, :k], s[:k], v[:, :k]
     return u, s, v
@@ -195,19 +422,22 @@ def rsvd(
     interior_qr: Optional[str] = None,
     finish: str = "project",
 ):
-    """Randomized truncated SVD of a dense real tensor: (U, s, V).
+    """Randomized truncated SVD of a dense real tensor or an
+    :class:`Int8Stored` operand: (U, s, V).
 
     k: target rank (0 = all l = p components); p: oversampling; q: power
     iterations; method: small-SVD engine for the l x n tail; precision:
-    'highest' (IEEE fp32 GEMMs) or 'default' (bf16 operands, f32
-    accumulation on CUDA).  The default ``method=SVDMethod.Jacobi`` is
-    kept from the JAX signature, so a call with it raises
-    ``NotImplementedError`` until the Jacobi engine is ported; pass
-    ``method='eigh'`` or ``'xla'``."""
+    'highest' (IEEE fp32 GEMMs), 'default' (bf16 operands, f32
+    accumulation on CUDA), 'bf16' ('default' numerics with A cast once to
+    bf16) or 'int8' (row-scaled int8 storage; pre-quantize with
+    :func:`quantize_int8_rows` when factoring the same A repeatedly).  A
+    tensor stays on its device; any other array goes to the card.  The
+    default ``method=SVDMethod.Jacobi`` is kept from the JAX signature,
+    so a call with it raises ``NotImplementedError`` until the Jacobi
+    engine is ported; pass ``method='eigh'`` or ``'xla'``."""
     method = SVDMethod.parse(method)
-    if not isinstance(a, torch.Tensor):
-        a = torch.as_tensor(a)
-    if a.is_complex():
+    a = _as_operand(a)
+    if not isinstance(a, Int8Stored) and a.is_complex():
         raise TypeError("rsvd supports real dtypes only (the Gram/"
                         "projection chain uses plain transposes)")
     return rsvd_core(a, seed, k=k, p=p, q=q, method=method.value,

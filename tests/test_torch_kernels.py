@@ -102,13 +102,32 @@ def test_wrapper_refuses_a_device_without_kernel():
 
 def test_build_names_sm90a_and_only_package_sources():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["cholqr1.cu"]
-    cmd = _build.nvcc_command("nvcc", srcs[0], _build.library_path(srcs[0]))
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    path = _build.library_path(srcs[0])
-    assert path.parent == _build.BUILD_DIR
-    # the library name carries a hash of the source and flags
-    assert path.name.startswith("libcholqr1-") and len(path.stem) == 27
+    assert [s.name for s in srcs] == ["cholqr1.cu", "polar.cu"]
+    assert [h.name for h in _build.headers()] == ["panel.cuh"]
+    for src in srcs:
+        cmd = _build.nvcc_command("nvcc", src, _build.library_path(src))
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+        path = _build.library_path(src)
+        assert path.parent == _build.BUILD_DIR
+        # the library name carries a hash of the sources and flags
+        assert path.name.startswith(f"lib{src.stem}-")
+        assert len(path.stem) == len(src.stem) + 20
+
+
+def test_library_hash_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edited csrc/*.cuh must rebuild every library, not reuse a
+    stale one."""
+    for f in _build.sources() + _build.headers():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    before = {s.name: _build.library_path(s) for s in _build.sources()}
+    header = tmp_path / "panel.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {s.name: _build.library_path(s) for s in _build.sources()}
+    assert all(before[n] != after[n] for n in before)
+    # and an unchanged tree names the same libraries
+    assert after == {s.name: _build.library_path(s)
+                     for s in _build.sources()}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

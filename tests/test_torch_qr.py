@@ -158,12 +158,6 @@ def test_low_precision_input_factors_in_f32():
     assert (qf.T @ qf - torch.eye(8)).abs().max() <= 2e-2
 
 
-@pytest.mark.parametrize("method", ["polar", "polar_fused"])
-def test_polar_not_ported_raises(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqr.qr_reduced(from_numpy(_tall(40, 4, 2.0, 8)), method)
-
-
 def test_unknown_method_raises_value_error():
     with pytest.raises(ValueError, match="unknown QR method"):
         tqr.qr_reduced(from_numpy(_tall(40, 4, 2.0, 8)), "givens")

@@ -139,16 +139,9 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(finish="utv"),
-    dict(finish="rowspace"),
-    dict(finish="rowspace_utv"),
     dict(method="jacobi"),
     dict(method="power"),
     dict(method="eigh_pallas"),
-    dict(qr_method="polar_fused"),
-    dict(interior_qr="polar"),
-    dict(precision="bf16"),
-    dict(precision="int8"),
     dict(precision="high"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kwargs):
@@ -191,7 +184,7 @@ def test_rsvd_is_rsvd_with_omega_on_the_seeded_sketch():
     kw = dict(q=1, method="eigh", qr_method="cholqr1_fused",
               interior_qr="cholqr1_fused", reorth="half")
     u, s, v = tdrv.rsvd(a, k=8, p=6, seed=5, **kw)
-    omega = tdrv.generate_omega(5, 64, 14)
+    omega = tdrv.generate_omega(5, 64, 14, device="cpu")
     u2, s2, v2 = tdrv.rsvd_with_omega(a, omega, k=8, **kw)
     assert torch.equal(s, s2) and torch.equal(u, u2) and torch.equal(v, v2)
     # and it is a good rank-8 approximation: within 2% of the SVD optimum
@@ -272,21 +265,21 @@ def test_mixed_bf16_product_accumulates_in_f32():
 
 
 def test_sketch_rng_is_seeded_and_on_the_generator_device():
-    g1, g2 = rng.key_from_seed(7), rng.key_from_seed(7)
+    g1, g2 = rng.key_from_seed(7, "cpu"), rng.key_from_seed(7, "cpu")
     x1 = rng.sketch_matrix(g1, 400, 50)
     x2 = rng.sketch_matrix(g2, 400, 50)
     assert torch.equal(x1, x2) and x1.device == g1.device
-    assert not torch.equal(x1, rng.sketch_matrix(rng.key_from_seed(8),
-                                                 400, 50))
+    assert not torch.equal(x1, rng.sketch_matrix(
+        rng.key_from_seed(8, "cpu"), 400, 50))
     # standard normal: mean 0, variance 1 over 20000 draws (5 sigma)
     assert abs(float(x1.mean())) <= 5 / np.sqrt(2e4)
     assert abs(float(x1.var()) - 1.0) <= 5 * np.sqrt(2 / 2e4)
-    rad = rng.sketch_matrix(rng.key_from_seed(7), 40, 5, torch.float64,
-                            "rademacher")
+    rad = rng.sketch_matrix(rng.key_from_seed(7, "cpu"), 40, 5,
+                            torch.float64, "rademacher")
     assert rad.dtype == torch.float64
     assert set(rad.unique().tolist()) == {-1.0, 1.0}
     with pytest.raises(ValueError, match="unknown sketch"):
-        rng.sketch_matrix(rng.key_from_seed(0), 4, 2, kind="sobol")
+        rng.sketch_matrix(rng.key_from_seed(0, "cpu"), 4, 2, kind="sobol")
 
 
 def test_convert_round_trips_numpy_and_jax_arrays():
