@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path and its serving path on one CUDA
-card and hold every kernel of those paths to its plain PyTorch version.
+"""Drive the PyTorch port's main path, its three-kernel ``rsvd()``
+path, ``rsvd()`` at its defaults and the serving path on one CUDA card,
+and hold every kernel of those paths to its plain PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
 
 Phases (any failure raises; nothing is caught):
-1. Build every kernel from ``csrc/`` with nvcc for sm_90a.
+1. Build every kernel from ``csrc/`` with nvcc for sm_90a, all at once,
+   and log each ptxas report.
 2. Each kernel against its plain version on the card, at the paths'
    shapes and at ragged ones; K2's intermediates (``stage``) against the
    plain ones; a rank-deficient panel must give non-finite (K1) or
-   unhealthy (K2) output from both.  Kernel, plain version and library
-   yardsticks are timed with CUDA events.  ``--kernels-only`` stops here.
+   unhealthy (K2) output from both.  K3 (``eigh_small``) on the
+   three-kernel path's l x l tail Gram and at n in {1, 2, 17, 128, 200}
+   (200 runs the workspace route), on an indefinite and on a
+   rank-deficient matrix; K4 (``fused_sketch_matmul``) on the recovered
+   Omega (A = I) and on Y at 4096^2 x 80, a ragged 4099 x 4001 x 17 and
+   l = 130.  Kernel, plain version and library yardsticks are timed with
+   CUDA events.  ``--kernels-only`` stops here.
 3. The main path -- ``entry()``'s rank-64 rSVD (k=64, p=16, q=2) of a
    4096 x 4096 f32 operand made from seed 0, and the same configuration
    through ``rsvd()`` -- for precision 'highest' and 'default' (K1 for
    every orthonormalization: q + 1 = 3 launches per call), and the same
    configuration with ``interior_qr='polar_fused'`` through
-   ``rsvd_with_omega`` (2 K2 launches and 1 K1 launch per call).
+   ``rsvd_with_omega`` (2 K2 launches and 1 K1 launch per call).  Then
+   the three-kernel path, ``rsvd(sketch='fused', method='eigh_pallas')``
+   with K1 interiors, 'highest' and 'default' (K4, K1, K3 launched 1, 3
+   and 1 times per call), with one ``torch.profiler`` pass over the
+   'highest' call; and ``rsvd(A, k=64)`` at its defaults (the Jacobi
+   tail), then with method 'parallel_jacobi', 'power' and 'auto'.
    Reconstruction errors are compared with a numpy f64 rSVD of the same
-   k, p and q (``err_ratio_vs_numpy``, as bench.py computes it);
-   singular values with the same call through the plain versions.
+   k, p and q (``err_ratio_vs_numpy``, as bench.py computes it; for the
+   fused sketch on the same Omega); singular values with the same call
+   through the plain versions.
 4. The serving path: ``rsvd_serving(prepare_operand(A), k=64, p=16,
    q=2)`` on phase 3's operand, for storage 'int8' (pre-quantized),
    'bf16' and 'default', with 'cholqr1' interiors (no kernel) and
@@ -55,7 +68,11 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import device
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.entry import CONFIG, entry
-from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import _build, kernels
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (
+    _build,
+    jacobi,
+    kernels,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     generate_omega,
@@ -80,6 +97,22 @@ K2_STAGE_TOL = 1e-4      # K2: max |d stage| / max |stage|
 K2_SYM_TOL = 1e-5        # K2: max |R - R^T| / max |R|, cond ~1
 K2_NORM_TOL = 1e-3       # K2: column norms of R against Y's, relative
 SERVING_PLAIN_TOL = 1e-3  # polar serving, kernel vs plain K2 recon error
+K3_SIZES = (1, 2, 17, 128, 200)   # 200: past shared memory, the workspace
+K3_LAM_TOL = 1e-5        # K3: max |d lambda| / max |lambda| vs plain
+# K3: max |V^T V - I| and ||V L V^T - G||_F / ||G||_F of the kernel's own
+# factors on full-rank inputs: the JAX suite's orthogonality bound
+# (tests/test_pallas.py:112).  The TPU kernel's arithmetic computes c, s
+# per row of a G that is not exactly symmetric, so its rotations are not
+# exactly orthogonal and the drift grows with the round count: JAX's own
+# kernel gives 4.0e-4 / 2.8e-4 on the main path's l = 80 tail Gram
+K3_ORTH_TOL = K3_REC_TOL = 1e-3
+K4_OMEGA_ULPS = 4        # K4: recovered Omega vs plain, in ulps of |Omega|
+K4_Y_TOL = 1e-5          # K4: max |dY| / max |Y| vs plain
+DEFAULT_P = 10           # rsvd()'s default oversampling
+FUSED = dict(k=K, p=P, q=Q, seed=0, method="eigh_pallas", sketch="fused",
+             qr_method="cholqr1_fused", interior_qr="cholqr1_fused",
+             reorth="half")
+ENGINES = ("jacobi", "parallel_jacobi", "power", "auto")
 # the H100 SXM's published peaks: dense fp32 FLOP/s and HBM3 bytes/s
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -118,10 +151,11 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def numpy_rsvd(a, l, q, seed=0):
-    """The numpy baseline of bench.py:87-99, in f64."""
-    rng = np.random.default_rng(seed)
-    omega = rng.standard_normal((a.shape[1], l))
+def numpy_rsvd(a, l, q, seed=0, omega=None):
+    """The numpy baseline of bench.py:87-99, in f64; ``omega`` replaces
+    its Gaussian draw when given."""
+    if omega is None:
+        omega = np.random.default_rng(seed).standard_normal((a.shape[1], l))
     q_mat, _ = np.linalg.qr(a @ omega)
     for _ in range(q):
         qz, _ = np.linalg.qr(a.T @ q_mat)
@@ -134,20 +168,24 @@ def recon_err(a, u, s, v):
     return float(np.linalg.norm(a - (u[:, :K] * s[:K]) @ v[:, :K].T))
 
 
+WRAPPERS = ("fused_cholqr1", "polar_qr_fused", "eigh_small",
+            "fused_sketch_matmul")      # K1, K2, K3, K4
+
+
 def plain_kernels():
-    """Both kernel wrappers swapped for their plain versions."""
-    return mock.patch.multiple(
-        kernels, fused_cholqr1=kernels.fused_cholqr1_reference,
-        polar_qr_fused=kernels.polar_qr_fused_reference)
+    """Every kernel wrapper swapped for its plain version."""
+    return mock.patch.multiple(kernels, **{
+        w: getattr(kernels, f"{w}_reference") for w in WRAPPERS})
 
 
 def reset_counts():
-    kernels.fused_cholqr1.launches = 0
-    kernels.polar_qr_fused.launches = 0
+    for w in WRAPPERS:
+        getattr(kernels, w).launches = 0
 
 
 def counts():
-    return kernels.fused_cholqr1.launches, kernels.polar_qr_fused.launches
+    """(K1, K2, K3, K4) launches since the last reset."""
+    return tuple(getattr(kernels, w).launches for w in WRAPPERS)
 
 
 def panels(a):
@@ -314,16 +352,155 @@ def phase_k2(y_main, all_panels):
                 bound_us=bound_ms * 1e3, bound_by=bound_by)
 
 
+def tail_gram(a):
+    """The l x l Gram the three-kernel path hands K3 for ``a``, captured
+    from one call through the plain versions (no launch counted)."""
+    seen = []
+
+    def capture(g, sweeps=8):
+        seen.append(g.clone())
+        return kernels.eigh_small_reference(g, sweeps)
+
+    with plain_kernels(), mock.patch.object(kernels, "eigh_small", capture):
+        rsvd(a, precision="highest", **FUSED)
+    return seen[0]
+
+
+def k3_inputs(g_main):
+    """Phase 2's symmetric matrices: the main path's tail Gram, Wishart
+    matrices at K3_SIZES, an indefinite and a rank-deficient one.  The
+    flag says whether the matrix has full rank."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    out = {f"tail Gram B B^T {g_main.shape[0]}x{g_main.shape[0]}":
+           (g_main, True)}
+    with device.ieee_fp32():
+        for n in K3_SIZES:
+            x = randn(n, 2 * n)
+            out[f"Wishart {n}x{n}"] = (x @ x.T / (2 * n), True)
+        x = randn(80, 80)
+        out["indefinite 80x80"] = (x + x.T, True)
+        x = randn(80, 20)
+        out["rank-20 Gram 80x80"] = (x @ x.T, False)
+    return out
+
+
+def phase_k3(g_main):
+    """K3 against its plain version; returns its kernels-line fields."""
+    worst = 0.0
+    for name, (g, full_rank) in k3_inputs(g_main).items():
+        lam, v = kernels.eigh_small(g)
+        lam0, v0 = kernels.eigh_small_reference(g)
+        torch.cuda.synchronize()
+        n = g.shape[0]
+        check(lam.shape == (n,) and v.shape == (n, n), name)
+        check(bool(torch.isfinite(lam).all() and torch.isfinite(v).all()),
+              f"{name}: non-finite K3 output")
+        scale = float(lam0.abs().max()) or 1.0
+        dlam = float((lam - lam0).abs().max()) / scale
+        dv = float((v - v0).abs().max())
+        orth = orth_err(v)
+        with device.ieee_fp32():
+            rec = float(torch.linalg.norm((v * lam) @ v.T - g)
+                        / torch.linalg.norm(g))
+        ascending = bool((lam[1:] >= lam[:-1]).all())
+        log(f"  K3 {name}: max|dlam|/max|lam|={dlam:.3e} max|dV|={dv:.3e} "
+            f"max|V^T V - I|={orth:.3e} ||V L V^T - G||/||G||={rec:.3e} "
+            f"lam in [{float(lam[0]):.4g}, {float(lam[-1]):.4g}]")
+        check(dlam <= K3_LAM_TOL and ascending,
+              f"{name}: K3 vs plain dlam={dlam}, ascending={ascending}")
+        if full_rank:
+            check(orth <= K3_ORTH_TOL and rec <= K3_REC_TOL,
+                  f"{name}: K3 |V^T V - I|={orth} reconstruction {rec}")
+        else:
+            # the JAX suite's check (tests/test_pallas.py:128-131): no pad
+            # eigenvalue leaks in, the spectrum is the f64 one
+            ref = torch.linalg.eigvalsh(g.double())
+            dref = float((lam.double() - ref).abs().max() / ref.abs().max())
+            log(f"  K3 {name}: vs f64 eigvalsh {dref:.3e}")
+            check(float(lam[0]) > -1e-3 * scale and dref <= 1e-4,
+                  f"{name}: K3 lambda_min={float(lam[0])}, vs f64 {dref}")
+        worst = max(worst, dlam * scale)
+
+    n = g_main.shape[0]
+    ms = cuda_ms(lambda: kernels.eigh_small(g_main), 20)
+    plain_ms = cuda_ms(lambda: kernels.eigh_small_reference(g_main), 2)
+    lib_ms = cuda_ms(lambda: torch.linalg.eigh(g_main), 20)
+    n_pad = n + n % 2
+    rounds = 8 * (n_pad - 1)
+    # per round the rotations of n_pad/2 pairs over G's columns, G's rows
+    # and V's columns: ~9 n_pad^2 flops; G read, lambda and V written
+    bound_ms, bound_by = bound(9 * rounds * n_pad ** 2,
+                               4 * (2 * n * n + n))
+    log(f"  K3 at n={n}: kernel {ms:.4f} ms ({rounds} rounds, "
+        f"{ms * 1e3 / rounds:.3f} us each), plain {plain_ms:.4f} ms, "
+        f"torch.linalg.eigh {lib_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us "
+        f"({bound_by})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms,
+                bound_us=bound_ms * 1e3, bound_by=bound_by, rounds=rounds)
+
+
+def ulp(x):
+    return (torch.nextafter(x, torch.full_like(x, float("inf"))) - x).abs()
+
+
+def phase_k4(a):
+    """K4 against its plain version; returns its kernels-line fields."""
+    eye = torch.eye(1024, device="cuda")
+    om = kernels.fused_sketch_matmul(eye, K + P, seed=0)
+    om0 = kernels.fused_sketch_omega(1024, K + P, seed=0, device="cuda")
+    ulps = float(((om - om0).abs() / ulp(om0.abs())).max())
+    log(f"  K4 recovered Omega 1024x{K + P}: max |dOmega| = {ulps:.1f} ulp, "
+        f"mean {float(om.mean()):+.4f}, std {float(om.std()):.4f}")
+    check(ulps <= K4_OMEGA_ULPS, f"K4 Omega differs by {ulps} ulp")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ragged = torch.randn(*RAGGED, device="cuda", generator=gen)
+    worst = 0.0
+    for name, x, l, seed in (("4096^2 x 80", a, K + P, 0),
+                             (f"ragged {RAGGED[0]}x{RAGGED[1]} x 17",
+                              ragged, 17, 1),
+                             ("4096^2 x 130", a, 130, 2)):
+        y = kernels.fused_sketch_matmul(x, l, seed)
+        y0 = kernels.fused_sketch_matmul_reference(x, l, seed)
+        torch.cuda.synchronize()
+        check(y.shape == y0.shape == (x.shape[0], l), name)
+        err = float((y - y0).abs().max())
+        rel = err / float(y0.abs().max())
+        log(f"  K4 {name}: max|dY|/max|Y| = {rel:.3e}")
+        check(rel <= K4_Y_TOL, f"K4 {name}: {rel}")
+        worst = max(worst, err)
+    del ragged
+    m, n = a.shape
+    l = K + P
+    omega = kernels.fused_sketch_omega(n, l, seed=0, device="cuda")
+    ms = cuda_ms(lambda: kernels.fused_sketch_matmul(a, l, 0), 20)
+    plain_ms = cuda_ms(lambda: kernels.fused_sketch_matmul_reference(a, l, 0),
+                       10)
+    with device.ieee_fp32():
+        lib_ms = cuda_ms(lambda: torch.matmul(a, omega), 20)
+    bound_ms, bound_by = bound(2 * m * n * l, 4 * (m * n + m * l))
+    log(f"  K4 at {m}x{n} x {l}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, torch.matmul(A, Omega) fp32 {lib_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.3f} us ({bound_by})")
+    return dict(max_abs_err=worst, max_ulps_omega=ulps, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_us=bound_ms * 1e3, bound_by=bound_by)
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
-    path, timings.  ``want`` = (K1, K2) launches per call.  Returns
-    ((K1, K2) launches, summary dict)."""
+    path, timings.  ``want`` = (K1, K2, K3, K4) launches per call.
+    Returns ((K1, K2, K3, K4) launches, summary dict)."""
     reset_counts()
     u, s, v = forward(a)
     torch.cuda.synchronize()
     launches = counts()
-    check(launches == want, f"{label}: (K1, K2) launches {launches}, "
-          f"not {want}")
+    check(launches == want, f"{label}: (K1, K2, K3, K4) launches "
+          f"{launches}, not {want}")
     check(u.shape == (M, K) and s.shape == (K,) and v.shape == (N, K),
           f"shapes {u.shape} {s.shape} {v.shape}")
     check(all(bool(torch.isfinite(x).all()) for x in (u, s, v)),
@@ -337,8 +514,8 @@ def phase_main_path(label, forward, a, a64, err_np, prec, want):
     dsigma = float((s - s_plain).abs().max() / s_plain[0])
     ms = cuda_ms(lambda: forward(a), 10)
     out = dict(err_ratio_vs_numpy=err_ratio, max_rel_dsigma_vs_plain=dsigma,
-               u_orth=orth, ms=ms, plain_ms=plain_ms, k1_launches=launches[0],
-               k2_launches=launches[1])
+               u_orth=orth, ms=ms, plain_ms=plain_ms,
+               launches_k1_k2_k3_k4=list(launches))
     check(err_ratio <= ERR_RATIO_MAX, f"err ratio {out}")
     check(dsigma <= SIGMA_TOL[prec], f"sigma vs plain {out}")
     check(orth <= 1e-3, f"U orthogonality {out}")
@@ -357,10 +534,11 @@ def serving_run(label, operand, a64, err_np, interior):
     reset_counts()
     u, s, v, health = call()
     torch.cuda.synchronize()
-    k1, k2 = counts()
+    launches = counts()
+    k2 = launches[1]
     want = 2 if interior == "polar_fused" else 0
-    check(k1 == 0 and k2 == want,
-          f"serving {label}/{interior}: (K1, K2) launches {(k1, k2)}")
+    check(launches == (0, want, 0, 0),
+          f"serving {label}/{interior}: launches {launches}")
     check(health["ok"], f"serving {label}/{interior}: unhealthy {health}")
     u_np, s_np, v_np = (to_numpy(x).astype(np.float64) for x in (u, s, v))
     err = recon_err(a64, u_np, s_np, v_np)
@@ -405,21 +583,43 @@ def phase_drawn_point(rows, cols, k, seed):
                err_ratio_vs_highest_project=ratio, health_ok=health["ok"],
                stored_layout_shapes=[list(x.shape) for x in a8.layouts],
                stored_bytes=sum(x.numel() for x in a8.layouts),
-               profile=profile_serving(a8, "cholqr1", k))
+               profile=profile_call(lambda: rsvd_serving(
+                   a8, k=k, p=P, q=Q, interior_qr="cholqr1")))
     check(ratio <= ERR_RATIO_MAX, f"{rows}x{cols} int8 serving {out}")
     del a, a8
     torch.cuda.empty_cache()
     return out
 
 
-def profile_serving(a8, interior, k=K):
-    """One torch.profiler pass over 10 int8 serving calls with the given
-    interiors: device time by kernel group, host syncs and the device
-    idle share."""
-    from torch.profiler import ProfilerActivity, profile
+# device kernels by name: (substrings, group), first match wins
+KERNEL_GROUPS = (
+    (("jacobi_eigh",), "K3 jacobi_eigh"),
+    (("sketch_tiles", "sum_splits"), "K4 sketch_tiles / sum_splits"),
+    (("ns_iterate",), "K2 ns_iterate"),
+    (("eliminate",), "K1 eliminate"),
+    (("gram_partials", "apply_right"),
+     "K1/K2 panel passes (gram_partials, apply_right)"),
+    (("syevj", "syevd", "sytrd", "stedc", "ormtr", "orgtr"),
+     "cuSOLVER eigh"),
+    (("i8", "s8", "imma", "int8"), "int8 GEMMs"),
+    (("potrf", "getrf", "trsm", "trtri", "cholesky", "syrk"),
+     "cholqr1 factor and solve"),
+    (("gemm", "nvjet", "xmma"), "other GEMMs"),
+)
 
-    def call():
-        return rsvd_serving(a8, k=k, p=P, q=Q, interior_qr=interior)
+
+def kernel_group(name):
+    name = name.lower()
+    for keys, group in KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other kernels"
+
+
+def profile_call(call):
+    """One torch.profiler pass over 10 calls: device time by kernel group,
+    host syncs and the device idle share."""
+    from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
@@ -437,20 +637,7 @@ def profile_serving(a8, interior, k=K):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dur = e.time_range.elapsed_us()
             busy += dur
-            name = e.name.lower()
-            if any(t in name for t in ("ns_iterate", "gram_partials",
-                                       "apply_right")):
-                key = "K2 (ns_iterate / gram_partials / apply_right)"
-            elif "i8" in name or "s8" in name or "imma" in name \
-                    or "int8" in name:
-                key = "int8 GEMMs"
-            elif any(t in name for t in ("potrf", "getrf", "trsm",
-                                         "trtri", "cholesky", "syrk")):
-                key = "cholqr1 factor and solve"
-            elif "gemm" in name or "nvjet" in name or "xmma" in name:
-                key = "other GEMMs"
-            else:
-                key = "other kernels"
+            key = kernel_group(e.name)
             groups[key] = groups.get(key, 0.0) + dur
         elif "Synchronize" in e.name or e.name == "aten::_local_scalar_dense":
             syncs += 1
@@ -495,6 +682,8 @@ def main(argv):
     k1 = phase_k1(y_main, all_panels)
     k2 = phase_k2(y_main, all_panels)
     del all_panels
+    k3 = phase_k3(tail_gram(a))
+    k4 = phase_k4(a)
     if "--kernels-only" in argv:
         log("stopping after phase 2 (--kernels-only)")
         return 0
@@ -512,17 +701,16 @@ def main(argv):
     def fwd_polar(x):        # entry()'s configuration, polar interiors
         return rsvd_with_omega(x, omega, precision="default",
                                **dict(CONFIG, interior_qr="polar_fused"))
-    k1_launches = k2_launches = 0
+    launches_total = [0, 0, 0, 0]            # K1, K2, K3, K4
     summary = {}
     for label, prec, fwd, want in (
-            ("highest", "highest", fwd_hi, (Q + 1, 0)),
-            ("default", "default", fwd_def, (Q + 1, 0)),
+            ("highest", "highest", fwd_hi, (Q + 1, 0, 0, 0)),
+            ("default", "default", fwd_def, (Q + 1, 0, 0, 0)),
             ("default, polar_fused interiors", "default", fwd_polar,
-             (1, 2))):
+             (1, 2, 0, 0))):
         launches, out = phase_main_path(label, fwd, a, a64, err_np, prec,
                                         want)
-        k1_launches += launches[0]
-        k2_launches += launches[1]
+        launches_total = [t + c for t, c in zip(launches_total, launches)]
         summary[label] = out
         log(f"  main path [{label}]: " + json.dumps(out))
     # the same configuration through the public rsvd()
@@ -531,11 +719,68 @@ def main(argv):
                      **{k: v for k, v in CONFIG.items() if k != "k"})
     torch.cuda.synchronize()
     launches = counts()
-    check(launches == (Q + 1, 0) and bool(torch.isfinite(s_r).all()),
-          f"rsvd(): (K1, K2) launches {launches}")
-    k1_launches += launches[0]
-    log(f"  rsvd() [default]: (K1, K2) launches {launches}, "
+    check(launches == (Q + 1, 0, 0, 0) and bool(torch.isfinite(s_r).all()),
+          f"rsvd(): launches {launches}")
+    launches_total[0] += launches[0]
+    log(f"  rsvd() [default]: (K1, K2, K3, K4) launches {launches}, "
         f"s[0]={float(s_r[0]):.4f}")
+
+    log("phase 3: the three-kernel path (K4 sketch, K1 interiors, K3 tail)")
+    omega_f = to_numpy(kernels.fused_sketch_omega(N, K + P, 0, "cuda"))
+    u_n, s_n, v_n = numpy_rsvd(a64, K + P, Q, omega=omega_f.astype(np.float64))
+    err_np_fused = recon_err(a64, u_n, s_n, v_n)
+    log(f"  numpy f64 rSVD on the fused Omega: err {err_np_fused:.6f}")
+    fused = {}
+    for prec in ("highest", "default"):
+        def fwd_fused(x, prec=prec):
+            return rsvd(x, precision=prec, **FUSED)
+        label = f"three kernels, {prec}"
+        launches, out = phase_main_path(label, fwd_fused, a, a64,
+                                        err_np_fused, prec,
+                                        (Q + 1, 0, 1, 1))
+        launches_total = [t + c for t, c in zip(launches_total, launches)]
+        fused[prec] = out
+        log(f"  main path [{label}]: " + json.dumps(out))
+    fused["profile_highest"] = profile_call(
+        lambda: rsvd(a, precision="highest", **FUSED))
+    log("  profile [three kernels, highest]: "
+        + json.dumps(fused["profile_highest"]))
+    summary["three_kernels"] = fused
+
+    log(f"phase 3: rsvd(A, k={K}) at its defaults and the other engines")
+    u_n, s_n, v_n = numpy_rsvd(a64, K + DEFAULT_P, Q)
+    err_np_def = recon_err(a64, u_n, s_n, v_n)
+    log(f"  numpy f64 rSVD at l={K + DEFAULT_P}: err {err_np_def:.6f}")
+    engines = {}
+    for method in ENGINES:
+        def call(method=method):
+            if method == "jacobi":
+                return rsvd(a, k=K)                  # the public defaults
+            return rsvd(a, k=K, method=method)
+        sweeps = []
+        real_core = jacobi._jacobi_core
+
+        def spy(*args):
+            out = real_core(*args)
+            sweeps.append(out[3])
+            return out
+        reset_counts()
+        with mock.patch.object(jacobi, "_jacobi_core", spy):
+            u, s, v = call()
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == (0, 0, 0, 0), f"{method}: launches {launches}")
+        check(u.shape == (M, K) and s.shape == (K,) and v.shape == (N, K)
+              and all(bool(torch.isfinite(x).all()) for x in (u, s, v)),
+              f"{method}: factors")
+        ratio = recon_err(a64, *(to_numpy(x).astype(np.float64)
+                                 for x in (u, s, v))) / err_np_def
+        out = dict(err_ratio_vs_numpy=ratio, ms=cuda_ms(call, 2),
+                   jacobi_sweeps=sweeps)
+        engines[method] = out
+        log(f"  rsvd(k={K}, method={method!r}): " + json.dumps(out))
+        check(ratio <= ERR_RATIO_MAX, f"{method}: err ratio {ratio}")
+    summary["defaults_and_engines"] = engines
 
     log("phase 4: serving path")
     quant_ms = cuda_ms(lambda: prepare_operand(a), 10)
@@ -545,7 +790,7 @@ def main(argv):
     for storage, operand in (("int8", a8), ("bf16", a), ("default", a)):
         for interior in ("cholqr1", "polar_fused"):
             n_k2, out = serving_run(storage, operand, a64, err_np, interior)
-            k2_launches += n_k2
+            launches_total[1] += n_k2
             serving["runs"].append(out)
             log(f"  serving [{storage}, {interior}]: " + json.dumps(out))
     serving["ragged_point"] = phase_drawn_point(*RAGGED, K, seed=3)
@@ -556,7 +801,8 @@ def main(argv):
         + json.dumps(serving["hbm_point"]))
     for interior in ("polar_fused", "cholqr1"):
         key = f"profile_int8_{interior}"
-        serving[key] = profile_serving(a8, interior)
+        serving[key] = profile_call(
+            lambda: rsvd_serving(a8, k=K, p=P, q=Q, interior_qr=interior))
         log(f"  profile [int8, {interior}, 4096^2]: "
             + json.dumps(serving[key]))
 
@@ -570,12 +816,22 @@ def main(argv):
              source=f"{pkg}/csrc/cholqr1.cu",
              replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
                       "pallas_kernels.py:321",
-             launches=k1_launches, **k1),
+             launches=launches_total[0], **k1),
         dict(name="polar_qr_fused", route="cuda",
              source=f"{pkg}/csrc/polar.cu",
              replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
                       "polar.py:257",
-             launches=k2_launches, **k2),
+             launches=launches_total[1], **k2),
+        dict(name="eigh_small", route="cuda",
+             source=f"{pkg}/csrc/eigh.cu",
+             replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
+                      "pallas_kernels.py:401",
+             launches=launches_total[2], **k3),
+        dict(name="fused_sketch_matmul", route="cuda",
+             source=f"{pkg}/csrc/sketch.cu",
+             replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
+                      "pallas_kernels.py:116",
+             launches=launches_total[3], **k4),
     ], "main_path": summary, "serving": serving}
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

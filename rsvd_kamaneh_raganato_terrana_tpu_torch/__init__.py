@@ -13,9 +13,11 @@ Layer map (the ported part so far):
                hand-over (``convert``).
 - ``ops``    -- the primitive products the QR/SVD/driver layers use.
 - ``linalg`` -- CholeskyQR family and ``qr_reduced``, Newton--Schulz
-               polar (``polar``), the Gram-eigh SVD tail, and the
-               hand-written Hopper kernels (``kernels``: K1
-               ``fused_cholqr1``, K2 ``polar_qr_fused``; sources in
+               polar (``polar``), the SVD engines (tournament Jacobi
+               ``jacobi``, power iteration ``power``, the dispatch
+               ``svd``) and the hand-written Hopper kernels
+               (``kernels``: K1 ``fused_cholqr1``, K2 ``polar_qr_fused``,
+               K3 ``eigh_small``, K4 ``fused_sketch_matmul``; sources in
                ``csrc/``, built by ``linalg/_build.py``).
 - ``rsvd``   -- the randomized SVD driver (finishes 'project',
                'rowspace', 'utv', 'rowspace_utv'; bf16 and int8
@@ -26,7 +28,12 @@ Layer map (the ported part so far):
 
 __version__ = "0.1.0"
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import SVDMethod  # noqa: F401
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (  # noqa: F401
+    SVD,
+    SVDMethod,
+    jacobi_svd,
+    power_svd,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.diagnostics import (  # noqa: F401
     factor_health,
     principal_angles,

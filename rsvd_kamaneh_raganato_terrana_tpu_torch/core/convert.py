@@ -14,8 +14,9 @@ import torch
 
 
 def from_numpy(x, device=None, dtype=None) -> torch.Tensor:
-    """Tensor copy of ``x`` (anything with ``__array__``) on ``device``,
-    cast to ``dtype`` when given."""
+    """Tensor copy of ``x`` (anything with ``__array__``) on ``device``
+    (the card unless the caller names another), cast to ``dtype`` when
+    given."""
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":
         # numpy has no native bf16 (ml_dtypes supplies it): widen exactly,
@@ -23,7 +24,7 @@ def from_numpy(x, device=None, dtype=None) -> torch.Tensor:
         arr = arr.astype(np.float32)
         dtype = torch.bfloat16 if dtype is None else dtype
     t = torch.from_numpy(np.array(arr, order="C"))   # always a copy
-    return t.to(device=device or "cpu", dtype=dtype)
+    return t.to(device=device or "cuda", dtype=dtype)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -4,7 +4,12 @@ versions (the counterpart of the JAX package's
 
 - K1 ``fused_cholqr1`` (``csrc/cholqr1.cu``): CholeskyQR1;
 - K2 ``polar_qr_fused`` (``csrc/polar.cu``): Newton--Schulz polar
-  orthonormalization, with a ``stage`` probe of its intermediates.
+  orthonormalization, with a ``stage`` probe of its intermediates;
+- K3 ``eigh_small`` (``csrc/eigh.cu``): eigendecomposition of a small
+  symmetric matrix by fixed-sweep two-sided Jacobi (the rSVD tail's
+  ``method='eigh_pallas'``);
+- K4 ``fused_sketch_matmul`` (``csrc/sketch.cu``): the sketch Y = A Omega
+  with the Gaussian Omega drawn inside the kernel (``sketch='fused'``).
 
 Each kernel has:
 
@@ -22,6 +27,7 @@ Sources live in ``csrc/`` and build with ``nvcc`` at first use
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -56,18 +62,26 @@ def fused_cholqr1_reference(y):
     return q.to(y.dtype), r.to(y.dtype)
 
 
-def _cholqr1_lib():
-    lib = _build.library("cholqr1")
+def _library(name: str, signatures: dict):
+    """The kernel library of ``csrc/<name>.cu`` with its C functions
+    typed: ``signatures`` maps each name to (restype, argtypes)."""
+    lib = _build.library(name)
     if not getattr(lib, "typed", False):
-        lib.rsvd_cholqr1_workspace_floats.restype = ctypes.c_size_t
-        lib.rsvd_cholqr1_workspace_floats.argtypes = [ctypes.c_int] * 2
-        lib.rsvd_cholqr1_f32.restype = ctypes.c_int
-        lib.rsvd_cholqr1_f32.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.rsvd_cuda_error_string.restype = ctypes.c_char_p
-        lib.rsvd_cuda_error_string.argtypes = [ctypes.c_int]
+        signatures = dict(signatures, rsvd_cuda_error_string=(
+            ctypes.c_char_p, [ctypes.c_int]))
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
         lib.typed = True
     return lib
+
+
+def _cholqr1_lib():
+    return _library("cholqr1", {
+        "rsvd_cholqr1_workspace_floats": (ctypes.c_size_t,
+                                          [ctypes.c_int] * 2),
+        "rsvd_cholqr1_f32": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])})
 
 
 def _check_launch(lib, err: int, name: str):
@@ -179,18 +193,11 @@ def polar_qr_fused_reference(y, iters: int = 8, mu_min: float = 1e-6,
 
 
 def _polar_lib():
-    lib = _build.library("polar")
-    if not getattr(lib, "typed", False):
-        lib.rsvd_polar_workspace_floats.restype = ctypes.c_size_t
-        lib.rsvd_polar_workspace_floats.argtypes = [ctypes.c_int] * 2
-        lib.rsvd_polar_f32.restype = ctypes.c_int
-        lib.rsvd_polar_f32.argtypes = [ctypes.c_void_p] * 4 + [
+    return _library("polar", {
+        "rsvd_polar_workspace_floats": (ctypes.c_size_t, [ctypes.c_int] * 2),
+        "rsvd_polar_f32": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.rsvd_cuda_error_string.restype = ctypes.c_char_p
-        lib.rsvd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.typed = True
-    return lib
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])})
 
 
 def polar_qr_fused(y, iters: int = 8, mu_min: float = 1e-6, stage=None):
@@ -244,3 +251,212 @@ def polar_qr_fused(y, iters: int = 8, mu_min: float = 1e-6, stage=None):
 
 
 polar_qr_fused.launches = 0
+
+
+_F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def eigh_small_reference(g, sweeps: int = 8):
+    """Eigendecomposition of a small symmetric matrix G (n x n,
+    indefinite allowed) by the arithmetic of the JAX kernel
+    ``_eigh_kernel`` in plain torch ops, at f32: (eigenvalues ascending,
+    V with eigenvectors in columns), like ``torch.linalg.eigh``.
+
+    G is padded to an even n_pad with pad diagonal -(||G||_F + 1), then
+    ``sweeps * (n_pad - 1)`` rounds rotate the mirror pairs
+    (i, n_pad - 1 - i) -- J = I c + anti s, G <- J^T G J, V <- V J, each
+    a sum of two rounded products -- and apply the circle permutation Pi.
+    The ascending stable sort drops the pad eigenpair.  Computed in f32,
+    returned in ``g.dtype``."""
+    n = g.shape[-1]
+    n_pad = n + n % 2
+    g32 = g.to(torch.float32)
+    if n_pad != n:
+        g32 = torch.nn.functional.pad(g32, (0, 1, 0, 1))
+        g32[n, n] = -(torch.linalg.norm(g32) + 1.0)
+    v = torch.eye(n_pad, dtype=torch.float32, device=g.device)
+    # the circle permutation, Pi = eye[:, perm]: perm[0] = 0,
+    # perm[1] = n_pad - 1, perm[a] = a - 1 for a >= 2
+    perm = torch.arange(-1, n_pad - 1, device=g.device)
+    perm[:2] = torch.tensor([0, n_pad - 1])
+    idx = torch.arange(n_pad, device=g.device)
+    for _ in range(sweeps * (n_pad - 1)):
+        d = torch.diagonal(g32)
+        r = g32[idx, idx.flip(0)]                     # G[i, n_pad - 1 - i]
+        rev_d = d.flip(0)
+        do = r * r > (_F32_EPS * _F32_EPS) * torch.abs(d * rev_d)
+        g_safe = torch.where(do, r, torch.ones_like(r))
+        tau = (rev_d - d) / (2.0 * g_safe)
+        sgn = torch.where(tau >= 0, 1.0, -1.0)
+        t = torch.where(do, sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau)),
+                        torch.zeros_like(tau))
+        c = torch.rsqrt(1.0 + t * t)
+        s_rev = (t * c).flip(0)                       # s of each mirror
+        x = g32 * c[None, :] + g32.flip(1) * s_rev[None, :]        # G J
+        g32 = x * c[:, None] + x.flip(0) * s_rev[:, None]          # J^T G J
+        v = v * c[None, :] + v.flip(1) * s_rev[None, :]
+        g32 = g32[perm][:, perm]
+        v = v[:, perm]
+    lam = torch.diagonal(g32)
+    order = torch.argsort(lam, stable=True)[n_pad - n:]
+    return lam[order].to(g.dtype), v[:n, order].to(g.dtype)
+
+
+def _eigh_lib():
+    return _library("eigh", {
+        "rsvd_eigh_workspace_floats": (ctypes.c_size_t, [ctypes.c_int]),
+        "rsvd_eigh_small_f32": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])})
+
+
+def eigh_small(g, sweeps: int = 8):
+    """Eigendecomposition of a small symmetric matrix G (n x n,
+    indefinite allowed): (eigenvalues ascending, V), the contract of
+    ``torch.linalg.eigh``, at ~f32 eps relative to the dominant
+    eigenvalue after ``sweeps`` Jacobi sweeps.  On a CUDA tensor it
+    launches ``csrc/eigh.cu`` (one block, one launch, no host sync) on
+    the current stream; on a CPU tensor it runs
+    :func:`eigh_small_reference`.  Computed in f32, returned in
+    ``g.dtype`` (the JAX kernel returns f32).  G and V stay in shared
+    memory up to n = 168 and move to a device workspace above."""
+    if g.ndim != 2 or g.shape[0] != g.shape[1]:
+        raise ValueError(f"eigh_small takes a square matrix, got {g.shape}")
+    if sweeps < 0:
+        raise ValueError(f"eigh_small: sweeps={sweeps} < 0")
+    n = g.shape[0]
+    if n == 0:
+        return g.new_zeros((0,)), g.new_zeros((0, 0))
+    if g.device.type == "cpu":
+        return eigh_small_reference(g, sweeps)
+    if g.device.type != "cuda":
+        raise ValueError(f"eigh_small has no kernel for {g.device}")
+    if sweeps * (n + 1) >= 2 ** 31:
+        raise ValueError(f"eigh_small: {sweeps} sweeps at n = {n} exceed "
+                         "the kernel's 32-bit round count")
+    g32 = g.to(torch.float32).contiguous()
+    lam = torch.empty((n,), dtype=torch.float32, device=g.device)
+    v = torch.empty((n, n), dtype=torch.float32, device=g.device)
+    lib = _eigh_lib()
+    # as in fused_cholqr1: the allocator reuses g32's and work's blocks
+    # only for work queued after the kernel on this stream
+    work = torch.empty(lib.rsvd_eigh_workspace_floats(n),
+                       dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rsvd_eigh_small_f32(g32.data_ptr(), lam.data_ptr(),
+                                      v.data_ptr(), work.data_ptr(), n,
+                                      sweeps, stream)
+    _check_launch(lib, err, "eigh_small")
+    eigh_small.launches += 1
+    return lam.to(g.dtype), v.to(g.dtype)
+
+
+eigh_small.launches = 0
+
+
+_M32 = 0xFFFFFFFF
+_SKETCH_SALT = 0x68BC21EB
+_TWO_PI_F32 = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
+
+
+def _mul32(h, c: int):
+    """(h * c) mod 2^32 for 0 <= h < 2^32 held in int64 (or a Python
+    int), with no product above 2^48: c is split into 16-bit halves."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix(h):
+    """The murmur3 finalizer of ``pallas_kernels._mix`` on uint32 values
+    held in int64 (torch has no ``>>`` for uint32 on the CPU)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _unit_floats(bits):
+    """Top 24 bits -> f32 in (0, 1), floored at 1e-12
+    (``pallas_kernels._bits_to_unit_floats``)."""
+    return torch.clamp((bits >> 8).to(torch.float32) * (1.0 / (1 << 24)),
+                       min=1e-12)
+
+
+def fused_sketch_omega(n: int, l: int, seed: int = 0, device=None):
+    """The n x l Gaussian Omega that ``fused_sketch_matmul`` multiplies:
+    entry (row, col) hashed from (seed, row * l_pad + col) with
+    l_pad = max(128, l rounded up to 128), then Box--Muller at f32
+    (``pallas_kernels._gaussian_tile``).  On ``device`` (the card unless
+    the caller names another)."""
+    device = torch.device(device or "cuda")
+    l_pad = max(128, -(-l // 128) * 128)
+    rows = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(l, dtype=torch.int64, device=device)[None, :]
+    h0 = _mix(((rows * l_pad + cols) & _M32) ^ _mix(seed & _M32))
+    h1 = _mix(h0 ^ _SKETCH_SALT)
+    u1, u2 = _unit_floats(h0), _unit_floats(h1)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI_F32 * u2)
+
+
+def fused_sketch_matmul_reference(a, l: int, seed: int = 0):
+    """Y = A Omega with Omega = :func:`fused_sketch_omega` (n, l, seed)
+    materialized, in plain torch ops: A cast to f32, an IEEE fp32
+    product, Y returned in ``a.dtype``."""
+    omega = fused_sketch_omega(a.shape[1], l, seed, a.device)
+    with ieee_fp32():
+        y = a.to(torch.float32) @ omega
+    return y.to(a.dtype)
+
+
+def _sketch_lib():
+    return _library("sketch", {
+        "rsvd_sketch_workspace_floats": (ctypes.c_size_t,
+                                         [ctypes.c_int] * 3),
+        "rsvd_sketch_f32": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 3 + [ctypes.c_uint32, ctypes.c_void_p])})
+
+
+def fused_sketch_matmul(a, l: int, seed: int = 0, block_m: int = 512,
+                        block_k: int = 512):
+    """Y = A Omega (m x l) with Omega ~ N(0, 1)^(n x l) drawn from
+    (seed, index) and never stored: the draw of the JAX kernel, so both
+    packages sketch with the same Omega.  On a CUDA tensor it launches
+    ``csrc/sketch.cu`` (plain fp32 FMA, no TF32) on the current stream;
+    on a CPU tensor it runs :func:`fused_sketch_matmul_reference`.  A is
+    read in f32 and Y returned in ``a.dtype``.  ``block_m`` and
+    ``block_k`` keep the JAX signature; the result does not depend on
+    them, and the CUDA kernel's tiling is its own (128 x 128 tiles of Y,
+    the contraction split for occupancy)."""
+    if not isinstance(a, torch.Tensor) or a.ndim != 2:
+        raise TypeError("fused_sketch_matmul takes a dense 2-D tensor, got "
+                        f"{type(a).__name__}")
+    if l < 0:
+        raise ValueError(f"fused_sketch_matmul: l={l} < 0")
+    if a.device.type == "cpu":
+        return fused_sketch_matmul_reference(a, l, seed)
+    if a.device.type != "cuda":
+        raise ValueError(f"fused_sketch_matmul has no kernel for {a.device}")
+    m, n = a.shape
+    if max(m, n, l) >= 2 ** 31:
+        raise ValueError(f"fused_sketch_matmul: {a.shape} x {l} exceeds "
+                         "the kernel's 32-bit dimensions")
+    if m == 0 or n == 0 or l == 0:
+        return torch.zeros((m, l), dtype=a.dtype, device=a.device)
+    a32 = a.to(torch.float32).contiguous()
+    y = torch.empty((m, l), dtype=torch.float32, device=a.device)
+    lib = _sketch_lib()
+    # as in fused_cholqr1: the allocator reuses a32's and work's blocks
+    # only for work queued after the kernel on this stream
+    work = torch.empty(lib.rsvd_sketch_workspace_floats(m, n, l),
+                       dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rsvd_sketch_f32(a32.data_ptr(), y.data_ptr(),
+                                  work.data_ptr(), m, n, l, seed & _M32,
+                                  stream)
+    _check_launch(lib, err, "fused_sketch_matmul")
+    fused_sketch_matmul.launches += 1
+    return y.to(a.dtype)
+
+
+fused_sketch_matmul.launches = 0

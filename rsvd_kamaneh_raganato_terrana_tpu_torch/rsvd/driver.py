@@ -12,11 +12,13 @@ int8, :class:`Int8Stored`, products on ``torch._int_mm``).
 The dense stage-A GEMMs go to ``torch.matmul``/``torch.mm`` at the
 requested precision (``core/device.py``); the orthonormalizations go
 through ``linalg.qr.qr_reduced``, whose ``cholqr1_fused`` and
-``polar_fused`` methods are the hand-written Hopper kernels K1 and K2.
+``polar_fused`` methods are the hand-written Hopper kernels K1 and K2;
+``sketch='fused'`` draws Omega inside kernel K4 and ``method=
+'eigh_pallas'`` runs the tail's eigh as kernel K3 (``linalg/kernels.py``).
 
 Not ported yet (ROADMAP.md), each raising ``NotImplementedError``: the
-``'high'`` precision; sparse operands; ``sketch='fused'`` (kernel K4);
-the SVD engines other than ``'eigh'`` and ``'xla'``.
+``'high'`` precision; sparse operands; the block Jacobi engine (a
+'parallel_jacobi' tail wider than 512).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     key_from_seed,
     sketch_matrix,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import (
     orthonormal_basis,
     qr_reduced,
@@ -297,9 +300,10 @@ def _fold_weights(tri):
     return s, torch.clamp(s, min=torch.finfo(acc).tiny)
 
 
-def _check_ported(method, precision, finish):
-    """Refuse unported or unknown options before any work is done."""
-    check_ported(method)
+def _check_ported(method, precision, finish, tail_min_dim):
+    """Refuse unported or unknown options before any work is done;
+    ``tail_min_dim`` is the smaller side of the tail's matrix."""
+    check_ported(method, tail_min_dim)
     resolve_precision(precision)
     if finish not in _FINISHES:
         raise ValueError(f"unknown finish {finish!r} (use 'project', "
@@ -351,10 +355,10 @@ def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
     - ``'rowspace_utv'`` (q >= 1): the rowspace stage A ending in one
       thin QR of C; the same weight / unit-column contract as 'utv'.
 
-    The default ``method='jacobi'`` is kept from the JAX signature and
-    raises until the Jacobi engine is ported; pass ``method='eigh'`` or
-    ``'xla'``."""
-    _check_ported(method, precision, finish)
+    ``method`` is the small-SVD engine of the tail (``linalg/svd.py``);
+    the default 'jacobi' is the JAX signature's."""
+    _check_ported(method, precision, finish,
+                  min(omega.shape[1], *a.shape))
     a_stage = _stage_operand(a, precision)
     if finish in ("rowspace", "rowspace_utv"):
         if q < 1:
@@ -396,13 +400,33 @@ def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
 def rsvd_core(a, seed, *, k, p, q, method, sketch, qr_method, precision,
               reorth, interior_qr, finish="project"):
     """Core of :func:`rsvd`: l = k + p (p when k = 0), Omega drawn from
-    ``seed`` on A's device, then :func:`rsvd_with_omega`."""
+    ``seed`` on A's device, then :func:`rsvd_with_omega`.
+
+    ``sketch='fused'`` (finish='project' only) takes Y = A Omega from
+    kernel K4, whose Omega is hashed from ``seed`` inside the kernel, and
+    runs the stage-A refinement on A as it is: as in the JAX package, the
+    storage modes 'bf16' and 'int8' then neither cast nor quantize A
+    (their products keep 'default' numerics), and an
+    :class:`Int8Stored` operand raises ``TypeError``."""
     m, n = a.shape
     l = min(k + p if k > 0 else p, min(m, n))
     if sketch == "fused":
-        raise NotImplementedError(
-            "sketch='fused' (kernel K4) is not ported to the PyTorch "
-            "package yet (ROADMAP.md, queue 2)")
+        if finish != "project":
+            raise ValueError("sketch='fused' (a documented negative-"
+                             "result experiment) only supports "
+                             "finish='project'")
+        _check_ported(method, precision, finish, min(l, n))
+        y = kernels.fused_sketch_matmul(a, l, seed)
+        inner = qr_method if interior_qr is None or q == 0 else interior_qr
+        q_mat = _interior_basis(y, inner)
+        q_mat = power_refine(a, q_mat, q, qr_method, precision, reorth,
+                             interior_qr)
+        b = _mm(q_mat.T, a, precision)
+        u_t, s, v = small_svd(b, method)
+        u = _mm(q_mat, u_t)
+        if k > 0:
+            u, s, v = u[:, :k], s[:k], v[:, :k]
+        return u, s, v
     omega = generate_omega(seed, n, l, a.dtype, sketch, device=a.device)
     return rsvd_with_omega(a, omega, q, k, method, qr_method, precision,
                            reorth, interior_qr, finish)
@@ -430,11 +454,10 @@ def rsvd(
     'highest' (IEEE fp32 GEMMs), 'default' (bf16 operands, f32
     accumulation on CUDA), 'bf16' ('default' numerics with A cast once to
     bf16) or 'int8' (row-scaled int8 storage; pre-quantize with
-    :func:`quantize_int8_rows` when factoring the same A repeatedly).  A
-    tensor stays on its device; any other array goes to the card.  The
-    default ``method=SVDMethod.Jacobi`` is kept from the JAX signature,
-    so a call with it raises ``NotImplementedError`` until the Jacobi
-    engine is ported; pass ``method='eigh'`` or ``'xla'``."""
+    :func:`quantize_int8_rows` when factoring the same A repeatedly);
+    sketch: 'gaussian', 'rademacher' or 'fused' (kernel K4, see
+    :func:`rsvd_core`).  A tensor stays on its device; any other array
+    goes to the card."""
     method = SVDMethod.parse(method)
     a = _as_operand(a)
     if not isinstance(a, Int8Stored) and a.is_complex():

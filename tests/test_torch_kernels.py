@@ -6,6 +6,7 @@ On the CPU the port's wrapper runs its plain PyTorch version
 mode, as tests/test_polar.py runs it.  The CUDA kernel itself is held to
 the plain version on the card by ``chip_smoke.py``."""
 
+import functools
 import numpy as np
 import pytest
 import torch
@@ -15,11 +16,12 @@ import jax.numpy as jnp
 from rsvd_kamaneh_raganato_terrana_tpu.linalg.pallas_kernels import (
     fused_cholqr1 as jax_fused_cholqr1,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import (
-    from_numpy,
-    to_numpy,
-)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import convert
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import _build, kernels
+
+# the port's entry points default to the card; these tests run on the CPU
+from_numpy = functools.partial(convert.from_numpy, device="cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -102,7 +104,8 @@ def test_wrapper_refuses_a_device_without_kernel():
 
 def test_build_names_sm90a_and_only_package_sources():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["cholqr1.cu", "polar.cu"]
+    assert [s.name for s in srcs] == ["cholqr1.cu", "eigh.cu", "polar.cu",
+                                      "sketch.cu"]
     assert [h.name for h in _build.headers()] == ["panel.cuh"]
     for src in srcs:
         cmd = _build.nvcc_command("nvcc", src, _build.library_path(src))

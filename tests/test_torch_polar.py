@@ -9,6 +9,7 @@ tests/test_polar.py runs it; the port's wrapper runs its plain version on
 a CPU tensor.  The CUDA kernel itself is held to the plain version on the
 card by ``chip_smoke.py``."""
 
+import functools
 import numpy as np
 import pytest
 import torch
@@ -18,16 +19,17 @@ import jax.numpy as jnp
 from rsvd_kamaneh_raganato_terrana_tpu.linalg import polar as jpolar
 from rsvd_kamaneh_raganato_terrana_tpu.linalg import qr as jqr
 from rsvd_kamaneh_raganato_terrana_tpu.rsvd import diagnostics as jdiag
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import (
-    from_numpy,
-    to_numpy,
-)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import convert
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import polar as tpolar
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import qr as tqr
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import diagnostics as tdiag
 
 STAGES = ("gram", "gt", "w1", "h1", "h2", "h4", "h8")
+
+# the port's entry points default to the card; these tests run on the CPU
+from_numpy = functools.partial(convert.from_numpy, device="cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -5,6 +5,7 @@ packages; Q and R must agree to 1e-10 after column signs are fixed
 (the CholeskyQR methods give positive-diagonal R in both; Householder's
 signs are LAPACK's choice)."""
 
+import functools
 import numpy as np
 import pytest
 import torch
@@ -12,14 +13,15 @@ import torch
 import jax.numpy as jnp
 
 from rsvd_kamaneh_raganato_terrana_tpu.linalg import qr as jqr
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import (
-    from_numpy,
-    to_numpy,
-)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import convert
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import qr as tqr
 
 PORTED = ("robust", "robust1", "cholqr1", "cholqr1_fused", "cholqr2",
           "cholqr3", "householder")
+
+# the port's entry points default to the card; these tests run on the CPU
+from_numpy = functools.partial(convert.from_numpy, device="cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")

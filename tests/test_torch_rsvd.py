@@ -6,6 +6,7 @@ The same numpy A and Omega go to ``rsvd_with_omega`` in both packages
 JAX side runs the Pallas ``fused_cholqr1`` in interpret mode and the
 port runs its plain PyTorch version, as each does on the CPU."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -14,16 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from rsvd_kamaneh_raganato_terrana_tpu.rsvd import driver as jdrv
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core import device, rng
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import (
-    from_numpy,
-    to_numpy,
-)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import convert, device, rng
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.entry import CONFIG, entry
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import power as tpower
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
     SVDMethod,
     svd,
@@ -31,6 +31,9 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver as tdrv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the port's entry points default to the card; these tests run on the CPU
+from_numpy = functools.partial(convert.from_numpy, device="cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -131,6 +134,8 @@ def test_import_leaves_jax_out():
             "import rsvd_kamaneh_raganato_terrana_tpu_torch\n"
             "import rsvd_kamaneh_raganato_terrana_tpu_torch.entry\n"
             "import rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.kernels\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power\n"
             "print('jax' in sys.modules, 'torch' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -139,9 +144,6 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(method="jacobi"),
-    dict(method="power"),
-    dict(method="eigh_pallas"),
     dict(precision="high"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kwargs):
@@ -153,15 +155,102 @@ def test_unported_options_raise(kwargs):
         tdrv.rsvd_with_omega(a, from_numpy(_omega(32, 8)), q=1, **kw)
 
 
-def test_rsvd_default_method_is_jacobi_and_raises():
-    with pytest.raises(NotImplementedError, match="jacobi"):
-        tdrv.rsvd(from_numpy(_gapped_operator(48, 32)), k=4)
+def test_rsvd_runs_at_its_defaults():
+    """rsvd(A, k) with no other argument: the Jacobi tail, p=10, q=2,
+    'robust' QR, reorth 'full', 'highest'."""
+    a = from_numpy(_gapped_operator(48, 32))
+    u, s, v = tdrv.rsvd(a, k=4)
+    assert u.shape == (48, 4) and s.shape == (4,) and v.shape == (32, 4)
+    assert torch.all(s[:-1] >= s[1:]) and torch.isfinite(u).all()
+    # the same as the Jacobi tail on the seeded sketch
+    omega = tdrv.generate_omega(0, 32, 14, device="cpu")
+    _, s2, _ = tdrv.rsvd_with_omega(a, omega, k=4, method="jacobi")
+    assert torch.equal(s, s2)
 
 
-def test_fused_sketch_raises():
-    with pytest.raises(NotImplementedError, match="K4"):
-        tdrv.rsvd(from_numpy(_gapped_operator(48, 32)), k=4,
-                  method="eigh", sketch="fused")
+@pytest.mark.parametrize("method", ["jacobi", "parallel_jacobi", "power"])
+def test_rsvd_with_omega_at_jax_defaults_matches_jax(method, monkeypatch):
+    """rsvd()'s defaults (qr 'robust', reorth 'full', 'highest') with the
+    Jacobi tail and the other two engines, f64, on the same Omega; the
+    power tail gets JAX's start vectors."""
+    a = _gapped_operator(dtype=np.float64)
+    omega = _omega(256, 24, dtype=np.float64)
+    x0s = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (24, 256),
+                                       jnp.float64))
+    monkeypatch.setattr(tpower, "gaussian",
+                        lambda key, shape, dt: from_numpy(x0s).to(dt))
+    (u_j, s_j, v_j), (u_t, s_t, v_t) = _both(a, omega, k=16, method=method)
+    assert s_t.dtype == np.float64 and u_t.shape == (384, 16)
+    np.testing.assert_allclose(s_t, s_j, rtol=0, atol=1e-10 * s_j[0])
+    # sigma_16 / sigma_17 ~ 1.03: subspaces to roundoff / gap
+    assert _sines(u_t, u_j).max() <= 1e-8
+    assert _sines(v_t, v_j).max() <= 1e-8
+
+
+@pytest.mark.parametrize("seed", [0, 11])
+def test_three_kernel_rsvd_matches_jax_on_the_same_seed(seed):
+    """sketch='fused' (K4) -> cholqr1_fused (K1) -> eigh_pallas (K3) in
+    f32: the hashed Omega is the same in both packages, so the same call
+    with the same seed is compared, no Omega handed over."""
+    a = _gapped_operator()
+    kw = dict(k=16, p=8, q=2, method="eigh_pallas", sketch="fused",
+              seed=seed, qr_method="cholqr1_fused",
+              interior_qr="cholqr1_fused", reorth="half")
+    u_j, s_j, v_j = (np.asarray(x) for x in jdrv.rsvd(jnp.asarray(a), **kw))
+    u_t, s_t, v_t = (to_numpy(x) for x in tdrv.rsvd(from_numpy(a), **kw))
+    assert u_t.shape == (384, 16) and u_t.dtype == np.float32
+    # f32 roundoff through the sketch, 3 eliminations and 8 Jacobi
+    # sweeps: 1.3e-6 relative measured
+    assert np.max(np.abs(s_t - s_j)) / s_j[0] <= 1e-4
+    e_j = np.linalg.norm(a - (u_j * s_j) @ v_j.T)
+    e_t = np.linalg.norm(a - (u_t * s_t) @ v_t.T)
+    assert abs(e_t / e_j - 1.0) <= 1e-3
+    assert _sines(u_t, u_j).max() <= 1e-3
+    assert _sines(v_t, v_j).max() <= 1e-3
+
+
+def test_fused_sketch_is_the_kernel_sketch(monkeypatch):
+    """The fused branch takes Y from K4's wrapper: once per call, at
+    l = k + p, with the call's seed."""
+    calls = []
+    real = kernels.fused_sketch_matmul
+
+    def counting(a, l, seed=0):
+        calls.append((tuple(a.shape), l, seed))
+        return real(a, l, seed)
+
+    monkeypatch.setattr(kernels, "fused_sketch_matmul", counting)
+    tdrv.rsvd(from_numpy(_gapped_operator(96, 64)), k=8, p=6, seed=5,
+              method="eigh", sketch="fused")
+    assert calls == [((96, 64), 14, 5)]
+
+
+@pytest.mark.parametrize("finish", ["rowspace", "utv", "rowspace_utv"])
+def test_fused_sketch_supports_project_only(finish):
+    a = _gapped_operator(48, 32)
+    for rsvd, arr in ((jdrv.rsvd, jnp.asarray), (tdrv.rsvd, from_numpy)):
+        with pytest.raises(ValueError, match="only supports finish"):
+            rsvd(arr(a), k=4, method="eigh", sketch="fused", finish=finish)
+
+
+@pytest.mark.parametrize("storage", ["bf16", "int8", "Int8Stored"])
+def test_fused_sketch_storage_modes_do_what_jax_does(storage):
+    """JAX's fused branch reads A as it is: 'bf16' and 'int8' neither
+    cast nor quantize (products at 'default' numerics, f32 on the CPU),
+    and a pre-quantized Int8Stored raises TypeError."""
+    a = _gapped_operator(96, 64)
+    kw = dict(k=8, p=6, seed=2, method="eigh", sketch="fused")
+    if storage == "Int8Stored":
+        with pytest.raises(TypeError):
+            jdrv.rsvd(jdrv.quantize_int8_rows(jnp.asarray(a)), **kw)
+        with pytest.raises(TypeError):
+            tdrv.rsvd(tdrv.quantize_int8_rows(from_numpy(a)), **kw)
+        return
+    s_j = np.asarray(jdrv.rsvd(jnp.asarray(a), precision=storage, **kw)[1])
+    _, s_t, _ = tdrv.rsvd(from_numpy(a), precision=storage, **kw)
+    _, s_hi, _ = tdrv.rsvd(from_numpy(a), precision="highest", **kw)
+    assert torch.equal(s_t, s_hi)
+    np.testing.assert_allclose(to_numpy(s_t), s_j, rtol=1e-5)
 
 
 def test_sparse_operand_raises():
@@ -226,8 +315,9 @@ def test_svd_method_keeps_every_member():
     assert {m.value for m in SVDMethod} == {
         "jacobi", "power", "parallel_jacobi", "eigh", "eigh_pallas",
         "xla", "auto"}
-    with pytest.raises(NotImplementedError, match="auto"):
-        svd(torch.eye(4, dtype=torch.float64), "auto")
+    u, s, v = svd(torch.eye(4, dtype=torch.float64), "auto")
+    assert torch.allclose(s, torch.ones(4, dtype=torch.float64))
+    assert torch.allclose((u * s) @ v.T, torch.eye(4, dtype=torch.float64))
 
 
 def test_precision_map_restores_tf32_setting():
@@ -280,6 +370,18 @@ def test_sketch_rng_is_seeded_and_on_the_generator_device():
     assert set(rad.unique().tolist()) == {-1.0, 1.0}
     with pytest.raises(ValueError, match="unknown sketch"):
         rng.sketch_matrix(rng.key_from_seed(0, "cpu"), 4, 2, kind="sobol")
+
+
+def test_from_numpy_defaults_to_the_card():
+    """Like every other entry point of the port: the card unless the
+    caller names another device."""
+    x = np.ones((2, 3), np.float32)
+    if torch.cuda.is_available():
+        assert convert.from_numpy(x).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            convert.from_numpy(x)
+    assert convert.from_numpy(x, device="cpu").device.type == "cpu"
 
 
 def test_convert_round_trips_numpy_and_jax_arrays():

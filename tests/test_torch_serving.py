@@ -6,6 +6,7 @@ polar interiors (kernel K2's plain version), ``factor_health``,
 The same numpy A and Omega go to ``rsvd_with_omega`` in both packages
 (torch's Philox and JAX's threefry streams cannot match)."""
 
+import functools
 import warnings
 
 import numpy as np
@@ -17,11 +18,8 @@ import jax.numpy as jnp
 from rsvd_kamaneh_raganato_terrana_tpu.rsvd import diagnostics as jdiag
 from rsvd_kamaneh_raganato_terrana_tpu.rsvd import driver as jdrv
 from rsvd_kamaneh_raganato_terrana_tpu.rsvd import utv as jutv
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core import rng
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import (
-    from_numpy,
-    to_numpy,
-)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import convert, rng
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import diagnostics as tdiag
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver as tdrv
@@ -31,6 +29,9 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import utv as tutv
 FINISHES = ("project", "rowspace", "utv", "rowspace_utv")
 QR = ("cholqr1", "cholqr1_fused", "polar", "polar_fused")
 STORAGE = ("highest", "bf16", "int8")
+
+# the port's entry points default to the card; these tests run on the CPU
+from_numpy = functools.partial(convert.from_numpy, device="cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
