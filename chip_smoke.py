@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path, its three-kernel ``rsvd()``
-path, ``rsvd()`` at its defaults and the serving path on one CUDA card,
-and hold every kernel of those paths to its plain PyTorch version.
+path, ``rsvd()`` at its defaults, the serving path, the image codec and
+the other driver modes on one CUDA card, and hold every kernel of those
+paths to its plain PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
 
@@ -16,8 +17,13 @@ Phases (any failure raises; nothing is caught):
    (200 runs the workspace route), on an indefinite and on a
    rank-deficient matrix; K4 (``fused_sketch_matmul``) on the recovered
    Omega (A = I) and on Y at 4096^2 x 80, a ragged 4099 x 4001 x 17 and
-   l = 130.  Kernel, plain version and library yardsticks are timed with
-   CUDA events.  ``--kernels-only`` stops here.
+   l = 130.  K5 (``quantize_uint8``, K5a deterministic and K5b
+   stochastic) bitwise against its plain version on the image phase's
+   factor shapes, 1-D 1000, 3 x 5 x 7, 4099 x 4001, a constant, the
+   256-level grid and 16384^2; K5b within one level of K5a, unbiased at
+   6 sigma over 64 seeds, exact on the grid.  Kernel, plain version and
+   library yardsticks are timed with CUDA events.  ``--kernels-only``
+   stops here.
 3. The main path -- ``entry()``'s rank-64 rSVD (k=64, p=16, q=2) of a
    4096 x 4096 f32 operand made from seed 0, and the same configuration
    through ``rsvd()`` -- for precision 'highest' and 'default' (K1 for
@@ -43,7 +49,23 @@ Phases (any failure raises; nothing is caught):
    16384 x 16384 (k=128).  One ``torch.profiler`` pass over each of
    these two calls, and over the 4096^2 int8 serving call with each
    interior.
-5. A ``kernels`` JSON line, the card's name and power limit, and as the
+5. The image codec (``apps/image.py``) on a seeded 4096^2 grayscale
+   photo, no PIL needed: the CLI's steps -- normalize,
+   ``compress_tiled(k=80, grid=(2, 2))``, restore, ``save_compressed``
+   and ``load_compressed`` -- and K5a/K5b on the factors (3 launches
+   each), counted; each tile's error within 1% of a numpy f64 rSVD on the
+   same Omega, the factors back within half a codec step, K5's bytes
+   within one level of the host codec's.  Then ``compress()`` at its
+   default k on a 1024^2 crop (k = 256, Jacobi tail), on a 1024^2 x 3
+   color image, and ``compress_video`` of 8 frames of 1080 x 1920 at
+   k = 32, each within 1% of numpy on the same Omega.
+6. The driver modes, each against a numpy f64 yardstick:
+   ``rsvd_batched`` of 16 x 1024^2 (k = 64) in modes 'scan' and 'vmap'
+   (per element, same Omega), ``rsvd_warm`` on phase 3's operand from
+   the basis of a call on A + 1e-3 noise, ``rsvd_onepass`` (k = 64,
+   within 1.5x of a q = 0 rSVD) and ``rsvd_adaptive`` at tol 1e-2 on a
+   geometric spectrum (the f64 error within tol).
+7. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -51,8 +73,10 @@ the package is not importable next to this script.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -63,8 +87,13 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch import (
     factor_health,
     prepare_operand,
     rsvd,
+    rsvd_adaptive,
+    rsvd_batched,
+    rsvd_onepass,
     rsvd_serving,
+    rsvd_warm,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import image
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import device
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.entry import CONFIG, entry
@@ -74,6 +103,8 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (
     kernels,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
+from rsvd_kamaneh_raganato_terrana_tpu_torch.native import get_codec
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     generate_omega,
     reconstruction_error,
@@ -118,6 +149,13 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 POLAR_ITERS = 8
 K2_STAGES = ("gram", "gt", "w1", "h1", "h2", "h4", "h8")
+K5_SEED = 7
+IMG_SIDE, IMG_K, IMG_GRID = 4096, 80, (2, 2)   # the image CLI's defaults
+COLOR_SIDE = 1024
+VIDEO, VIDEO_K = (8, 1080, 1920), 32
+BATCH, BATCH_SIDE = 16, 1024
+ONEPASS_RATIO_MAX = 1.5   # "a constant factor behind" a q = 0 rSVD
+ADAPTIVE_TOL, ADAPTIVE_RATIO = 1e-2, 0.97    # expected k = 152
 
 
 def log(msg):
@@ -169,7 +207,12 @@ def recon_err(a, u, s, v):
 
 
 WRAPPERS = ("fused_cholqr1", "polar_qr_fused", "eigh_small",
-            "fused_sketch_matmul")      # K1, K2, K3, K4
+            "fused_sketch_matmul", "quantize_uint8")   # K1, K2, K3, K4, K5
+# (wrapper, count attribute) of each kernel: K5's wrapper launches K5a or
+# K5b and counts each apart
+COUNTERS = tuple((w, "launches") for w in WRAPPERS) + (
+    ("quantize_uint8", "launches_stochastic"),)
+NONE = (0,) * len(COUNTERS)
 
 
 def plain_kernels():
@@ -179,13 +222,17 @@ def plain_kernels():
 
 
 def reset_counts():
-    for w in WRAPPERS:
-        getattr(kernels, w).launches = 0
+    for w, attr in COUNTERS:
+        setattr(getattr(kernels, w), attr, 0)
 
 
 def counts():
-    """(K1, K2, K3, K4) launches since the last reset."""
-    return tuple(getattr(kernels, w).launches for w in WRAPPERS)
+    """(K1, K2, K3, K4, K5a, K5b) launches since the last reset."""
+    return tuple(getattr(getattr(kernels, w), attr) for w, attr in COUNTERS)
+
+
+def launches_of(k1=0, k2=0, k3=0, k4=0, k5a=0, k5b=0):
+    return (k1, k2, k3, k4, k5a, k5b)
 
 
 def panels(a):
@@ -491,15 +538,400 @@ def phase_k4(a):
                 bound_us=bound_ms * 1e3, bound_by=bound_by)
 
 
+def k5_inputs():
+    """Phase 2's K5 inputs: the image phase's factor shapes, ragged,
+    1-D and 3-D ones, a constant, the 256-level grid and the 1 GiB
+    16384^2 tensor."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    th = IMG_SIDE // IMG_GRID[0]
+    return {
+        f"tile U 4x{th}x{IMG_K}": randn(4, th, IMG_K) * 0.02,
+        f"tile s 4x{IMG_K}": randn(4, IMG_K).abs() * 100.0,
+        "1-D 1000": randn(1000),
+        "3x5x7": randn(3, 5, 7),
+        f"ragged {RAGGED[0]}x{RAGGED[1]}": randn(*RAGGED),
+        "constant 33x17": torch.full((33, 17), -2.75, device="cuda"),
+        "grid 0..255": torch.arange(256, dtype=torch.float32, device="cuda"),
+        f"{BIG}^2": randn(BIG, BIG),
+    }
+
+
+def k5_equal(x, stochastic, seed=K5_SEED):
+    """K5 and its plain version on x: (q, max |q - q_plain|), after
+    checking scale and lo."""
+    q, scale, lo = kernels.quantize_uint8(x, stochastic, seed)
+    q0, scale0, lo0 = kernels.quantize_uint8_reference(x, stochastic, seed)
+    torch.cuda.synchronize()
+    check(q.dtype == torch.uint8 and q.shape == x.shape, "K5 output")
+    check(torch.equal(scale, scale0) and torch.equal(lo, lo0),
+          f"K5 scale/lo {float(scale)}/{float(lo)} vs plain "
+          f"{float(scale0)}/{float(lo0)}")
+    return q, int((q.int() - q0.int()).abs().max())
+
+
+def k5_launch_only(x32, stochastic):
+    """K5's bare launch on x32 with lo and scale computed once (no
+    reduction): for timing the kernel alone."""
+    lo, scale = kernels._quantize_range(x32)
+    q = torch.empty(x32.shape, dtype=torch.uint8, device="cuda")
+    lib = kernels._quantize_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        lib.rsvd_quantize_u8_f32(x32.data_ptr(), q.data_ptr(), x32.numel(),
+                                 lo.data_ptr(), scale.data_ptr(),
+                                 int(stochastic), K5_SEED, stream)
+    return launch
+
+
+def phase_k5():
+    """K5a and K5b against their plain versions (bitwise), K5b's
+    statistics; returns the kernels-line fields of K5a and K5b."""
+    worst = {False: 0, True: 0}
+    inputs = k5_inputs()
+    for name, x in inputs.items():
+        qd, bad_d = k5_equal(x, False)
+        qs, bad_s = k5_equal(x, True)
+        step = int((qs.int() - qd.int()).abs().max())
+        log(f"  K5 {name}: max |q - q_plain|: K5a {bad_d}, K5b {bad_s}; "
+            f"max |K5b - K5a| = {step} level")
+        check(bad_d == 0 and bad_s == 0, f"K5 {name}: kernel != plain")
+        check(step <= 1, f"K5 {name}: K5b {step} levels from K5a")
+        worst = {False: max(worst[False], bad_d), True: max(worst[True],
+                                                            bad_s)}
+        if name.startswith("grid"):
+            for q in (qd, qs):
+                check(torch.equal(q.float(), x), "K5 grid values not exact")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand(256, 256, device="cuda", generator=gen)
+    acc = torch.zeros_like(x, dtype=torch.float64)
+    for seed in range(64):
+        q, scale, lo = kernels.quantize_uint8(x, True, seed)
+        acc += q.double() * scale.double() + lo.double()
+    bias = float((acc / 64 - x.double()).abs().max())
+    limit = 6.0 * float(scale) / 2.0 / 8.0         # 6 sigma over 64 seeds
+    log(f"  K5b 256x256 over 64 seeds: max |mean - x| = {bias:.3e} "
+        f"(6 sigma {limit:.3e})")
+    check(bias < limit, f"K5b biased: {bias} >= {limit}")
+
+    big = inputs[f"{BIG}^2"]
+    del inputs
+    numel = big.numel()
+    aminmax_ms = cuda_ms(lambda: torch.aminmax(big), 20)
+    bound_ms, bound_by = bound(0, 5 * numel)       # 4 B read, 1 B written
+    out = {}
+    for stochastic, key in ((False, "K5a"), (True, "K5b")):
+        ms = cuda_ms(lambda: kernels.quantize_uint8(big, stochastic, 7), 20)
+        kernel_ms = cuda_ms(k5_launch_only(big, stochastic), 20)
+        plain_ms = cuda_ms(
+            lambda: kernels.quantize_uint8_reference(big, stochastic, 7), 2)
+        log(f"  {key} at {BIG}^2: call {ms:.4f} ms (kernel alone "
+            f"{kernel_ms:.4f} ms, torch.aminmax {aminmax_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        out[key] = dict(max_abs_err=worst[stochastic], ms=ms,
+                        kernel_only_ms=kernel_ms, plain_ms=plain_ms,
+                        library_ms=None, aminmax_ms=aminmax_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        bytes_moved=5 * numel)
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+def photo(shape, seed):
+    """A seeded grayscale 'photo' in [0, 255] (numpy f64): gradients,
+    smooth blobs, a few hard-edged rectangles and N(0, 2) noise."""
+    rng = np.random.default_rng(seed)
+    m, n = shape
+    y = np.linspace(0.0, 1.0, m)[:, None]
+    x = np.linspace(0.0, 1.0, n)[None, :]
+    img = 60.0 + 90.0 * x + 40.0 * y
+    for _ in range(12):
+        cy, cx = rng.uniform(0, 1, 2)
+        r = rng.uniform(0.03, 0.2)
+        img = img + rng.uniform(-60, 60) * np.exp(
+            -((y - cy) ** 2 + (x - cx) ** 2) / (2 * r * r))
+    for _ in range(4):
+        y0, y1 = np.sort(rng.uniform(0, 1, 2))
+        x0, x1 = np.sort(rng.uniform(0, 1, 2))
+        img = img + rng.uniform(-50, 50) * ((y >= y0) & (y < y1)
+                                            & (x >= x0) & (x < x1))
+    return np.clip(img + rng.normal(0.0, 2.0, (m, n)), 0.0, 255.0)
+
+
+def capture(module, name):
+    """(patch, seen): a spy on ``module.name`` keeping what it returns."""
+    seen = []
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out)
+        return out
+    return mock.patch.object(module, name, spy), seen
+
+
+def recon_err_k(a, u, s, v, k):
+    return float(np.linalg.norm(a - (u[:, :k] * s[:k]) @ v[:, :k].T))
+
+
+def f64(t):
+    return to_numpy(t).astype(np.float64) if isinstance(t, torch.Tensor) \
+        else np.asarray(t, np.float64)
+
+
+def ratio_vs_numpy(a, factors, omega, q, k):
+    """The factorization's error over a numpy f64 rSVD's on the same
+    Omega, at rank k."""
+    u_n, s_n, v_n = numpy_rsvd(a, omega.shape[1], q, omega=f64(omega))
+    return recon_err_k(a, *(f64(x) for x in factors), k) / recon_err_k(
+        a, u_n, s_n, v_n, k)
+
+
+def timed(fn):
+    """(result, wall seconds) of fn() ending in a synchronize."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_image():
+    """The image codec on the card: the CLI's steps on a 4096^2 photo
+    (the counted run, K5 on the factors included), then compress() on a
+    1024^2 crop and a 1024^2 x 3 color image, and compress_video."""
+    img = photo((IMG_SIDE, IMG_SIDE), seed=11)
+    out = {}
+    codec = get_codec()
+    reset_counts()
+    # -- the counted run: normalize, compress_tiled, restore, codec, K5
+    im = image.Image(img).normalize()
+    draws, omegas = capture(image, "sketch_matrix")
+    with draws:
+        _, wall = timed(lambda: im.compress_tiled(k=IMG_K, grid=IMG_GRID))
+    tf = im.tile_factors
+    gy, gx = IMG_GRID
+    th, tw = IMG_SIDE // gy, IMG_SIDE // gx
+    tiles = (im.data.reshape(gy, th, gx, tw).swapaxes(1, 2)
+             .reshape(gy * gx, th, tw))
+    ratios = [ratio_vs_numpy(tiles[i], (tf.u[i], tf.s[i], tf.v[i]),
+                             omegas[i], 1, IMG_K) for i in range(gy * gx)]
+    psnr, cratio = im.psnr(), im.compression_ratio()
+    im.restore()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "factors.rsv")
+        _, save_s = timed(lambda: im.save_compressed(path))
+        back, load_s = timed(lambda: image.Image().load_compressed(path))
+        file_bytes = os.path.getsize(path)
+    round_trip = 0.0
+    for orig, got in zip((tf.u, tf.s, tf.v), (back.tile_factors.u,
+                                              back.tile_factors.s,
+                                              back.tile_factors.v)):
+        step = (float(orig.max()) - float(orig.min())) / 255.0
+        round_trip = max(round_trip, float(np.abs(got - orig).max())
+                         / (step / 2))
+    k5 = {}
+    for name, f in (("u", tf.u), ("s", tf.s), ("v", tf.v)):
+        t = torch.from_numpy(f).cuda()
+        q, bad = k5_equal(t, False)
+        qs, bad_s = k5_equal(t, True, seed=1)
+        q_host, _, _ = codec.quantize_affine(f)
+        diff = (q.cpu().numpy().astype(int) - q_host.astype(int))
+        k5[name] = dict(shape=list(f.shape), max_diff_vs_plain=max(bad,
+                                                                   bad_s),
+                        max_level_diff_vs_host=int(np.abs(diff).max()),
+                        share_bytes_ne_host=float(np.mean(diff != 0)),
+                        max_k5b_minus_k5a=int((qs.int() - q.int()).abs()
+                                              .max()))
+    launches = counts()
+    tiled = dict(shape=[IMG_SIDE, IMG_SIDE], k=IMG_K, grid=list(IMG_GRID),
+                 compress_tiled_s=wall, err_ratio_vs_numpy_per_tile=ratios,
+                 psnr_db=psnr, compression_ratio=cratio,
+                 save_compressed_s=save_s, load_compressed_s=load_s,
+                 file_bytes=file_bytes,
+                 round_trip_err_over_half_step=round_trip, k5_on_factors=k5,
+                 launches_k1_to_k5b=list(launches))
+    log("  image [CLI steps, 4096^2, tiled]: " + json.dumps(tiled))
+    check(launches == launches_of(k5a=3, k5b=3),
+          f"image path launches {launches}")
+    check(max(ratios) <= ERR_RATIO_MAX, f"image tiles: err ratios {ratios}")
+    check(round_trip <= 1 + 1e-6, f"codec round trip {round_trip}")
+    check(all(v["max_diff_vs_plain"] == 0 and v["max_level_diff_vs_host"] <= 1
+              and v["max_k5b_minus_k5a"] <= 1 for v in k5.values()),
+          f"K5 on the factors {k5}")
+    tiled["profile"] = profile_call(lambda: image.Image(img).normalize()
+                                    .compress_tiled(k=IMG_K, grid=IMG_GRID),
+                                    reps=1)
+    log("  profile [compress_tiled, 4096^2]: " + json.dumps(tiled["profile"]))
+    out["tiled"] = tiled
+
+    # -- whole image: a 1024^2 crop at the default k, and color
+    side = COLOR_SIDE
+    crop = image.Image(img[:side, :side]).normalize()
+    draws, omegas = capture(driver, "generate_omega")
+    reset_counts()
+    with draws:
+        _, wall = timed(crop.compress)
+    k = side // 4
+    ratio = ratio_vs_numpy(crop.data, (crop.U, crop.S, crop.V), omegas[0],
+                           1, k)
+    out["gray_crop"] = dict(shape=[side, side], k=k, l=omegas[0].shape[1],
+                            compress_s=wall, err_ratio_vs_numpy=ratio,
+                            psnr_db=crop.psnr(),
+                            compression_ratio=crop.compression_ratio(),
+                            launches_k1_to_k5b=list(counts()))
+    log("  image [compress(), 1024^2 crop]: " + json.dumps(out["gray_crop"]))
+    check(counts() == NONE and ratio <= ERR_RATIO_MAX,
+          f"gray crop {out['gray_crop']}")
+
+    rng = np.random.default_rng(12)
+    base = img[-side:, -side:]
+    color = np.clip(np.stack([base * g + o for g, o in
+                              ((1.0, 0.0), (0.8, 20.0), (0.6, 40.0))], 2)
+                    + rng.normal(0.0, 2.0, (side, side, 3)), 0, 255)
+    cim = image.Image(color).normalize()
+    draws, omegas = capture(image, "sketch_matrix")
+    reset_counts()
+    with draws:
+        _, wall = timed(cim.compress)
+    chans = np.moveaxis(cim.data, 2, 0)
+    ratios = [ratio_vs_numpy(chans[c], (cim.U[c], cim.S[c], cim.V[c]),
+                             omegas[0], 1, k) for c in range(3)]
+    out["color"] = dict(shape=[side, side, 3], k=k, compress_s=wall,
+                        err_ratio_vs_numpy_per_channel=ratios,
+                        psnr_db=cim.psnr(),
+                        compression_ratio=cim.compression_ratio(),
+                        launches_k1_to_k5b=list(counts()))
+    log("  image [compress(), color 1024^2 x 3]: " + json.dumps(out["color"]))
+    check(counts() == NONE and max(ratios) <= ERR_RATIO_MAX,
+          f"color {out['color']}")
+
+    # -- video: 8 frames of 1080 x 1920 panning over one photo
+    t, h, w = VIDEO
+    pan = photo((h, w + 16 * t), seed=13)
+    frames = np.stack([pan[:, 16 * i:16 * i + w] + rng.normal(0, 2, (h, w))
+                       for i in range(t)])
+    draws, omegas = capture(image, "sketch_matrix")
+    reset_counts()
+    with draws:
+        (u, s, v), wall = timed(lambda: image.compress_video(frames,
+                                                             k=VIDEO_K))
+    ratios = [ratio_vs_numpy(frames[i], (u[i], s[i], v[i]), omegas[0], 1,
+                             VIDEO_K) for i in range(t)]
+    rec = image.reconstruct_video(u, s, v)
+    mse = float(np.mean((rec - frames) ** 2))
+    out["video"] = dict(shape=list(VIDEO), k=VIDEO_K, compress_video_s=wall,
+                        err_ratio_vs_numpy_per_frame=ratios,
+                        psnr_db=10.0 * np.log10(255.0 ** 2 / mse),
+                        compression_ratio=frames.size / (u.size + s.size
+                                                         + v.size),
+                        launches_k1_to_k5b=list(counts()))
+    log("  image [compress_video, 8 x 1080 x 1920]: "
+        + json.dumps(out["video"]))
+    check(counts() == NONE and max(ratios) <= ERR_RATIO_MAX,
+          f"video {out['video']}")
+    return launches, out
+
+
+def phase_driver_modes(a, a64, err_np):
+    """rsvd_batched (both modes), rsvd_warm, rsvd_onepass and
+    rsvd_adaptive, each with its error against a numpy f64 yardstick."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    stack = torch.randn(BATCH, BATCH_SIDE, BATCH_SIDE, device="cuda",
+                        generator=gen)
+    stack64 = to_numpy(stack).astype(np.float64)
+    err_np_el = None
+    for mode in ("scan", "vmap"):
+        draws, omegas = capture(driver, "generate_omega")
+        reset_counts()
+        with draws:
+            (u, s, v), wall = timed(lambda: rsvd_batched(stack, k=K,
+                                                          mode=mode))
+        launches = counts()
+        if err_np_el is None:            # the same Omega in both modes
+            err_np_el = []
+            for i in range(BATCH):
+                u_n, s_n, v_n = numpy_rsvd(stack64[i], omegas[i].shape[1], Q,
+                                           omega=f64(omegas[i]))
+                err_np_el.append(recon_err_k(stack64[i], u_n, s_n, v_n, K))
+        ratios = [recon_err_k(stack64[i], f64(u[i]), f64(s[i]), f64(v[i]), K)
+                  / err_np_el[i] for i in range(BATCH)]
+        res = dict(batch=[BATCH, BATCH_SIDE, BATCH_SIDE], k=K, wall_s=wall,
+                   ms=cuda_ms(lambda: rsvd_batched(stack, k=K, mode=mode), 2),
+                   max_err_ratio_vs_numpy=max(ratios),
+                   launches_k1_to_k5b=list(launches))
+        log(f"  rsvd_batched [{mode}]: " + json.dumps(res))
+        check(launches == NONE and max(ratios) <= ERR_RATIO_MAX,
+              f"rsvd_batched {mode}: {res}")
+        out[f"batched_{mode}"] = res
+    del stack, stack64
+
+    noise = torch.randn(M, N, device="cuda", generator=gen)
+    u_prev, _, _ = rsvd(a + 1e-3 * noise, k=0, p=K + P, method="eigh",
+                        seed=1)
+    reset_counts()
+    (u, s, v), wall = timed(lambda: rsvd_warm(a, u_prev, k=K, q=1))
+    launches = counts()
+    ratio = recon_err(a64, f64(u), f64(s), f64(v)) / err_np
+    res = dict(k=K, l=K + P, q=1, wall_s=wall,
+               ms=cuda_ms(lambda: rsvd_warm(a, u_prev, k=K, q=1), 3),
+               err_ratio_vs_numpy_q2=ratio, launches_k1_to_k5b=list(launches))
+    log("  rsvd_warm: " + json.dumps(res))
+    check(launches == NONE and ratio <= ERR_RATIO_MAX, f"rsvd_warm {res}")
+    out["warm"] = res
+
+    u_n, s_n, v_n = numpy_rsvd(a64, K + P, 0)
+    err_np_q0 = recon_err(a64, u_n, s_n, v_n)
+    reset_counts()
+    (u, s, v), wall = timed(lambda: rsvd_onepass(a, k=K))
+    launches = counts()
+    ratio = recon_err(a64, f64(u), f64(s), f64(v)) / err_np_q0
+    res = dict(k=K, l=K + 16, wall_s=wall,
+               ms=cuda_ms(lambda: rsvd_onepass(a, k=K), 3),
+               err_ratio_vs_numpy_q0=ratio, launches_k1_to_k5b=list(launches))
+    log("  rsvd_onepass: " + json.dumps(res))
+    check(launches == NONE and ratio <= ONEPASS_RATIO_MAX,
+          f"rsvd_onepass {res}")
+    out["onepass"] = res
+
+    rank = 512
+    uq, _ = torch.linalg.qr(torch.randn(M, rank, device="cuda",
+                                        generator=gen))
+    vq, _ = torch.linalg.qr(torch.randn(N, rank, device="cuda",
+                                        generator=gen))
+    s_true = ADAPTIVE_RATIO ** torch.arange(rank, device="cuda",
+                                            dtype=torch.float64)
+    a_geo64 = (uq.double() * s_true) @ vq.double().T
+    a_geo = a_geo64.float()
+    reset_counts()
+    (u, s, v, k, stats), wall = timed(lambda: rsvd_adaptive(
+        a_geo, tol=ADAPTIVE_TOL, return_stats=True))
+    launches = counts()
+    rel = float(torch.linalg.norm(a_geo64 - (u.double() * s.double())
+                                  @ v.double().T) / torch.linalg.norm(a_geo64))
+    res = dict(spectrum=f"{ADAPTIVE_RATIO}^i, rank {rank}", tol=ADAPTIVE_TOL,
+               k=k, stats=stats, wall_s=wall, rel_err_f64=rel,
+               launches_k1_to_k5b=list(launches))
+    log("  rsvd_adaptive: " + json.dumps(res))
+    check(launches == NONE and rel <= ADAPTIVE_TOL, f"rsvd_adaptive {res}")
+    out["adaptive"] = res
+    return out
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
-    path, timings.  ``want`` = (K1, K2, K3, K4) launches per call.
-    Returns ((K1, K2, K3, K4) launches, summary dict)."""
+    path, timings.  ``want`` = (K1, K2, K3, K4, K5a, K5b) launches per
+    call.  Returns (those launches, summary dict)."""
     reset_counts()
     u, s, v = forward(a)
     torch.cuda.synchronize()
     launches = counts()
-    check(launches == want, f"{label}: (K1, K2, K3, K4) launches "
+    check(launches == want, f"{label}: (K1, K2, K3, K4, K5a, K5b) launches "
           f"{launches}, not {want}")
     check(u.shape == (M, K) and s.shape == (K,) and v.shape == (N, K),
           f"shapes {u.shape} {s.shape} {v.shape}")
@@ -515,7 +947,7 @@ def phase_main_path(label, forward, a, a64, err_np, prec, want):
     ms = cuda_ms(lambda: forward(a), 10)
     out = dict(err_ratio_vs_numpy=err_ratio, max_rel_dsigma_vs_plain=dsigma,
                u_orth=orth, ms=ms, plain_ms=plain_ms,
-               launches_k1_k2_k3_k4=list(launches))
+               launches_k1_to_k5b=list(launches))
     check(err_ratio <= ERR_RATIO_MAX, f"err ratio {out}")
     check(dsigma <= SIGMA_TOL[prec], f"sigma vs plain {out}")
     check(orth <= 1e-3, f"U orthogonality {out}")
@@ -537,7 +969,7 @@ def serving_run(label, operand, a64, err_np, interior):
     launches = counts()
     k2 = launches[1]
     want = 2 if interior == "polar_fused" else 0
-    check(launches == (0, want, 0, 0),
+    check(launches == launches_of(k2=want),
           f"serving {label}/{interior}: launches {launches}")
     check(health["ok"], f"serving {label}/{interior}: unhealthy {health}")
     u_np, s_np, v_np = (to_numpy(x).astype(np.float64) for x in (u, s, v))
@@ -596,6 +1028,7 @@ KERNEL_GROUPS = (
     (("jacobi_eigh",), "K3 jacobi_eigh"),
     (("sketch_tiles", "sum_splits"), "K4 sketch_tiles / sum_splits"),
     (("ns_iterate",), "K2 ns_iterate"),
+    (("quantize_u8",), "K5 quantize_u8"),
     (("eliminate",), "K1 eliminate"),
     (("gram_partials", "apply_right"),
      "K1/K2 panel passes (gram_partials, apply_right)"),
@@ -616,9 +1049,9 @@ def kernel_group(name):
     return "other kernels"
 
 
-def profile_call(call):
-    """One torch.profiler pass over 10 calls: device time by kernel group,
-    host syncs and the device idle share."""
+def profile_call(call, reps=10):
+    """One torch.profiler pass over ``reps`` calls: device time by kernel
+    group, host syncs and the device idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -626,7 +1059,7 @@ def profile_call(call):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(reps):
             call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -641,20 +1074,21 @@ def profile_call(call):
             groups[key] = groups.get(key, 0.0) + dur
         elif "Synchronize" in e.name or e.name == "aten::_local_scalar_dense":
             syncs += 1
-    out = {k: v / 10e3 for k, v in sorted(groups.items(),
-                                          key=lambda kv: -kv[1])}
+    per_call_us = reps * 1e3
+    out = {k: v / per_call_us for k, v in sorted(groups.items(),
+                                                 key=lambda kv: -kv[1])}
     summary = dict(ms_per_call_by_group=out,
-                   wall_ms_per_call=wall_us / 10e3,
-                   device_busy_ms_per_call=busy / 10e3,
+                   wall_ms_per_call=wall_us / per_call_us,
+                   device_busy_ms_per_call=busy / per_call_us,
                    idle_share=(1.0 - busy / wall_us) if busy else None,
-                   host_sync_events_per_call=syncs / 10)
+                   host_sync_events_per_call=syncs / reps)
     if not busy:
         log("  profiler saw no device time")
     top = sorted(((e.key, e.device_time_total if hasattr(
         e, "device_time_total") else 0.0) for e in prof.key_averages()),
         key=lambda kv: -kv[1])[:12]
     for key, t in top:
-        log(f"    {t / 10e3:9.4f} ms/call  {key[:90]}")
+        log(f"    {t / per_call_us:9.4f} ms/call  {key[:90]}")
     return summary
 
 
@@ -684,6 +1118,7 @@ def main(argv):
     del all_panels
     k3 = phase_k3(tail_gram(a))
     k4 = phase_k4(a)
+    k5 = phase_k5()
     if "--kernels-only" in argv:
         log("stopping after phase 2 (--kernels-only)")
         return 0
@@ -701,13 +1136,13 @@ def main(argv):
     def fwd_polar(x):        # entry()'s configuration, polar interiors
         return rsvd_with_omega(x, omega, precision="default",
                                **dict(CONFIG, interior_qr="polar_fused"))
-    launches_total = [0, 0, 0, 0]            # K1, K2, K3, K4
+    launches_total = list(NONE)              # K1, K2, K3, K4, K5a, K5b
     summary = {}
     for label, prec, fwd, want in (
-            ("highest", "highest", fwd_hi, (Q + 1, 0, 0, 0)),
-            ("default", "default", fwd_def, (Q + 1, 0, 0, 0)),
+            ("highest", "highest", fwd_hi, launches_of(k1=Q + 1)),
+            ("default", "default", fwd_def, launches_of(k1=Q + 1)),
             ("default, polar_fused interiors", "default", fwd_polar,
-             (1, 2, 0, 0))):
+             launches_of(k1=1, k2=2))):
         launches, out = phase_main_path(label, fwd, a, a64, err_np, prec,
                                         want)
         launches_total = [t + c for t, c in zip(launches_total, launches)]
@@ -719,10 +1154,11 @@ def main(argv):
                      **{k: v for k, v in CONFIG.items() if k != "k"})
     torch.cuda.synchronize()
     launches = counts()
-    check(launches == (Q + 1, 0, 0, 0) and bool(torch.isfinite(s_r).all()),
+    check(launches == launches_of(k1=Q + 1)
+          and bool(torch.isfinite(s_r).all()),
           f"rsvd(): launches {launches}")
     launches_total[0] += launches[0]
-    log(f"  rsvd() [default]: (K1, K2, K3, K4) launches {launches}, "
+    log(f"  rsvd() [default]: (K1, K2, K3, K4, K5a, K5b) launches {launches}, "
         f"s[0]={float(s_r[0]):.4f}")
 
     log("phase 3: the three-kernel path (K4 sketch, K1 interiors, K3 tail)")
@@ -737,7 +1173,7 @@ def main(argv):
         label = f"three kernels, {prec}"
         launches, out = phase_main_path(label, fwd_fused, a, a64,
                                         err_np_fused, prec,
-                                        (Q + 1, 0, 1, 1))
+                                        launches_of(k1=Q + 1, k3=1, k4=1))
         launches_total = [t + c for t, c in zip(launches_total, launches)]
         fused[prec] = out
         log(f"  main path [{label}]: " + json.dumps(out))
@@ -769,7 +1205,7 @@ def main(argv):
             u, s, v = call()
         torch.cuda.synchronize()
         launches = counts()
-        check(launches == (0, 0, 0, 0), f"{method}: launches {launches}")
+        check(launches == NONE, f"{method}: launches {launches}")
         check(u.shape == (M, K) and s.shape == (K,) and v.shape == (N, K)
               and all(bool(torch.isfinite(x).all()) for x in (u, s, v)),
               f"{method}: factors")
@@ -806,6 +1242,13 @@ def main(argv):
         log(f"  profile [int8, {interior}, 4096^2]: "
             + json.dumps(serving[key]))
 
+    log("phase 5: the image codec on the card")
+    k5_launches, image_summary = phase_image()
+    launches_total = [t + c for t, c in zip(launches_total, k5_launches)]
+
+    log("phase 6: the driver modes at 4096^2")
+    modes = phase_driver_modes(a, a64, err_np)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -832,7 +1275,18 @@ def main(argv):
              replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
                       "pallas_kernels.py:116",
              launches=launches_total[3], **k4),
-    ], "main_path": summary, "serving": serving}
+        dict(name="quantize_uint8", route="cuda",
+             source=f"{pkg}/csrc/quantize.cu",
+             replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
+                      "pallas_kernels.py:198",
+             launches=launches_total[4], **k5["K5a"]),
+        dict(name="quantize_uint8[stochastic]", route="cuda",
+             source=f"{pkg}/csrc/quantize.cu",
+             replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
+                      "pallas_kernels.py:178",
+             launches=launches_total[5], **k5["K5b"]),
+    ], "main_path": summary, "serving": serving, "image": image_summary,
+        "driver_modes": modes}
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())
     log(json.dumps({"ok": True, "device": {

@@ -10,20 +10,25 @@ Layer map (the ported part so far):
 
 - ``core``   -- precision map and storage modes (``device``), seeded
                sketch RNG on the card (``rng``), numpy <-> tensor
-               hand-over (``convert``).
+               hand-over (``convert``), FLOP counts (``profiling``).
 - ``ops``    -- the primitive products the QR/SVD/driver layers use.
 - ``linalg`` -- CholeskyQR family and ``qr_reduced``, Newton--Schulz
                polar (``polar``), the SVD engines (tournament Jacobi
                ``jacobi``, power iteration ``power``, the dispatch
                ``svd``) and the hand-written Hopper kernels
                (``kernels``: K1 ``fused_cholqr1``, K2 ``polar_qr_fused``,
-               K3 ``eigh_small``, K4 ``fused_sketch_matmul``; sources in
-               ``csrc/``, built by ``linalg/_build.py``).
+               K3 ``eigh_small``, K4 ``fused_sketch_matmul``, K5
+               ``quantize_uint8``; sources in ``csrc/``, built by
+               ``linalg/_build.py``).
 - ``rsvd``   -- the randomized SVD driver (finishes 'project',
                'rowspace', 'utv', 'rowspace_utv'; bf16 and int8
                storage), the serving preset (``serving``), the health
-               check and subspace angles (``diagnostics``) and UTV
-               (``utv``).
+               check and subspace angles (``diagnostics``), UTV
+               (``utv``), and the batched, warm-started, one-pass and
+               adaptive-rank modes.
+- ``apps``   -- the image codec (``image``, its CLI ``image_main``;
+               ``python -m rsvd_kamaneh_raganato_terrana_tpu_torch
+               image <img>``), on the host codec of ``native/``.
 """
 
 __version__ = "0.1.0"
@@ -44,6 +49,11 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
     generate_omega,
     quantize_int8_rows,
     rsvd,
+    rsvd_adaptive,
+    rsvd_batched,
+    rsvd_image_preset,
+    rsvd_onepass,
+    rsvd_warm,
     rsvd_with_omega,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.serving import (  # noqa: F401

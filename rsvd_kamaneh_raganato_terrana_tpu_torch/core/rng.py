@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+_M64 = (1 << 64) - 1
+
 
 def key_from_seed(seed, device=None) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` (the card, ``"cuda"``, unless
@@ -20,6 +22,20 @@ def key_from_seed(seed, device=None) -> torch.Generator:
         return seed
     gen = torch.Generator(device=torch.device(device or "cuda"))
     gen.manual_seed(int(seed))
+    return gen
+
+
+def fold_in_shard(key: torch.Generator, shard_index) -> torch.Generator:
+    """An independent stream for one shard or tile (JAX ``fold_in_shard``):
+    a new generator on the key's device, seeded from a fixed integer mix
+    (splitmix64) of ``key.initial_seed()`` and ``shard_index``.
+    Deterministic; it does not reproduce JAX's threefry values."""
+    z = (key.initial_seed() + (int(shard_index) + 1)
+         * 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    gen = torch.Generator(device=key.device)
+    gen.manual_seed(z ^ (z >> 31))
     return gen
 
 

@@ -38,9 +38,12 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hash.cuh"
 #include "panel.cuh"
 
 namespace {
+
+using rsvd_hash::mix;
 
 constexpr int kTileM = 128;
 constexpr int kTileL = 128;
@@ -50,15 +53,6 @@ constexpr int kMinSplitDepth = 256;
 constexpr int kTargetBlocks = 264;  // two blocks for each of the 132 SMs
 constexpr uint32_t kSalt = 0x68BC21EBu;
 constexpr float kTwoPi = (float)6.283185307179586;  // 2 pi rounded to f32
-
-__host__ __device__ __forceinline__ uint32_t mix(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
 
 // top 24 bits -> (0, 1), floored at 1e-12 so that log is finite
 __device__ __forceinline__ float unit_float(uint32_t bits) {

@@ -37,4 +37,5 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.kernels import (  # noqa: F4
     eigh_small,
     fused_sketch_matmul,
     polar_qr_fused,
+    quantize_uint8,
 )

@@ -9,7 +9,9 @@ versions (the counterpart of the JAX package's
   symmetric matrix by fixed-sweep two-sided Jacobi (the rSVD tail's
   ``method='eigh_pallas'``);
 - K4 ``fused_sketch_matmul`` (``csrc/sketch.cu``): the sketch Y = A Omega
-  with the Gaussian Omega drawn inside the kernel (``sketch='fused'``).
+  with the Gaussian Omega drawn inside the kernel (``sketch='fused'``);
+- K5 ``quantize_uint8`` (``csrc/quantize.cu``): affine uint8
+  quantization, deterministic (K5a) or with stochastic rounding (K5b).
 
 Each kernel has:
 
@@ -460,3 +462,110 @@ def fused_sketch_matmul(a, l: int, seed: int = 0, block_m: int = 512,
 
 
 fused_sketch_matmul.launches = 0
+
+
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def _quantize_range(x32):
+    """(lo, scale) of the affine uint8 grid as 0-dim f32 tensors on x's
+    device, with no host sync: lo = min(x), scale = max((max(x) - lo) /
+    255, f32 tiny)."""
+    lo, hi = torch.aminmax(x32)
+    return lo, torch.clamp((hi - lo) / 255.0, min=_F32_TINY)
+
+
+def quantize_sr_uniforms(numel: int, seed: int = 0, device=None):
+    """The uniforms in [0, 1) that stochastic rounding compares with the
+    fractional parts: element i draws u = (h >> 8) 2^-24, h = mix((i mod
+    2^32) ^ mix(seed)), the murmur3 index hash of
+    ``pallas_kernels._gaussian_tile``.  f32, flat, on ``device`` (the
+    card unless the caller names another)."""
+    device = torch.device(device or "cuda")
+    idx = torch.arange(numel, dtype=torch.int64, device=device) & _M32
+    h = _mix(idx ^ _mix(seed & _M32))
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def quantize_uint8_reference(x, stochastic: bool = False, seed: int = 0,
+                             interpret=None):
+    """Affine uint8 quantization with the arithmetic of kernel K5 in
+    plain torch ops, at f32: (q, scale, lo).  x is cast to f32; lo and
+    scale as :func:`_quantize_range` gives them; s = (x - lo) * (1 /
+    scale), each operation rounded alone; q = clamp(round(s), 0, 255)
+    (half to even), or with ``stochastic`` clamp(floor(s) + (u < s -
+    floor(s)), 0, 255), u from :func:`quantize_sr_uniforms` over the
+    flat index.  ``interpret`` is accepted for the JAX signature and
+    ignored."""
+    del interpret
+    x32 = x.to(torch.float32)
+    lo, scale = _quantize_range(x32)
+    scaled = (x32 - lo) * torch.reciprocal(scale)
+    if stochastic:
+        fl = torch.floor(scaled)
+        u = quantize_sr_uniforms(x32.numel(), seed, x32.device)
+        q = fl + (u.reshape(x32.shape) < scaled - fl).to(torch.float32)
+    else:
+        q = torch.round(scaled)
+    return torch.clamp(q, 0.0, 255.0).to(torch.uint8), scale, lo
+
+
+def _quantize_lib():
+    return _library("quantize", {
+        "rsvd_quantize_u8_f32": (ctypes.c_int, [ctypes.c_void_p] * 2 + [
+            ctypes.c_longlong] + [ctypes.c_void_p] * 2 + [
+            ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p])})
+
+
+def quantize_uint8(x, stochastic: bool = False, seed: int = 0,
+                   interpret=None):
+    """Affine uint8 quantization of a float tensor of any shape (the image
+    codec's device-side twin): (q, scale, lo) with q uint8 of x's shape
+    and scale, lo 0-dim f32 tensors on x's device; x ~ q * scale + lo.
+
+    x is cast to f32; lo = min(x), scale = max((max(x) - lo) / 255, f32
+    tiny), reduced by ``torch.aminmax`` with no host sync.  Deterministic
+    rounding is half to even; ``stochastic=True`` rounds up with
+    probability equal to the fractional part, from a hash of (``seed``,
+    flat index), so E[q * scale + lo] = x and the bytes do not depend on
+    x's shape.  Both multiply by 1 / scale, as the TPU kernel does
+    (JAX's CPU branch of the stochastic path divides and draws from
+    ``jax.random``; its bits cannot be matched, nor can the TPU PRNG's).
+    On a CUDA tensor it launches ``csrc/quantize.cu`` (K5a, or K5b when
+    stochastic) on the current stream; on a CPU tensor it runs
+    :func:`quantize_uint8_reference`.  ``interpret`` is accepted for the
+    JAX signature and ignored: there is no interpret mode here."""
+    del interpret
+    if not isinstance(x, torch.Tensor) or not x.is_floating_point():
+        raise TypeError("quantize_uint8 takes a float tensor, got "
+                        f"{getattr(x, 'dtype', type(x).__name__)}")
+    if x.numel() == 0:
+        raise ValueError("quantize_uint8 of an empty tensor has no range")
+    if x.device.type == "cpu":
+        return quantize_uint8_reference(x, stochastic, seed)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_uint8 has no kernel for {x.device}")
+    x32 = x.to(torch.float32).contiguous()
+    if x32.data_ptr() % 16:
+        x32 = x32.clone()               # the kernel reads float4 groups
+    lo, scale = _quantize_range(x32)
+    q = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    lib = _quantize_lib()
+    # as in fused_cholqr1: the allocator reuses x32's block only for work
+    # queued after the kernel on this stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rsvd_quantize_u8_f32(x32.data_ptr(), q.data_ptr(),
+                                       x32.numel(), lo.data_ptr(),
+                                       scale.data_ptr(), int(stochastic),
+                                       seed & _M32, stream)
+    _check_launch(lib, err, "quantize_uint8")
+    if stochastic:
+        quantize_uint8.launches_stochastic += 1
+    else:
+        quantize_uint8.launches += 1
+    return q, scale, lo
+
+
+quantize_uint8.launches = 0              # K5a
+quantize_uint8.launches_stochastic = 0   # K5b

@@ -11,8 +11,14 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
     quantize_int8_rows,
     reconstruct,
     reconstruction_error,
+    adaptive_work_ratio,
     rsvd,
+    rsvd_adaptive,
+    rsvd_batched,
     rsvd_core,
+    rsvd_image_preset,
+    rsvd_onepass,
+    rsvd_warm,
     rsvd_with_omega,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.serving import (  # noqa: F401

@@ -16,6 +16,11 @@ through ``linalg.qr.qr_reduced``, whose ``cholqr1_fused`` and
 ``sketch='fused'`` draws Omega inside kernel K4 and ``method=
 'eigh_pallas'`` runs the tail's eigh as kernel K3 (``linalg/kernels.py``).
 
+The other modes: ``rsvd_batched`` (a stack, one sketch per element),
+``rsvd_warm`` (from a previous basis), ``rsvd_onepass`` (two-sided
+sketch, one pass over A), ``rsvd_adaptive`` (rank for an accuracy
+target) and the image preset ``rsvd_image_preset``.
+
 Not ported yet (ROADMAP.md), each raising ``NotImplementedError``: the
 ``'high'`` precision; sparse operands; the block Jacobi engine (a
 'parallel_jacobi' tail wider than 512).
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
@@ -33,7 +39,9 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     matmul_at,
     resolve_precision,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import rsvd_flops
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
+    gaussian,
     key_from_seed,
     sketch_matrix,
 )
@@ -476,3 +484,230 @@ def reconstruct(u, s, v):
 def reconstruction_error(a, u, s, v):
     """||A - U diag(s) V^T||_F."""
     return torch.linalg.norm(a - reconstruct(u, s, v))
+
+
+def rsvd_image_preset(a, k: int = -1, seed: int = 0):
+    """The image-compression stack's preset: default k = min(m, n) / 4,
+    p = 10, q = 1."""
+    m, n = a.shape
+    if k is None or k < 0:
+        k = min(m, n) // 4
+    return rsvd(a, k=k, p=10, q=1, seed=seed)
+
+
+def _grow_basis_block(a, q_prev, omega_new, q: int,
+                      qr_method: str = "robust"):
+    """Orthonormal extension of an existing range basis: power-iterate the
+    new sketch block against the deflated operator (I - Q Q^T) A, so the
+    block converges to the next singular directions instead of re-finding
+    the subspace Q already spans (Halko et al. sec. 4.4, blocked adaptive
+    range finder)."""
+
+    def deflate(y):
+        return y - _mm(q_prev, _mm(q_prev.T, y))
+
+    y = deflate(_mm(a, omega_new))
+    y = orthonormal_basis(y, qr_method)
+    for _ in range(q):
+        y = _mm(a, _mm(a.T, y))
+        y = deflate(y)
+        y = orthonormal_basis(y, qr_method)
+    # second-pass deflation ("twice is enough") for numerical cleanliness
+    y = deflate(y)
+    return orthonormal_basis(y, qr_method)
+
+
+def _predict_rank(s64: np.ndarray, a_norm_sq: float, target_sq: float,
+                  l: int, k_cap: int) -> int:
+    """Log-linear extrapolation of the computed spectrum tail: the next
+    sketch size that should meet the energy target, with a 15% margin.
+    Falls back to doubling on flat or non-decaying tails.  Host f64, as
+    in the JAX package."""
+    resid_now = max(a_norm_sq - float(np.sum(s64 * s64)), 0.0)
+    fit_lo = max(l // 2, 1)
+    tail = s64[fit_lo:l]
+    if tail.size >= 2 and np.all(tail > 0):
+        idx = np.arange(fit_lo, l, dtype=np.float64)
+        slope, intercept = np.polyfit(idx, np.log(tail), 1)
+        if slope < -1e-6:
+            # sum_{j>=l} s_j^2 ~ geometric with ratio r = exp(2*slope)
+            r = float(np.exp(2.0 * slope))
+            need = l
+            acc = resid_now
+            sj_sq = float(np.exp(2.0 * (intercept + slope * l)))
+            while acc > target_sq and need < k_cap:
+                acc -= sj_sq
+                sj_sq *= r
+                need += 1
+            return min(k_cap, max(int(np.ceil(1.15 * need)), l + 8))
+    return min(k_cap, 2 * l)
+
+
+def adaptive_work_ratio(m: int, n: int, block_sizes, q: int) -> float:
+    """GEMM-work ratio of an incremental adaptive run over the single
+    right-sized run it converged to: (sum of per-block pipeline FLOPs +
+    deflation projections) / flops(final l)."""
+    total = 0.0
+    l_prev = 0
+    for dl in block_sizes:
+        total += rsvd_flops(m, n, dl, q)
+        if l_prev:
+            # deflation (I - QQ^T) applied q+2 times per grown block:
+            # two GEMMs of 2*m*l_prev*dl each per application
+            total += (q + 2) * 2 * (2.0 * m * l_prev * dl)
+        l_prev += dl
+    return total / rsvd_flops(m, n, l_prev, q)
+
+
+def rsvd_adaptive(a, tol: float, k0: int = 16, k_max: Optional[int] = None,
+                  q: int = 2, method="eigh", seed: int = 0,
+                  return_stats: bool = False):
+    """Adaptive-rank rSVD: the smallest rank k (within sketch-growth
+    granularity) with ||A - A_k||_F <= tol ||A||_F.
+
+    Returns (U[:, :k], s[:k], V[:, :k], k), plus a stats dict
+    (block_sizes, rounds, work_ratio against a single right-sized run)
+    when ``return_stats`` is set.  The error estimate is free: for the
+    projection A_l = Q Q^T A, ||A - A_l||_F^2 = ||A||_F^2 - sum_i s_i^2,
+    read on the host in f64 from the computed spectrum (one fetch of s
+    per round).  The basis grows incrementally: each round draws a new
+    sketch block from ``seed + 7919 * round``, power-iterates it against
+    the deflated operator (:func:`_grow_basis_block`) and appends its
+    columns to Q and its rows to B = Q^T A; the block size comes from
+    :func:`_predict_rank`.  Dense operands only (sparse ones are not
+    ported, ROADMAP.md queue 1)."""
+    a = _as_operand(a)
+    if isinstance(a, Int8Stored):
+        raise TypeError("rsvd_adaptive takes a dense tensor")
+    _check_dense(a)
+    a_norm_sq = float(torch.sum(torch.square(a)))
+    m, n = a.shape
+    min_dim = min(m, n)
+    k_cap = min(k_max or min_dim, min_dim)
+    target_sq = (tol * tol) * a_norm_sq
+
+    l = min(k0, k_cap)
+    omega = generate_omega(seed, n, l, a.dtype, device=a.device)
+    q_mat = subspace_iteration(a, omega, q)          # m x l
+    b = _mm(q_mat.T, a)                              # l x n
+    round_no = 0
+    blocks = [l]
+    method_v = SVDMethod.parse(method).value
+    while True:
+        u_t, s, v = small_svd(b, method_v)
+        s64 = s.detach().cpu().numpy().astype(np.float64)
+        energy = np.cumsum(s64 * s64)
+        resid_sq = np.maximum(a_norm_sq - energy, 0.0)
+        ok = np.nonzero(resid_sq <= target_sq)[0]
+        if ok.size or l >= k_cap:
+            k = int(ok[0]) + 1 if ok.size else int(s.shape[0])
+            u = _mm(q_mat, u_t)
+            out = (u[:, :k], s[:k], v[:, :k], k)
+            if return_stats:
+                return out + ({"block_sizes": tuple(blocks),
+                               "rounds": round_no,
+                               "work_ratio": adaptive_work_ratio(
+                                   m, n, blocks, q)},)
+            return out
+        l_next = _predict_rank(s64, a_norm_sq, target_sq, l, k_cap)
+        dl = max(l_next - l, 1)
+        round_no += 1
+        omega_new = generate_omega(seed + 7919 * round_no, n, dl, a.dtype,
+                                   device=a.device)
+        q_blk = _grow_basis_block(a, q_mat, omega_new, q)
+        q_mat = torch.cat([q_mat, q_blk], dim=1)
+        b = torch.cat([b, _mm(q_blk.T, a)], dim=0)
+        l += dl
+        blocks.append(dl)
+
+
+def rsvd_onepass(a, k: int, p: int = 16, s_factor: int = 2,
+                 method: str = "eigh", seed: int = 0,
+                 precision: str = "highest"):
+    """Rank-k rSVD in a single pass over A (the two-sided sketch of
+    Tropp, Yurtsever, Udell & Cevher 2017): the range sketch Y = A Omega
+    and the co-range sketch W = Psi^T A, then A ~ Q (Psi^T Q)^+ W with a
+    small SVD finishing the l x n core.  The two sketches are two GEMMs,
+    so the card reads A twice.  Accuracy is a constant factor behind one
+    power iteration.  Omega (n x l) and Psi (m x s, s = s_factor l + 1)
+    come, in that order, from one generator seeded with ``seed`` on A's
+    device.  Composes with the int8 storage mode: pass an
+    :class:`Int8Stored` (or ``precision='int8'``) and each sketch reads
+    one byte per element.  Returns (U, s, V) truncated to k."""
+    a = _as_operand(a)
+    resolve_precision(precision)
+    m, n = a.shape
+    dtype = a.dtype
+    l = min(k + p, min(m, n))
+    s_cols = min(s_factor * l + 1, m)
+    a_stage = a
+    if precision in STORAGE_INT8 and not isinstance(a, Int8Stored):
+        a_stage = quantize_int8_rows(a)
+    key = key_from_seed(seed, a.device)
+    omega = gaussian(key, (n, l), dtype)
+    psi = gaussian(key, (m, s_cols), dtype)
+    y = _mm(a_stage, omega, precision)                 # m x l
+    w = _mm(psi.T, a_stage, precision)                 # s x n
+    q_mat = orthonormal_basis(y, "robust")
+    p_mat = _mm(psi.T, q_mat)                          # s x l
+    qp, rp = qr_reduced(p_mat, "householder")
+    x = torch.linalg.solve_triangular(rp, _mm(qp.T, w), upper=True)  # l x n
+    u_t, sv, v = small_svd(x, method)
+    u = _mm(q_mat, u_t)
+    return u[:, :k], sv[:k], v[:, :k]
+
+
+def rsvd_warm(a, q_prev, k: int = 0, q: int = 1, method: str = "eigh",
+              qr_method: str = "robust", precision: str = "highest",
+              reorth: str = "full"):
+    """rSVD warm-started from an existing range basis: for a sweep of
+    slowly varying matrices, power-iterating the previous factorization's
+    Q reaches a cold start's accuracy with fewer passes over A.
+    ``q_prev`` is any m x l orthonormal(ish) basis, e.g. U from the
+    previous step.  Returns (U, s, V) truncated to k (all l when k = 0)."""
+    a = _as_operand(a)
+    resolve_precision(precision)
+    if not isinstance(q_prev, torch.Tensor):
+        q_prev = torch.as_tensor(q_prev, device=a.device)
+    q_mat = orthonormal_basis(q_prev, qr_method)
+    q_mat = power_refine(a, q_mat, q, qr_method, precision, reorth)
+    b = _mm(q_mat.T, a, precision)
+    u_t, s, v = small_svd(b, method)
+    u = _mm(q_mat, u_t)
+    if k > 0:
+        u, s, v = u[:, :k], s[:k], v[:, :k]
+    return u, s, v
+
+
+def rsvd_batched(a_batch, k: int, p: int = 10, q: int = 2,
+                 method: str = "eigh", seed: int = 0,
+                 precision: str = "highest", reorth: str = "full",
+                 finish: str = "project", mode: str = "scan"):
+    """Batched rSVD of a stacked (b, m, n) operand: element i draws its own
+    sketch from ``seed + i`` and runs :func:`rsvd_with_omega`, one element
+    after the other on A's device.
+
+    ``mode='scan'`` runs the exact single-matrix pipeline ('robust' QR);
+    ``mode='vmap'`` gives the numbers of the JAX package's vmapped mode,
+    whose QR is 'cholqr2' (a ``lax.cond`` under vmap would run both
+    branches).  Sharding the batch over several cards waits for the
+    distributed slice (ROADMAP.md queue 1).
+
+    Returns (U, s, V) with shapes (b, m, k), (b, k), (b, n, k)."""
+    if mode not in ("scan", "vmap"):
+        raise ValueError(f"unknown mode {mode!r} (use 'scan' or 'vmap')")
+    a_batch = _as_operand(a_batch)
+    if a_batch.ndim != 3:
+        raise ValueError(f"rsvd_batched takes a (b, m, n) stack, got "
+                         f"{tuple(a_batch.shape)}")
+    if k <= 0:
+        raise ValueError("rsvd_batched needs an explicit k > 0")
+    b, m, n = a_batch.shape
+    l = min(k + p, min(m, n))
+    qr_method = "robust" if mode == "scan" else "cholqr2"
+    outs = [rsvd_with_omega(a_batch[i], generate_omega(
+                seed + i, n, l, a_batch.dtype, device=a_batch.device),
+                q=q, k=k, method=method, qr_method=qr_method,
+                precision=precision, reorth=reorth, finish=finish)
+            for i in range(b)]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
