@@ -15,15 +15,17 @@ Phases (any failure raises; nothing is caught):
    unhealthy (K2) output from both.  K3 (``eigh_small``) on the
    three-kernel path's l x l tail Gram and at n in {1, 2, 17, 128, 200}
    (200 runs the workspace route), on an indefinite and on a
-   rank-deficient matrix; K4 (``fused_sketch_matmul``) on the recovered
-   Omega (A = I) and on Y at 4096^2 x 80, a ragged 4099 x 4001 x 17 and
-   l = 130.  K5 (``quantize_uint8``, K5a deterministic and K5b
-   stochastic) bitwise against its plain version on the image phase's
-   factor shapes, 1-D 1000, 3 x 5 x 7, 4099 x 4001, a constant, the
-   256-level grid and 16384^2; K5b within one level of K5a, unbiased at
-   6 sigma over 64 seeds, exact on the grid.  Kernel, plain version and
-   library yardsticks are timed with CUDA events.  ``--kernels-only``
-   stops here.
+   rank-deficient matrix, bitwise at every even n; K4
+   (``fused_sketch_matmul``) on the recovered Omega (A = I) and on Y at
+   4096^2 x 80, a ragged 4099 x 4001 x 17 and l = 130; its 3xTF32
+   tensor-core variant is only measured (time, recovered-Omega ulps, Y
+   error), never checked or counted.  K5 (``quantize_uint8``, K5a
+   deterministic and K5b stochastic) bitwise against its plain version
+   on the image phase's factor shapes, 1-D 1000, 3 x 5 x 7, 4099 x
+   4001, a constant, the 256-level grid and 16384^2; K5b within one
+   level of K5a, unbiased at 6 sigma over 64 seeds, exact on the grid.
+   Kernel, plain version and library yardsticks are timed with CUDA
+   events.  ``--kernels-only`` stops here.
 3. The main path -- ``entry()``'s rank-64 rSVD (k=64, p=16, q=2) of a
    4096 x 4096 f32 operand made from seed 0, and the same configuration
    through ``rsvd()`` -- for precision 'highest' and 'default' (K1 for
@@ -72,8 +74,10 @@ Exits non-zero with no result line when no CUDA device is visible or
 the package is not importable next to this script.
 """
 
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -129,7 +133,7 @@ K2_SYM_TOL = 1e-5        # K2: max |R - R^T| / max |R|, cond ~1
 K2_NORM_TOL = 1e-3       # K2: column norms of R against Y's, relative
 SERVING_PLAIN_TOL = 1e-3  # polar serving, kernel vs plain K2 recon error
 K3_SIZES = (1, 2, 17, 128, 200)   # 200: past shared memory, the workspace
-K3_LAM_TOL = 1e-5        # K3: max |d lambda| / max |lambda| vs plain
+K3_LAM_TOL = 1e-5        # K3: max |d lambda| / max |lambda| vs plain, odd n
 # K3: max |V^T V - I| and ||V L V^T - G||_F / ||G||_F of the kernel's own
 # factors on full-rank inputs: the JAX suite's orthogonality bound
 # (tests/test_pallas.py:112).  The TPU kernel's arithmetic computes c, s
@@ -158,8 +162,16 @@ ONEPASS_RATIO_MAX = 1.5   # "a constant factor behind" a q = 0 rSVD
 ADAPTIVE_TOL, ADAPTIVE_RATIO = 1e-2, 0.97    # expected k = 152
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+def phase(title):
+    """A phase's heading, with the seconds since the script started."""
+    log(f"{title} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def check(ok, what):
@@ -435,9 +447,31 @@ def k3_inputs(g_main):
     return out
 
 
+def ptxas_report(src, entry):
+    """Registers, shared memory and spills that ``nvcc -Xptxas -v``
+    reported for the first entry function of ``csrc/<src>.cu`` whose
+    mangled name contains ``entry``; None when this process did not build
+    it."""
+    lines = _build.build_logs.get(src, "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            out = {"entry": line.split("'")[1]}
+            for nxt in lines[i + 1:i + 4]:
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("smem_bytes", r"(\d+) bytes smem"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads")):
+                    hit = re.search(pat, nxt)
+                    if hit:
+                        out[key] = int(hit.group(1))
+            return out
+    return None
+
+
 def phase_k3(g_main):
     """K3 against its plain version; returns its kernels-line fields."""
     worst = 0.0
+    bitwise = {}
     for name, (g, full_rank) in k3_inputs(g_main).items():
         lam, v = kernels.eigh_small(g)
         lam0, v0 = kernels.eigh_small_reference(g)
@@ -446,6 +480,15 @@ def phase_k3(g_main):
         check(lam.shape == (n,) and v.shape == (n, n), name)
         check(bool(torch.isfinite(lam).all() and torch.isfinite(v).all()),
               f"{name}: non-finite K3 output")
+        if n % 2 == 0:
+            # the same rounded operations in the same order as the plain
+            # version: bitwise at even n (odd n pads with a norm summed in
+            # another order)
+            same = torch.equal(lam, lam0) and torch.equal(v, v0)
+            bitwise[name] = same
+            check(same, f"{name}: K3 not bitwise its plain version at even "
+                  f"n: max|dlam|={float((lam - lam0).abs().max())} "
+                  f"max|dV|={float((v - v0).abs().max())}")
         scale = float(lam0.abs().max()) or 1.0
         dlam = float((lam - lam0).abs().max()) / scale
         dv = float((v - v0).abs().max())
@@ -482,17 +525,58 @@ def phase_k3(g_main):
     # and V's columns: ~9 n_pad^2 flops; G read, lambda and V written
     bound_ms, bound_by = bound(9 * rounds * n_pad ** 2,
                                4 * (2 * n * n + n))
+    ptxas = ptxas_report("eigh", "jacobi_eigh")
+    barriers = kernels._eigh_lib().rsvd_eigh_barriers_per_round()
     log(f"  K3 at n={n}: kernel {ms:.4f} ms ({rounds} rounds, "
-        f"{ms * 1e3 / rounds:.3f} us each), plain {plain_ms:.4f} ms, "
-        f"torch.linalg.eigh {lib_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us "
-        f"({bound_by})")
+        f"{ms * 1e3 / rounds:.3f} us each, {barriers} block barriers per "
+        f"round by csrc/eigh.cu), plain {plain_ms:.4f} ms, torch.linalg.eigh "
+        f"{lib_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}); "
+        f"bitwise at even n: {bitwise}; ptxas {ptxas}")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms,
-                bound_us=bound_ms * 1e3, bound_by=bound_by, rounds=rounds)
+                bound_us=bound_ms * 1e3, bound_by=bound_by, rounds=rounds,
+                us_per_round=ms * 1e3 / rounds, bitwise_even_n=bitwise,
+                ptxas=ptxas)
 
 
 def ulp(x):
     return (torch.nextafter(x, torch.full_like(x, float("inf"))) - x).abs()
+
+
+def k4_plan(m, n, l):
+    """K4's launch plan at (m, n, l) as ``csrc/sketch.cu`` reports it
+    (``rsvd_sketch_plan``), with the draws per n l and the padded
+    columns' share of the tiles."""
+    lib = kernels._sketch_lib()
+    lib.rsvd_sketch_plan.restype = None
+    lib.rsvd_sketch_plan.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    out = (ctypes.c_longlong * 7)()
+    lib.rsvd_sketch_plan(m, n, l, out)
+    plan = dict(zip(("cluster", "splits", "k_per_split", "blocks",
+                     "tile_columns", "padded_columns", "draws"), out))
+    plan.update(draws_per_nl=plan["draws"] / (n * l),
+                padded_column_share=plan["padded_columns"]
+                / plan["tile_columns"])
+    return plan
+
+
+def sketch_3xtf32(a, l, seed):
+    """Y = A Omega through ``csrc/sketch.cu``'s 3xTF32 tensor-core variant
+    (``rsvd_sketch_f32_3xtf32``): measured beside K4, never called by the
+    package, so it has no wrapper and no launch count."""
+    lib = kernels._sketch_lib()
+    fn = lib.rsvd_sketch_f32_3xtf32
+    fn.restype = ctypes.c_int
+    fn.argtypes = lib.rsvd_sketch_f32.argtypes
+    m, n = a.shape
+    y = torch.empty((m, l), dtype=torch.float32, device=a.device)
+    work = torch.empty(lib.rsvd_sketch_workspace_floats(m, n, l),
+                       dtype=torch.float32, device=a.device)
+    err = fn(a.data_ptr(), y.data_ptr(), work.data_ptr(), m, n, l,
+             seed & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"3xTF32 sketch: CUDA error {err}")
+    return y
 
 
 def phase_k4(a):
@@ -530,12 +614,28 @@ def phase_k4(a):
     with device.ieee_fp32():
         lib_ms = cuda_ms(lambda: torch.matmul(a, omega), 20)
     bound_ms, bound_by = bound(2 * m * n * l, 4 * (m * n + m * l))
+    # the 3xTF32 variant, measured only: its recovered Omega, its Y at
+    # 4096^2 x 80 and its time, beside the fp32 kernel's
+    tc_om = sketch_3xtf32(eye, l, 0)
+    tc_ulps = float(((tc_om - om0).abs() / ulp(om0.abs())).max())
+    y0 = kernels.fused_sketch_matmul_reference(a, l, 0)
+    tc_rel = float((sketch_3xtf32(a, l, 0) - y0).abs().max()
+                   / y0.abs().max())
+    tc_ms = cuda_ms(lambda: sketch_3xtf32(a, l, 0), 20)
+    log(f"  K4 3xTF32 variant (measured only) at {m}x{n} x {l}: "
+        f"{tc_ms:.4f} ms, recovered Omega {tc_ulps:.1f} ulp, "
+        f"max|dY|/max|Y| = {tc_rel:.3e}; ptxas "
+        f"{ptxas_report('sketch', 'sketch_clusterILi5ELb1ELb1E')}")
+    plan = k4_plan(m, n, l)
+    # the tile width l = 80 takes: NC = 5 columns a thread, 16-byte A loads
+    ptxas = ptxas_report("sketch",
+                         f"sketch_clusterILi{-(-l // 16)}ELb1ELb0E")
     log(f"  K4 at {m}x{n} x {l}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, torch.matmul(A, Omega) fp32 {lib_ms:.4f} ms, bound "
-        f"{bound_ms * 1e3:.3f} us ({bound_by})")
+        f"{bound_ms * 1e3:.3f} us ({bound_by}); plan {plan}; ptxas {ptxas}")
     return dict(max_abs_err=worst, max_ulps_omega=ulps, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_us=bound_ms * 1e3, bound_by=bound_by)
+                bound_us=bound_ms * 1e3, bound_by=bound_by, ptxas=ptxas)
 
 
 def k5_inputs():
@@ -1026,7 +1126,7 @@ def phase_drawn_point(rows, cols, k, seed):
 # device kernels by name: (substrings, group), first match wins
 KERNEL_GROUPS = (
     (("jacobi_eigh",), "K3 jacobi_eigh"),
-    (("sketch_tiles", "sum_splits"), "K4 sketch_tiles / sum_splits"),
+    (("sketch_cluster", "sum_splits"), "K4 sketch_cluster / sum_splits"),
     (("ns_iterate",), "K2 ns_iterate"),
     (("quantize_u8",), "K5 quantize_u8"),
     (("eliminate",), "K1 eliminate"),
@@ -1101,7 +1201,7 @@ def main(argv):
     log(f"device: {name} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | count {torch.cuda.device_count()}")
 
-    log("phase 1: build")
+    phase("phase 1: build")
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"  built {[p.name for p in libs]} in "
@@ -1110,7 +1210,7 @@ def main(argv):
         log(f"  nvcc {src}:\n" + "\n".join(
             "    " + line for line in text.strip().splitlines()))
 
-    log("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     fwd_hi, (a,) = entry(device="cuda", m=M, n=N, precision="highest")
     y_main, all_panels = panels(a)
     k1 = phase_k1(y_main, all_panels)
@@ -1120,10 +1220,10 @@ def main(argv):
     k4 = phase_k4(a)
     k5 = phase_k5()
     if "--kernels-only" in argv:
-        log("stopping after phase 2 (--kernels-only)")
+        phase("stopping after phase 2 (--kernels-only)")
         return 0
 
-    log("phase 3: main path")
+    phase("phase 3: main path")
     a64 = to_numpy(a).astype(np.float64)
     t0 = time.perf_counter()
     u_n, s_n, v_n = numpy_rsvd(a64, K + P, Q)
@@ -1161,7 +1261,7 @@ def main(argv):
     log(f"  rsvd() [default]: (K1, K2, K3, K4, K5a, K5b) launches {launches}, "
         f"s[0]={float(s_r[0]):.4f}")
 
-    log("phase 3: the three-kernel path (K4 sketch, K1 interiors, K3 tail)")
+    phase("phase 3: the three-kernel path (K4 sketch, K1 interiors, K3 tail)")
     omega_f = to_numpy(kernels.fused_sketch_omega(N, K + P, 0, "cuda"))
     u_n, s_n, v_n = numpy_rsvd(a64, K + P, Q, omega=omega_f.astype(np.float64))
     err_np_fused = recon_err(a64, u_n, s_n, v_n)
@@ -1183,7 +1283,7 @@ def main(argv):
         + json.dumps(fused["profile_highest"]))
     summary["three_kernels"] = fused
 
-    log(f"phase 3: rsvd(A, k={K}) at its defaults and the other engines")
+    phase(f"phase 3: rsvd(A, k={K}) at its defaults and the other engines")
     u_n, s_n, v_n = numpy_rsvd(a64, K + DEFAULT_P, Q)
     err_np_def = recon_err(a64, u_n, s_n, v_n)
     log(f"  numpy f64 rSVD at l={K + DEFAULT_P}: err {err_np_def:.6f}")
@@ -1218,7 +1318,7 @@ def main(argv):
         check(ratio <= ERR_RATIO_MAX, f"{method}: err ratio {ratio}")
     summary["defaults_and_engines"] = engines
 
-    log("phase 4: serving path")
+    phase("phase 4: serving path")
     quant_ms = cuda_ms(lambda: prepare_operand(a), 10)
     a8 = prepare_operand(a)
     log(f"  prepare_operand (int8 quantization) 4096^2: {quant_ms:.4f} ms")
@@ -1242,11 +1342,11 @@ def main(argv):
         log(f"  profile [int8, {interior}, 4096^2]: "
             + json.dumps(serving[key]))
 
-    log("phase 5: the image codec on the card")
+    phase("phase 5: the image codec on the card")
     k5_launches, image_summary = phase_image()
     launches_total = [t + c for t, c in zip(launches_total, k5_launches)]
 
-    log("phase 6: the driver modes at 4096^2")
+    phase("phase 6: the driver modes at 4096^2")
     modes = phase_driver_modes(a, a64, err_np)
 
     smi = subprocess.run(
@@ -1287,6 +1387,7 @@ def main(argv):
              launches=launches_total[5], **k5["K5b"]),
     ], "main_path": summary, "serving": serving, "image": image_summary,
         "driver_modes": modes}
+    phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())
     log(json.dumps({"ok": True, "device": {

@@ -36,6 +36,7 @@ __version__ = "0.1.0"
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (  # noqa: F401
     SVD,
     SVDMethod,
+    cholesky_qr2,
     jacobi_svd,
     power_svd,
 )

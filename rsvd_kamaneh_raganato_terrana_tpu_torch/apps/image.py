@@ -86,6 +86,9 @@ class Image:
         self._normalized = False
         self.U = self.S = self.V = None
         self.tile_factors: Optional[TileFactors] = None
+        # device layout of the last tiled run's factor batch, as the JAX
+        # package keeps it (its multichip dry run reads it)
+        self.last_tile_sharding = None
 
     # -- I/O ------------------------------------------------------------
     @classmethod
@@ -204,6 +207,9 @@ class Image:
                                              dtype), q=q, k=k)
             for i, t in enumerate(tiles_dev))
         self.tile_factors = TileFactors(u, s, v, (gy, gx), (m, n))
+        # one card holds every tile: the layout stays None until mesh=
+        # shards the tiles over several cards
+        self.last_tile_sharding = None
         self.U = self.S = self.V = None
         return self
 

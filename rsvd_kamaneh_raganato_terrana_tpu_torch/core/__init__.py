@@ -1,2 +1,13 @@
-"""Device/precision policy (`device`), seeded RNG (`rng`) and numpy
-hand-over (`convert`)."""
+"""Device/precision policy (`device`), seeded RNG (`rng`), numpy
+hand-over (`convert`) and FLOP counts (`profiling`)."""
+
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (  # noqa: F401
+    fold_in_shard,
+    gaussian,
+    key_from_seed,
+    rademacher,
+    sketch_matrix,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import (  # noqa: F401
+    rsvd_flops,
+)

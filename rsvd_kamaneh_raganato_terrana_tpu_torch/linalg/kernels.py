@@ -427,8 +427,9 @@ def fused_sketch_matmul(a, l: int, seed: int = 0, block_m: int = 512,
     on a CPU tensor it runs :func:`fused_sketch_matmul_reference`.  A is
     read in f32 and Y returned in ``a.dtype``.  ``block_m`` and
     ``block_k`` keep the JAX signature; the result does not depend on
-    them, and the CUDA kernel's tiling is its own (128 x 128 tiles of Y,
-    the contraction split for occupancy)."""
+    them, and the CUDA kernel's tiling is its own (256-row tiles of Y as
+    wide as l rounded up to 16, each Omega entry drawn once per cluster
+    of 2 row tiles, the contraction split for occupancy)."""
     if not isinstance(a, torch.Tensor) or a.ndim != 2:
         raise TypeError("fused_sketch_matmul takes a dense 2-D tensor, got "
                         f"{type(a).__name__}")

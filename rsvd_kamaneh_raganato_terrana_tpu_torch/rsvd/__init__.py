@@ -9,6 +9,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
     Int8Stored,
     generate_omega,
     quantize_int8_rows,
+    power_refine,
     reconstruct,
     reconstruction_error,
     adaptive_work_ratio,
@@ -20,6 +21,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
     rsvd_onepass,
     rsvd_warm,
     rsvd_with_omega,
+    subspace_iteration,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.serving import (  # noqa: F401
     prepare_operand,

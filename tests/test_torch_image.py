@@ -209,6 +209,18 @@ def test_compress_tiled_draws_one_stream_per_tile():
     np.testing.assert_array_equal(tim.tile_factors.s, again.tile_factors.s)
 
 
+def test_last_tile_sharding_is_none_on_one_device():
+    """Both packages set it to None at construction; after a tiled run on
+    one device the port has no sharded layout to record."""
+    data = _photo((32, 32))
+    assert jimage.Image(data).last_tile_sharding is None
+    tim = timage.Image(data)
+    assert tim.last_tile_sharding is None
+    tim.compress_tiled(k=3, grid=(2, 2), seed=2, **CPU)
+    assert tim.tile_factors is not None
+    assert tim.last_tile_sharding is None
+
+
 @pytest.fixture(scope="module")
 def gray_pair():
     data = _photo((64, 56))
