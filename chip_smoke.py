@@ -10,9 +10,14 @@ Phases (any failure raises; nothing is caught):
 1. Build every kernel from ``csrc/`` with nvcc for sm_90a, all at once,
    and log each ptxas report.
 2. Each kernel against its plain version on the card, at the paths'
-   shapes and at ragged ones; K2's intermediates (``stage``) against the
-   plain ones; a rank-deficient panel must give non-finite (K1) or
-   unhealthy (K2) output from both.  K3 (``eigh_small``) on the
+   shapes and at ragged ones (K1 and K2 also on a 4096 x 160 panel, past
+   their 128-wide one-tile paths); K2's intermediates (``stage``) against
+   the plain ones; two calls of K1 or K2 on one panel must agree bitwise;
+   a rank-deficient panel must give non-finite (K1) or unhealthy (K2)
+   output from both.  K1 and K2 report their launch plans, a profile of
+   their kernels by stage and ptxas registers; K2 is also timed with its
+   iteration's cluster set to 4 (the one-block iteration), 8 and 16
+   blocks, measured only.  K3 (``eigh_small``) on the
    three-kernel path's l x l tail Gram and at n in {1, 2, 17, 128, 200}
    (200 runs the workspace route), on an indefinite and on a
    rank-deficient matrix, bitwise at every even n; K4
@@ -31,7 +36,8 @@ Phases (any failure raises; nothing is caught):
    through ``rsvd()`` -- for precision 'highest' and 'default' (K1 for
    every orthonormalization: q + 1 = 3 launches per call), and the same
    configuration with ``interior_qr='polar_fused'`` through
-   ``rsvd_with_omega`` (2 K2 launches and 1 K1 launch per call).  Then
+   ``rsvd_with_omega`` (2 K2 launches and 1 K1 launch per call), and
+   one ``torch.profiler`` pass over ``entry()``'s 'default' call.  Then
    the three-kernel path, ``rsvd(sketch='fused', method='eigh_pallas')``
    with K1 interiors, 'highest' and 'default' (K4, K1, K3 launched 1, 3
    and 1 times per call), with one ``torch.profiler`` pass over the
@@ -268,6 +274,10 @@ def panels(a):
                                         generator=gen), True),
         "panel 16384x80": (torch.randn(16384, 80, device="cuda",
                                        generator=gen), True),
+        # past l = 128: K1's and K2's wide paths (tiled Gram and apply,
+        # K1's elimination over the workspace, K2's one-block iteration)
+        "wide 4096x160": (torch.randn(4096, 160, device="cuda",
+                                      generator=gen), True),
     }
 
 
@@ -282,6 +292,45 @@ def orth_err(q):
     with device.ieee_fp32():
         gram = q.T @ q
     return float((gram - torch.eye(q.shape[1], device="cuda")).abs().max())
+
+
+def panel_plan(fn, m, l, keys):
+    """A panel kernel's launch plan at (m, l) as its library reports it
+    (``rsvd_cholqr1_plan``, ``rsvd_polar_plan``)."""
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong)]
+    out = (ctypes.c_longlong * len(keys))()
+    fn(m, l, out)
+    return dict(zip(keys, out))
+
+
+def k1_plan(m, l):
+    return panel_plan(kernels._cholqr1_lib().rsvd_cholqr1_plan, m, l,
+                      ("narrow", "gram_blocks", "rows_per_split",
+                       "partials", "elim_smem_bytes"))
+
+
+def k2_plan(m, l):
+    return panel_plan(kernels._polar_lib().rsvd_polar_plan, m, l,
+                      ("cluster_path", "cluster", "band_rows",
+                       "gram_blocks", "partials", "iter_smem_bytes"))
+
+
+def bitwise_twice(fn, y):
+    """Two calls of ``fn`` on the same panel give bitwise equal outputs."""
+    first = fn(y)
+    second = fn(y)
+    torch.cuda.synchronize()
+    return all(torch.equal(x, z) for x, z in zip(first, second))
+
+
+def stage_profile(call):
+    """Device ms per call by kernel group and the launch gaps (wall minus
+    busy), from one profiler pass over 20 calls."""
+    prof = profile_call(call, reps=20)
+    return dict(prof["ms_per_call_by_group"],
+                wall_ms=prof["wall_ms_per_call"],
+                busy_ms=prof["device_busy_ms_per_call"])
 
 
 def phase_k1(y_main, all_panels):
@@ -306,6 +355,10 @@ def phase_k1(y_main, all_panels):
               f"{name}: kernel vs plain dQ={dq} dR/R={dr_rel}")
         check(orth <= ORTH_TOL and lower == 0.0,
               f"{name}: |Q^T Q - I|={orth} |tril(R)|={lower}")
+        same = bitwise_twice(kernels.fused_cholqr1, y)
+        log(f"  K1 {name}: plan {k1_plan(*y.shape)}, two calls bitwise "
+            f"equal: {same}")
+        check(same, f"{name}: K1 not deterministic")
         worst_q, worst_r = max(worst_q, dq), max(worst_r, dr_rel)
 
     y_def = rank_deficient()
@@ -325,12 +378,20 @@ def phase_k1(y_main, all_panels):
     # written.  At 4096 x 80 the two times tie within 1%
     bound_ms, bound_by = bound(2 * m * l * (l + 1) + 2 * l ** 3 / 3,
                                4 * (2 * m * l + l * l))
+    nc = -(-l // 16)
+    ptxas = {k: ptxas_report("cholqr1", e) for k, e in (
+        ("gram", f"gram_clusterILi{nc}E"),
+        ("eliminate", f"eliminate_clusterILi{-(-2 * l // 32)}E"),
+        ("apply", f"apply_rowsILi{nc}ELb1ELb1E"),
+        ("eliminate_wide", "eliminate_wide"))}
+    stages = stage_profile(lambda: kernels.fused_cholqr1(y_main))
     log(f"  K1 at {m}x{l}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.linalg.qr {lib_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us "
-        f"({bound_by})")
+        f"({bound_by}); stages {json.dumps(stages)}; ptxas {ptxas}")
     return dict(max_abs_err=worst_q, max_rel_err_r=worst_r, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_us=bound_ms * 1e3, bound_by=bound_by)
+                bound_us=bound_ms * 1e3, bound_by=bound_by,
+                stages_ms=stages, ptxas=ptxas)
 
 
 def k2_unhealthy(q, r):
@@ -381,6 +442,10 @@ def phase_k2(y_main, all_panels):
               f"{dnorm}")
         check(max(stage_err.values()) <= K2_STAGE_TOL,
               f"{name}: K2 stages {stage_err}")
+        same = bitwise_twice(kernels.polar_qr_fused, y)
+        log(f"  K2 {name}: plan {k2_plan(*y.shape)}, two calls bitwise "
+            f"equal: {same}")
+        check(same, f"{name}: K2 not deterministic")
         worst_q = max(worst_q, dq)
         worst_stage = max(worst_stage, max(stage_err.values()))
 
@@ -402,13 +467,57 @@ def phase_k2(y_main, all_panels):
     bound_ms, bound_by = bound(m * l * (l + 1) + 2 * m * l * l
                                + 8 * POLAR_ITERS * l ** 3,
                                4 * (2 * m * l + l * l))
+    nc = -(-l // 16)
+    band = k2_plan(m, l)["band_rows"]
+    ptxas = {k: ptxas_report("polar", e) for k, e in (
+        ("gram", f"gram_clusterILi{nc}E"),
+        ("iterate", f"ns_clusterILi{band}E"),
+        ("apply", f"apply_rowsILi{nc}ELb0ELb0E"),
+        ("iterate_one_block", "ns_iterate"))}
+    stages = stage_profile(lambda: kernels.polar_qr_fused(y_main))
+    clusters = k2_cluster_sizes(y_main)
     log(f"  K2 at {m}x{l}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.linalg.qr {lib_ms:.4f} ms, polar_qr composition "
-        f"{comp_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by})")
+        f"{comp_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}); "
+        f"stages {json.dumps(stages)}; cluster sizes (measured only) "
+        f"{json.dumps(clusters)}; ptxas {ptxas}")
     return dict(max_abs_err=worst_q, max_rel_err_stage=worst_stage, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms,
                 polar_qr_composition_ms=comp_ms, bound_ms=bound_ms,
-                bound_us=bound_ms * 1e3, bound_by=bound_by)
+                bound_us=bound_ms * 1e3, bound_by=bound_by,
+                stages_ms=stages, cluster_sizes=clusters, ptxas=ptxas)
+
+
+def k2_cluster_sizes(y):
+    """K2 on y with the iteration's cluster set to 4 blocks (too few for
+    the bands: the one-block iteration, ``ns_iterate``), 8 and 16
+    (``rsvd_polar_set_cluster``; measured only, the default restored):
+    each one's time, plan, max |dQ| against the plain version and whether
+    its Q and R are bitwise those of the default."""
+    set_cluster = kernels._polar_lib().rsvd_polar_set_cluster
+    set_cluster.restype = ctypes.c_int
+    set_cluster.argtypes = [ctypes.c_int]
+    q0, _ = kernels.polar_qr_fused_reference(y)
+    q_def, r_def = kernels.polar_qr_fused(y)
+    out = {}
+    default = set_cluster(8)
+    try:
+        for size in (4, 8, 16):
+            set_cluster(size)
+            try:
+                q, r = kernels.polar_qr_fused(y)
+                torch.cuda.synchronize()
+                out[size] = dict(
+                    ms=cuda_ms(lambda: kernels.polar_qr_fused(y), 50),
+                    max_abs_err=float((q - q0).abs().max()),
+                    bitwise_default=torch.equal(q, q_def)
+                    and torch.equal(r, r_def),
+                    plan=k2_plan(*y.shape))
+            except RuntimeError as exc:     # a cluster size the card refuses
+                out[size] = dict(error=str(exc))
+    finally:
+        set_cluster(default)
+    return out
 
 
 def tail_gram(a):
@@ -1127,11 +1236,12 @@ def phase_drawn_point(rows, cols, k, seed):
 KERNEL_GROUPS = (
     (("jacobi_eigh",), "K3 jacobi_eigh"),
     (("sketch_cluster", "sum_splits"), "K4 sketch_cluster / sum_splits"),
-    (("ns_iterate",), "K2 ns_iterate"),
+    (("ns_cluster", "ns_iterate"), "K2 ns_cluster / ns_iterate"),
     (("quantize_u8",), "K5 quantize_u8"),
-    (("eliminate",), "K1 eliminate"),
-    (("gram_partials", "apply_right"),
-     "K1/K2 panel passes (gram_partials, apply_right)"),
+    (("eliminate",), "K1 eliminate_cluster / eliminate_wide"),
+    (("gram_cluster", "gram_partials"),
+     "K1/K2 Gram (gram_cluster, gram_partials)"),
+    (("apply_rows", "apply_right"), "K1/K2 apply (apply_rows, apply_right)"),
     (("syevj", "syevd", "sytrd", "stedc", "ormtr", "orgtr"),
      "cuSOLVER eigh"),
     (("i8", "s8", "imma", "int8"), "int8 GEMMs"),
@@ -1248,6 +1358,9 @@ def main(argv):
         launches_total = [t + c for t, c in zip(launches_total, launches)]
         summary[label] = out
         log(f"  main path [{label}]: " + json.dumps(out))
+    summary["profile_default"] = profile_call(lambda: fwd_def(a))
+    log("  profile [main path, default]: "
+        + json.dumps(summary["profile_default"]))
     # the same configuration through the public rsvd()
     reset_counts()
     _, s_r, _ = rsvd(a, k=K, p=P, seed=0, precision="default",

@@ -29,6 +29,7 @@ Sources live in ``csrc/`` and build with ``nvcc`` at first use
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -92,6 +93,31 @@ def _check_launch(lib, err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
+def _panel_buffers(device, work_floats: int, *shapes):
+    """f32 tensors of ``shapes`` followed by ``work_floats`` of workspace,
+    as views of ONE device allocation, each starting 16-byte aligned: K1's
+    and K2's kernels are short enough that the host's work around a
+    launch shows in their call time.  The workspace is the last view."""
+    sizes = [math.prod(shape) for shape in shapes]
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // 4) * 4)   # 16-byte aligned
+    buf = torch.empty(offsets[-1] + work_floats, dtype=torch.float32,
+                      device=device)
+    views = [buf[o:o + n].view(shape)
+             for o, n, shape in zip(offsets, sizes, shapes)]
+    return views + [buf[offsets[-1]:]]
+
+
+def _on_card(device, launch):
+    """``launch(stream)`` with ``device`` current and its current stream's
+    handle; the device is switched only when it is not the current one."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return launch(torch.cuda.current_stream().cuda_stream)
+
+
 def fused_cholqr1(y):
     """CholeskyQR1 of Y (m x l): (Q, R) with R upper-triangular, the
     contract of ``linalg.qr.cholesky_qr1`` (NaNs on rank-deficient input,
@@ -111,21 +137,20 @@ def fused_cholqr1(y):
         raise ValueError(f"fused_cholqr1: {y.shape} exceeds the kernel's "
                          "32-bit dimensions")
     y32 = y.to(torch.float32).contiguous()
-    q = torch.empty((m, l), dtype=torch.float32, device=y.device)
-    r = torch.empty((l, l), dtype=torch.float32, device=y.device)
     if m == 0 or l == 0:
+        q = torch.empty((m, l), dtype=torch.float32, device=y.device)
+        r = torch.empty((l, l), dtype=torch.float32, device=y.device)
         return q.to(y.dtype), r.to(y.dtype)
     lib = _cholqr1_lib()
-    # y32 and work may be freed when this returns, before the kernel ends:
-    # the caching allocator hands their blocks out again only to work
-    # queued after it on the same stream
-    work = torch.empty(lib.rsvd_cholqr1_workspace_floats(m, l),
-                       dtype=torch.float32, device=y.device)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rsvd_cholqr1_f32(y32.data_ptr(), q.data_ptr(),
-                                   r.data_ptr(), work.data_ptr(), m, l,
-                                   stream)
+    # y32 may be freed when this returns, before the kernel ends: the
+    # caching allocator hands its block out again only to work queued after
+    # it on the same stream; the workspace shares q's and r's allocation
+    q, r, work = _panel_buffers(y.device,
+                                lib.rsvd_cholqr1_workspace_floats(m, l),
+                                (m, l), (l, l))
+    err = _on_card(y.device, lambda stream: lib.rsvd_cholqr1_f32(
+        y32.data_ptr(), q.data_ptr(), r.data_ptr(), work.data_ptr(), m, l,
+        stream))
     _check_launch(lib, err, "fused_cholqr1")
     fused_cholqr1.launches += 1
     return q.to(y.dtype), r.to(y.dtype)
@@ -194,6 +219,15 @@ def polar_qr_fused_reference(y, iters: int = 8, mu_min: float = 1e-6,
     return q.to(y.dtype), r.to(y.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _polar_coeffs(iters: int, mu_min: float):
+    """The ``ns_schedule(iters, mu_min)`` coefficients as the kernel's
+    ctypes float array (3 a step)."""
+    coeffs, _ = ns_schedule(iters, mu_min)
+    return (ctypes.c_float * (3 * iters))(*(x for abc in coeffs
+                                            for x in abc))
+
+
 def _polar_lib():
     return _library("polar", {
         "rsvd_polar_workspace_floats": (ctypes.c_size_t, [ctypes.c_int] * 2),
@@ -226,25 +260,22 @@ def polar_qr_fused(y, iters: int = 8, mu_min: float = 1e-6, stage=None):
         raise ValueError(f"polar_qr_fused: {y.shape} exceeds the kernel's "
                          "32-bit dimensions")
     y32 = y.to(torch.float32).contiguous()
-    q = torch.empty((m, l) if code < 0 else (0,), dtype=torch.float32,
-                    device=y.device)
-    r = torch.empty((l, l), dtype=torch.float32, device=y.device)
+    q_shape = (m, l) if code < 0 else (0,)
     if m == 0 or l == 0:
+        q = torch.empty(q_shape, dtype=torch.float32, device=y.device)
+        r = torch.empty((l, l), dtype=torch.float32, device=y.device)
         return r.to(y.dtype) if code >= 0 else (q.to(y.dtype),
                                                 r.to(y.dtype))
-    coeffs, _ = ns_schedule(iters, mu_min)
-    flat = (ctypes.c_float * (3 * iters))(*(x for abc in coeffs
-                                             for x in abc))
+    flat = _polar_coeffs(iters, mu_min)
     lib = _polar_lib()
-    # as in fused_cholqr1: the allocator reuses y32's and work's blocks
-    # only for work queued after the kernel on this stream
-    work = torch.empty(lib.rsvd_polar_workspace_floats(m, l),
-                       dtype=torch.float32, device=y.device)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rsvd_polar_f32(y32.data_ptr(), q.data_ptr(), r.data_ptr(),
-                                 work.data_ptr(), m, l, flat, iters, code,
-                                 stream)
+    # as in fused_cholqr1: the allocator reuses y32's block only for work
+    # queued after the kernel on this stream
+    q, r, work = _panel_buffers(y.device,
+                                lib.rsvd_polar_workspace_floats(m, l),
+                                q_shape, (l, l))
+    err = _on_card(y.device, lambda stream: lib.rsvd_polar_f32(
+        y32.data_ptr(), q.data_ptr(), r.data_ptr(), work.data_ptr(), m, l,
+        flat, iters, code, stream))
     _check_launch(lib, err, "polar_qr_fused")
     polar_qr_fused.launches += 1
     if code >= 0:
@@ -343,11 +374,9 @@ def eigh_small(g, sweeps: int = 8):
     # only for work queued after the kernel on this stream
     work = torch.empty(lib.rsvd_eigh_workspace_floats(n),
                        dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rsvd_eigh_small_f32(g32.data_ptr(), lam.data_ptr(),
-                                      v.data_ptr(), work.data_ptr(), n,
-                                      sweeps, stream)
+    err = _on_card(g.device, lambda stream: lib.rsvd_eigh_small_f32(
+        g32.data_ptr(), lam.data_ptr(), v.data_ptr(), work.data_ptr(), n,
+        sweeps, stream))
     _check_launch(lib, err, "eigh_small")
     eigh_small.launches += 1
     return lam.to(g.dtype), v.to(g.dtype)
@@ -452,11 +481,9 @@ def fused_sketch_matmul(a, l: int, seed: int = 0, block_m: int = 512,
     # only for work queued after the kernel on this stream
     work = torch.empty(lib.rsvd_sketch_workspace_floats(m, n, l),
                        dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rsvd_sketch_f32(a32.data_ptr(), y.data_ptr(),
-                                  work.data_ptr(), m, n, l, seed & _M32,
-                                  stream)
+    err = _on_card(a.device, lambda stream: lib.rsvd_sketch_f32(
+        a32.data_ptr(), y.data_ptr(), work.data_ptr(), m, n, l, seed & _M32,
+        stream))
     _check_launch(lib, err, "fused_sketch_matmul")
     fused_sketch_matmul.launches += 1
     return y.to(a.dtype)
@@ -554,12 +581,9 @@ def quantize_uint8(x, stochastic: bool = False, seed: int = 0,
     lib = _quantize_lib()
     # as in fused_cholqr1: the allocator reuses x32's block only for work
     # queued after the kernel on this stream
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rsvd_quantize_u8_f32(x32.data_ptr(), q.data_ptr(),
-                                       x32.numel(), lo.data_ptr(),
-                                       scale.data_ptr(), int(stochastic),
-                                       seed & _M32, stream)
+    err = _on_card(x.device, lambda stream: lib.rsvd_quantize_u8_f32(
+        x32.data_ptr(), q.data_ptr(), x32.numel(), lo.data_ptr(),
+        scale.data_ptr(), int(stochastic), seed & _M32, stream))
     _check_launch(lib, err, "quantize_uint8")
     if stochastic:
         quantize_uint8.launches_stochastic += 1

@@ -47,8 +47,12 @@ def _rank_deficient(seed=3):
     return a
 
 
+# the last two sit at the CUDA kernel's boundaries: l = 80 with m not a
+# multiple of its 32-row tiles, and l = 129 past its 128-wide one-tile path
 @pytest.mark.parametrize("m,l,cond,seed", [(264, 40, 50.0, 9),
-                                           (520, 33, 30.0, 11)])
+                                           (520, 33, 30.0, 11),
+                                           (203, 80, 20.0, 13),
+                                           (300, 129, 20.0, 17)])
 def test_reference_matches_jax_fused_cholqr1(m, l, cond, seed):
     y = _tall(m, l, cond, seed)
     q_j, r_j = (np.asarray(x) for x in jax_fused_cholqr1(jnp.asarray(y)))
@@ -95,6 +99,24 @@ def test_wrapper_computes_in_f32_and_returns_input_dtype(dtype):
         torch.float32))
     assert q.dtype == dtype and r.dtype == dtype
     assert torch.equal(q, q32.to(dtype)) and torch.equal(r, r32.to(dtype))
+
+
+def test_panel_buffers_are_aligned_views_of_one_allocation():
+    """K1's and K2's outputs and workspace come from one allocation, each
+    view contiguous and 16-byte aligned within it."""
+    q, r, work = kernels._panel_buffers(torch.device("cpu"), 37, (5, 3),
+                                        (3, 3))
+    assert (q.shape, r.shape, work.shape) == ((5, 3), (3, 3), (37,))
+    base = q.untyped_storage().data_ptr()
+    for t in (q, r, work):
+        assert t.is_contiguous() and t.dtype == torch.float32
+        assert t.untyped_storage().data_ptr() == base
+        assert (t.data_ptr() - base) % 16 == 0
+    assert r.data_ptr() - q.data_ptr() >= 4 * q.numel()
+    assert work.data_ptr() - r.data_ptr() >= 4 * r.numel()
+    empty_q, _, _ = kernels._panel_buffers(torch.device("cpu"), 1, (0,),
+                                           (2, 2))
+    assert empty_q.shape == (0,)
 
 
 def test_wrapper_refuses_a_device_without_kernel():

@@ -76,8 +76,12 @@ def test_polar_qr_matches_jax_f64(m, l, cond, seed):
     assert np.abs(r_t - r_t.T).max() <= 1e-9 * np.abs(r_t).max()
 
 
+# the last two sit at the CUDA kernel's boundaries: l = 80 with m not a
+# multiple of its 32-row tiles, and l = 129 past its 128-wide one-tile path
 @pytest.mark.parametrize("m,l,cond,seed", [(264, 40, 100.0, 7),
-                                           (320, 17, 30.0, 5)])
+                                           (320, 17, 30.0, 5),
+                                           (203, 80, 30.0, 13),
+                                           (300, 129, 30.0, 17)])
 def test_fused_reference_matches_jax_kernel(m, l, cond, seed):
     """The plain K2 against the Pallas K2 (interpret mode), with
     tests/test_polar.py:114-134's tolerances: Q to 2e-4, R through its
