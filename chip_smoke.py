@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path, its three-kernel ``rsvd()``
-path, ``rsvd()`` at its defaults, the serving path, the image codec and
-the other driver modes on one CUDA card, and hold every kernel of those
-paths to its plain PyTorch version.
+path, ``rsvd()`` at its defaults, the serving path, the image codec,
+the other driver modes, PCA and the rsvd/pca command lines on one CUDA
+card, and hold every kernel of those paths to its plain PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
 
@@ -11,14 +11,16 @@ Phases (any failure raises; nothing is caught):
    and log each ptxas report.
 2. Each kernel against its plain version on the card, at the paths'
    shapes and at ragged ones (K1 and K2 also on a 4096 x 160 panel, past
-   their 128-wide one-tile paths); K2's intermediates (``stage``) against
+   their 128-wide one-tile paths; K1 also on the rsvd command line's
+   100/110/140/160 x 16 panels); K2's intermediates (``stage``) against
    the plain ones; two calls of K1 or K2 on one panel must agree bitwise;
    a rank-deficient panel must give non-finite (K1) or unhealthy (K2)
    output from both.  K1 and K2 report their launch plans, a profile of
    their kernels by stage and ptxas registers; K2 is also timed with its
    iteration's cluster set to 4 (the one-block iteration), 8 and 16
    blocks, measured only.  K3 (``eigh_small``) on the
-   three-kernel path's l x l tail Gram and at n in {1, 2, 17, 128, 200}
+   three-kernel path's l x l tail Gram and at n in {1, 2, 16, 17, 128,
+   200} (16: the command line's l)
    (200 runs the workspace route), on an indefinite and on a
    rank-deficient matrix, bitwise at every even n; K4
    (``fused_sketch_matmul``) on the recovered Omega (A = I) and on Y at
@@ -33,8 +35,9 @@ Phases (any failure raises; nothing is caught):
    events.  ``--kernels-only`` stops here.
 3. The main path -- ``entry()``'s rank-64 rSVD (k=64, p=16, q=2) of a
    4096 x 4096 f32 operand made from seed 0, and the same configuration
-   through ``rsvd()`` -- for precision 'highest' and 'default' (K1 for
-   every orthonormalization: q + 1 = 3 launches per call), and the same
+   through ``rsvd()`` -- for precision 'highest', 'high' and 'default'
+   (K1 for every orthonormalization: q + 1 = 3 launches per call); and
+   the same
    configuration with ``interior_qr='polar_fused'`` through
    ``rsvd_with_omega`` (2 K2 launches and 1 K1 launch per call), and
    one ``torch.profiler`` pass over ``entry()``'s 'default' call.  Then
@@ -73,14 +76,37 @@ Phases (any failure raises; nothing is caught):
    the basis of a call on A + 1e-3 noise, ``rsvd_onepass`` (k = 64,
    within 1.5x of a q = 0 rSVD) and ``rsvd_adaptive`` at tol 1e-2 on a
    geometric spectrum (the f64 error within tol).
-7. A ``kernels`` JSON line, the card's name and power limit, and as the
+7. PCA and the command lines.  ``PCA(X)`` at its defaults on a
+   262144 x 1024 f32 factor model made on the card (a per-feature offset,
+   a 0.97^i spectrum, 1% noise), then with ``normalize=True``: the block
+   Jacobi engine on the 1024 x 1024 R of the robust QR, each against the
+   eigenvalues of the centred Gram in f64 (singular values, variance
+   ratios, ||V^T V - I||_F, ||Xc - U S V^T||_F), with its time split by
+   stage and one profiler pass over a block sweep and 128 rounds of a
+   polish sweep;
+   ``PCA(X, use_rsvd=True, rank=64)`` against an f64 rSVD on its Omega;
+   ``jacobi_svd_chunked`` on the R against the engine's singular
+   values, logging every sweep; ``StreamingPCA(1024, l=128)`` over X in
+   4096-row batches in f64 and in f32, each never over the true
+   eigenvalues and within FD's bound.  Then ``python -m
+   rsvd_kamaneh_raganato_terrana_tpu_torch rsvd`` over data/input plus a
+   2048^2 f32 .mtx written and read back bitwise, and ``pca
+   data/pca/tourists.txt yes``, as subprocesses; and in-process
+   ``rsvd data/input --method eigh_pallas --qr-method cholqr1_fused``,
+   counted: per file one K3 launch and 1 + 2q = 5 K1 launches, each
+   call's input kept and its output held to the plain version's on it;
+   every file's error within 1e-4 of the default flags' run, and only
+   the rank-deficient sparse_matrix non-finite, with the cholqr hint.
+8. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
 the package is not importable next to this script.
 """
 
+import contextlib
 import ctypes
+import io
 import json
 import os
 import re
@@ -103,8 +129,14 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch import (
     rsvd_serving,
     rsvd_warm,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch import __main__ as cli
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import image
+from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import pca
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import device
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.io import (
+    read_matrix_market,
+    write_matrix_market,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.entry import CONFIG, entry
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (
@@ -113,6 +145,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (
     kernels,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 from rsvd_kamaneh_raganato_terrana_tpu_torch.native import get_codec
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
@@ -129,7 +162,9 @@ ERR_RATIO_MAX = 1.01     # rSVD error within 1% of the f64 numpy rSVD
 # max |ds| / s_1, kernel path vs plain path.  'highest' differs by fp32
 # roundoff only; under 'default' an fp32-level change in Q can flip the
 # bf16 rounding of single GEMM operands (bf16 eps 3.9e-3)
-SIGMA_TOL = {"highest": 1e-4, "default": 5e-4}
+# 'high' is TF32 (10-bit operands): the same flips as bf16's, at 1/4 the
+# step
+SIGMA_TOL = {"highest": 1e-4, "high": 5e-4, "default": 5e-4}
 Q_TOL = 1e-4             # K1: max |dQ| (Q has orthonormal columns)
 R_TOL = 1e-4             # K1: max |dR| / max |R|
 ORTH_TOL = 1e-4          # max |Q^T Q - I| of a kernel's Q
@@ -138,7 +173,8 @@ K2_STAGE_TOL = 1e-4      # K2: max |d stage| / max |stage|
 K2_SYM_TOL = 1e-5        # K2: max |R - R^T| / max |R|, cond ~1
 K2_NORM_TOL = 1e-3       # K2: column norms of R against Y's, relative
 SERVING_PLAIN_TOL = 1e-3  # polar serving, kernel vs plain K2 recon error
-K3_SIZES = (1, 2, 17, 128, 200)   # 200: past shared memory, the workspace
+# 16: the rsvd command line's l; 200: past shared memory, the workspace
+K3_SIZES = (1, 2, 16, 17, 128, 200)
 K3_LAM_TOL = 1e-5        # K3: max |d lambda| / max |lambda| vs plain, odd n
 # K3: max |V^T V - I| and ||V L V^T - G||_F / ||G||_F of the kernel's own
 # factors on full-rank inputs: the JAX suite's orthogonality bound
@@ -166,6 +202,22 @@ VIDEO, VIDEO_K = (8, 1080, 1920), 32
 BATCH, BATCH_SIDE = 16, 1024
 ONEPASS_RATIO_MAX = 1.5   # "a constant factor behind" a q = 0 rSVD
 ADAPTIVE_TOL, ADAPTIVE_RATIO = 1e-2, 0.97    # expected k = 152
+PCA_ROWS, PCA_D = 262144, 1024   # X: 1 GiB f32; d > 512: the block engine
+PCA_DECAY, PCA_NOISE, PCA_OFFSET = 0.97, 0.01, 5.0
+PCA_SIG_TOL = 1e-4        # max |ds| / s_1 against the f64 yardstick
+PCA_RATIO_TOL = 1e-4      # explained-variance ratios, absolute
+PCA_ORTH_TOL = 1e-3       # check_orthogonality(): ||V^T V - I||_F
+PCA_RECON_TOL = 1e-4      # ||Xc - U S V^T||_F / ||Xc||_F
+PCA_RANK = 64             # the use_rsvd path
+CHUNKED_TOL = 1e-5        # chunked vs single-dispatch, max |ds| / s
+POLISH_PROFILE_ROUNDS = 128
+STREAM_L, STREAM_K, STREAM_BATCH = 128, 64, 4096
+STREAM_OVER_TOL = 1e-4    # relative slack over the true eigenvalues
+MTX_SIDE = 2048
+CLI_ROWS, CLI_L = (100, 110, 140, 160), 16   # data/input's m; l = k + p
+CLI_ERR_TOL = 1e-4        # sparse_matrix's error over ||A||_F, f32
+# PC1's variance ratio on tourists.txt, normalized (the JAX CLI: 0.8961)
+TOURISTS_PC1, TOURISTS_TOL = 0.896, 1e-3
 
 
 T_START = time.perf_counter()
@@ -281,6 +333,15 @@ def panels(a):
     }
 
 
+def cli_panels():
+    """K1 at the rsvd command line's shapes: an m x 16 panel for each
+    m of data/input (100, 110, 140, 160)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    return {f"cli {m}x{CLI_L}": (torch.randn(m, CLI_L, device="cuda",
+                                             generator=gen), True)
+            for m in CLI_ROWS}
+
+
 def rank_deficient():
     y = torch.randn(1000, 64, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(2))
@@ -336,7 +397,7 @@ def stage_profile(call):
 def phase_k1(y_main, all_panels):
     """K1 against its plain version; returns its kernels-line fields."""
     worst_q = worst_r = 0.0
-    for name, (y, _) in all_panels.items():
+    for name, (y, _) in dict(all_panels, **cli_panels()).items():
         if name.startswith("cond"):
             continue
         q, r = kernels.fused_cholqr1(y)
@@ -1131,6 +1192,404 @@ def phase_driver_modes(a, a64, err_np):
     out["adaptive"] = res
     return out
 
+def pca_operand(seed=0):
+    """X = 1 mu^T + G diag(0.97^i) W^T + 0.01 E on the card: G and E
+    Gaussian, W orthogonal, mu a per-feature offset of scale 5."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w, _ = torch.linalg.qr(torch.randn(PCA_D, PCA_D, device="cuda",
+                                       generator=gen))
+    mu = PCA_OFFSET * torch.randn(PCA_D, device="cuda", generator=gen)
+    decay = PCA_DECAY ** torch.arange(PCA_D, device="cuda",
+                                      dtype=torch.float32)
+    x = torch.randn(PCA_ROWS, PCA_D, device="cuda", generator=gen) * decay
+    x = device.matmul_at(x, w.T, "highest")
+    x += PCA_NOISE * torch.randn(PCA_ROWS, PCA_D, device="cuda",
+                                 generator=gen)
+    return x + mu
+
+
+def centred64(x, normalize=False):
+    """X centred (and z-scored) in f64 on the card."""
+    x64 = x.double()
+    x64 -= x64.mean(dim=0)
+    if normalize:
+        sd = x64.std(dim=0, correction=1)
+        x64 /= torch.where(sd > 0, sd, torch.ones_like(sd))
+    return x64
+
+
+def f64_spectrum(x, normalize=False):
+    """(singular values, variance ratios) of the centred X: its Gram
+    formed in f64 on the card, eigh in numpy."""
+    x64 = centred64(x, normalize)
+    g = to_numpy(x64.T @ x64)
+    del x64
+    lam = np.clip(np.linalg.eigvalsh(g)[::-1], 0.0, None)
+    return np.sqrt(lam), lam / np.trace(g)
+
+
+def stage_timer(stages):
+    """patch(module, name, key): ``module.name`` timed into
+    ``stages[key]`` (seconds, synchronized)."""
+    def patch(module, name, key):
+        real = getattr(module, name)
+
+        def spy(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return mock.patch.object(module, name, spy)
+    return patch
+
+
+def pca_run(x, normalize, sig_true, ratio_true):
+    """One PCA(X) at its defaults, timed by stage, and its checks."""
+    stages = {}
+    patch = stage_timer(stages)
+    with patch(pca, "svd", "svd"), patch(jacobi, "qr_reduced", "qr"), \
+            patch(jacobi, "_block_jacobi_core", "core"), \
+            patch(jacobi, "_block_sweep", "block"), \
+            patch(jacobi, "_polish_sweep", "polish"):
+        p, wall = timed(lambda: pca.PCA(x, normalize=normalize))
+    s = f64(p.getS())
+    dsig = float(np.abs(s - sig_true).max() / sig_true[0])
+    dratio = float(np.abs(f64(p.explained_variance_ratio())
+                          - ratio_true).max())
+    orth = p.check_orthogonality()
+    xc = x - p.mean
+    if normalize:
+        xc /= torch.std(xc, dim=0, correction=1)
+    rec = device.matmul_at(p.getU() * p.getS(), p.getV().T, "highest")
+    recon = float(torch.linalg.norm(xc - rec) / torch.linalg.norm(xc))
+    del xc, rec
+    block, polish = sum(stages["block"]), sum(stages["polish"])
+    out = dict(
+        normalize=normalize, wall_s=wall, max_rel_dsigma_vs_f64=dsig,
+        max_abs_dratio_vs_f64=dratio, check_orthogonality=orth,
+        recon_rel=recon, block_sweeps=len(stages["block"]),
+        polish_sweeps=len(stages["polish"]),
+        seconds_by_stage=dict(
+            centre=wall - stages["svd"][0], qr_precondition=stages["qr"][0],
+            block_sweeps=block, polish_sweeps=polish,
+            engine_other=stages["core"][0] - block - polish,
+            u_from_q0=stages["svd"][0] - stages["qr"][0]
+            - stages["core"][0]),
+        block_sweep_s=stages["block"], polish_sweep_s=stages["polish"],
+        pc1_ratio=float(p.explained_variance_ratio()[0]))
+    log(f"  PCA(X{', normalize=True' if normalize else ''}) "
+        f"{PCA_ROWS}x{PCA_D}: " + json.dumps(out))
+    check(dsig <= PCA_SIG_TOL and dratio <= PCA_RATIO_TOL
+          and orth <= PCA_ORTH_TOL and recon <= PCA_RECON_TOL,
+          f"PCA {out}")
+    return p, out
+
+
+def sweep_profile(r):
+    """One torch.profiler pass over a block sweep and over the first
+    POLISH_PROFILE_ROUNDS rounds of a polish sweep of the engine on R
+    (after one of each as warm-up).  A polish round is the same work
+    every time; the profiler's own cost grows with the ~53 launches a
+    round, so the whole 1023-round sweep is not traced."""
+    out = {}
+    n = r.shape[1]
+    for label, sched, sweep in (
+            ("block_sweep", jacobi._schedule(n // 64, "cuda"),
+             lambda w, v, sc: jacobi._block_sweep(w, v, sc, 64)),
+            ("polish_sweep", jacobi._schedule(n, "cuda")[
+                :POLISH_PROFILE_ROUNDS], jacobi._polish_sweep)):
+        w, v = r.clone(), torch.eye(n, device="cuda")
+        sweep(w, v, sched)
+        out[label] = profile_call(lambda: sweep(w, v, sched), reps=1)
+        out[label]["rounds"] = int(sched.shape[0])
+        log(f"  profile [{label}, n={n}]: " + json.dumps(out[label]))
+    return out
+
+
+def f64_rsvd_err(x64, omega, q, k):
+    """||Xc - U_k S_k V_k^T||_F of the numpy_rsvd steps in f64 on the
+    card, on the same Omega."""
+    qm, _ = torch.linalg.qr(x64 @ omega)
+    for _ in range(q):
+        qz, _ = torch.linalg.qr(x64.T @ qm)
+        qm, _ = torch.linalg.qr(x64 @ qz)
+    ut, s, vt = torch.linalg.svd(qm.T @ x64, full_matrices=False)
+    u = qm @ ut[:, :k]
+    return float(torch.linalg.norm(x64 - (u * s[:k]) @ vt[:k]))
+
+
+def streaming_run(x, dtype, lam_true, fd_bound):
+    """StreamingPCA(1024, l=128) over X in 4096-row batches."""
+    sp = pca.StreamingPCA(PCA_D, l=STREAM_L, dtype=dtype)
+
+    def feed():
+        for i in range(0, PCA_ROWS, STREAM_BATCH):
+            sp.update(x[i:i + STREAM_BATCH])
+    _, wall = timed(feed)
+    lam, _ = sp.finalize(STREAM_K)
+    true = lam_true[:STREAM_K]
+    shrinks = PCA_ROWS // STREAM_L - 1
+    return dict(dtype=str(dtype), wall_s=wall, shrinks=shrinks,
+                ms_per_shrink=1e3 * wall / shrinks,
+                max_rel_over_true=float(np.max((lam - true) / true)),
+                max_under_true_over_fd_bound=float(
+                    np.max(true - lam) / fd_bound))
+
+
+CLI_LINE = re.compile(r"^(\S+): (\d+)x(\d+) l=(\d+) \|\|A-USV\^T\|\| = "
+                      r"(\S+)  \((\S+) ms\)")
+
+
+def cli_errors(text):
+    """{stem: (error, ms)} of the rsvd command line's output."""
+    rows = {}
+    for line in text.splitlines():
+        hit = CLI_LINE.match(line)
+        if hit:
+            rows[hit.group(1)] = (float(hit.group(5)), float(hit.group(6)))
+    return rows
+
+
+def start_cli(*args):
+    """``python -m rsvd_kamaneh_raganato_terrana_tpu_torch <args>`` from
+    this script's directory, started; ``finish_cli`` waits for it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rsvd_kamaneh_raganato_terrana_tpu_torch",
+         *args], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, args, time.perf_counter()
+
+
+def finish_cli(started):
+    """(stdout, seconds) of a CLI ``start_cli`` started; it must exit 0."""
+    proc, args, t0 = started
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0, f"CLI {args}: rc {proc.returncode}\n"
+          f"{out}\n{err}")
+    return out, time.perf_counter() - t0
+
+
+def phase_clis():
+    """The rsvd and pca command lines: two subprocesses run together,
+    then the kernel flags of the rsvd one in-process, counted."""
+    out = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    inputs = os.path.join(here, "data", "input")
+    names = sorted(f for f in os.listdir(inputs) if f.endswith(".mtx"))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    big = to_numpy(torch.randn(MTX_SIDE, MTX_SIDE, device="cuda",
+                               generator=gen))
+    # both command lines at once, the pca one started first: each spends
+    # most of its time starting torch and the card, and the rsvd one
+    # waits for the 2048^2 .mtx
+    pca_cli = start_cli("pca", os.path.join(here, "data", "pca",
+                                            "tourists.txt"), "yes")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            os.symlink(os.path.join(inputs, name), os.path.join(tmp, name))
+        path = os.path.join(tmp, f"dense{MTX_SIDE}.mtx")
+        _, write_s = timed(lambda: write_matrix_market(path, big))
+        back, read_s = timed(lambda: read_matrix_market(path))
+        check(np.array_equal(back, big.astype(np.float64))
+              and np.array_equal(back.astype(np.float32), big),
+              "the 2048^2 .mtx does not read back bitwise")
+        rsvd_cli = start_cli("rsvd", tmp)
+        text, wall = finish_cli(rsvd_cli)
+        pca_text, pca_wall = finish_cli(pca_cli)
+    rows = cli_errors(text)
+    norms = {n[:-4]: float(np.linalg.norm(read_matrix_market(
+        os.path.join(inputs, n)))) for n in names}
+    out["rsvd"] = dict(subprocess_s=wall, write_2048_mtx_s=write_s,
+                       read_2048_mtx_s=read_s, errors_ms=rows,
+                       sparse_matrix_err_over_norm=rows["sparse_matrix"][0]
+                       / norms["sparse_matrix"])
+    log("  cli [rsvd data/input + 2048^2 .mtx]: " + json.dumps(out["rsvd"]))
+    check(set(rows) == set(norms) | {f"dense{MTX_SIDE}"}
+          and all(np.isfinite(e) for e, _ in rows.values())
+          and out["rsvd"]["sparse_matrix_err_over_norm"] <= CLI_ERR_TOL,
+          f"rsvd CLI {out['rsvd']}")
+
+    ratio_line = next(ln for ln in pca_text.splitlines()
+                      if ln.startswith("Proportion of Variance"))
+    pc1 = float(ratio_line.split()[3])
+    out["pca"] = dict(subprocess_s=pca_wall, pc1_ratio=pc1)
+    log("  cli [pca tourists.txt yes]: " + json.dumps(out["pca"]))
+    check(abs(pc1 - TOURISTS_PC1) <= TOURISTS_TOL, f"pca CLI {out['pca']}")
+
+    reset_counts()
+    buf, err_buf = io.StringIO(), io.StringIO()
+    k1_calls, k3_calls = Recorder(kernels.fused_cholqr1), \
+        Recorder(kernels.eigh_small)
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(err_buf), \
+            mock.patch.object(kernels, "fused_cholqr1", k1_calls), \
+            mock.patch.object(kernels, "eigh_small", k3_calls):
+        rc = cli.main(["rsvd", inputs, "--method", "eigh_pallas",
+                       "--qr-method", "cholqr1_fused"])
+    torch.cuda.synchronize()
+    launches = counts()
+    want = launches_of(k1=(1 + 2 * Q) * len(names), k3=len(names))
+    flagged = cli_errors(buf.getvalue())
+    hints = err_buf.getvalue().count("hint: cholqr1_fused has no rank")
+    nan_stems = sorted(t for t, (e, _) in flagged.items()
+                       if not np.isfinite(e))
+    vs_default = {t: abs(e - rows[t][0]) / abs(rows[t][0])
+                  for t, (e, _) in flagged.items() if np.isfinite(e)}
+    out["kernel_flags"] = dict(
+        launches_k1_to_k5b=list(launches), expected=list(want),
+        errors_ms=flagged, rel_err_vs_default_flags=vs_default,
+        nan_files=nan_stems, cholqr_hints=hints,
+        k1_vs_plain=recorded_vs_plain(k1_calls, cholqr1_vs_plain),
+        k3_vs_plain=recorded_vs_plain(k3_calls, eigh_vs_plain))
+    log("  cli [rsvd data/input --method eigh_pallas --qr-method "
+        "cholqr1_fused, in-process]: " + json.dumps(out["kernel_flags"]))
+    check(rc == 0 and launches == want,
+          f"CLI kernel flags: launches {launches}, not {want}")
+    check(len(k1_calls.calls) == want[0] and len(k3_calls.calls) == want[2],
+          f"CLI kernel flags: {len(k1_calls.calls)} K1 and "
+          f"{len(k3_calls.calls)} K3 calls recorded")
+    check(set(flagged) == set(norms)
+          and all(d <= SIGMA_TOL["highest"] for d in vs_default.values())
+          and nan_stems in ([], ["sparse_matrix"])
+          and hints == len(nan_stems),
+          f"CLI kernel flags: errors against the default flags' "
+          f"{out['kernel_flags']}")
+    return launches, out
+
+
+class Recorder:
+    """A kernel wrapper that keeps each call's input and output; its
+    launch count is the wrapper's own, which the wrapper adds to as it
+    launches."""
+
+    def __init__(self, wrapper):
+        self.wrapper, self.calls = wrapper, []
+
+    launches = property(lambda self: self.wrapper.launches,
+                        lambda self, n: setattr(self.wrapper, "launches", n))
+
+    def __call__(self, x, *args, **kwargs):
+        x_in = x.clone()
+        out = self.wrapper(x, *args, **kwargs)
+        self.calls.append((x_in, args, kwargs, out))
+        return out
+
+
+def finite(*ts):
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def cholqr1_vs_plain(y, args, kwargs, out):
+    """(shape, max |dQ|, max |dR| / max |R|) of one recorded K1 call
+    against its plain version on the same panel; a non-finite plain
+    result (a rank-deficient panel) must be non-finite from K1 too."""
+    q, r = out
+    q0, r0 = kernels.fused_cholqr1_reference(y, *args, **kwargs)
+    if not finite(q0, r0):
+        check(not finite(q, r), f"K1 {tuple(y.shape)}: finite output where "
+              f"the plain version's is not")
+        return tuple(y.shape), None, None
+    dq = float((q - q0).abs().max())
+    dr = float((r - r0).abs().max()) / float(r0.abs().max())
+    check(finite(q, r) and dq <= Q_TOL and dr <= R_TOL,
+          f"K1 {tuple(y.shape)} in the CLI run: dQ={dq} dR/R={dr}")
+    return tuple(y.shape), dq, dr
+
+
+def eigh_vs_plain(g, args, kwargs, out):
+    """(n, bitwise equal, max |dlam| / max |lam|) of one recorded K3 call
+    against its plain version on the same matrix: bitwise at even n."""
+    lam, v = out
+    lam0, v0 = kernels.eigh_small_reference(g, *args, **kwargs)
+    n = g.shape[0]
+    if not finite(lam0, v0):
+        check(not finite(lam, v), f"K3 n={n}: finite output where the "
+              f"plain version's is not")
+        return n, None, None
+    same = torch.equal(lam, lam0) and torch.equal(v, v0)
+    dlam = float((lam - lam0).abs().max()) / (float(lam0.abs().max()) or 1.0)
+    check(finite(lam, v) and dlam <= K3_LAM_TOL and (same or n % 2),
+          f"K3 n={n} in the CLI run: bitwise {same}, dlam={dlam}")
+    return n, same, dlam
+
+
+def recorded_vs_plain(recorder, compare):
+    """Every recorded call of a kernel held to its plain version."""
+    torch.cuda.synchronize()
+    return [compare(*call) for call in recorder.calls]
+
+
+def phase_pca():
+    """Phase 7: PCA, its randomized and streaming paths, the chunked
+    engine and the command lines."""
+    out = {}
+    x, made = timed(pca_operand)
+    (sig_true, ratio_true), f64_s = timed(lambda: f64_spectrum(x))
+    log(f"  X {PCA_ROWS}x{PCA_D} f32 made in {made:.2f} s; f64 yardstick "
+        f"{f64_s:.2f} s: s_1 = {sig_true[0]:.4f}, s_d = {sig_true[-1]:.4f}")
+    p, out["default"] = pca_run(x, False, sig_true, ratio_true)
+    s_engine = f64(p.getS())
+    del p
+    sig_n, ratio_n = f64_spectrum(x, normalize=True)
+    _, out["normalize"] = pca_run(x, True, sig_n, ratio_n)
+
+    phase("phase 7: the block engine on R (profile, chunked)")
+    xc = x - x.mean(dim=0)
+    _, r = qr_reduced(xc, "robust")
+    del xc
+    out["profile"] = sweep_profile(r)
+    progress = []
+
+    def report(phase_name, sweep, measure):
+        progress.append([phase_name, sweep, measure])
+        log(f"    chunked {phase_name} sweep {sweep}: {measure:.3e}")
+    (_, s_c, _), wall = timed(lambda: jacobi.jacobi_svd_chunked(
+        r, progress=report))
+    d_chunked = float(np.max(np.abs(f64(s_c) - s_engine) / s_engine))
+    out["chunked"] = dict(wall_s=wall, max_rel_dsigma_vs_engine=d_chunked,
+                          progress=progress)
+    log("  jacobi_svd_chunked(R): " + json.dumps(out["chunked"]))
+    check(d_chunked <= CHUNKED_TOL, f"chunked {out['chunked']}")
+    del r
+
+    draws, omegas = capture(driver, "generate_omega")
+    with draws:
+        p, wall = timed(lambda: pca.PCA(x, use_rsvd=True, rank=PCA_RANK))
+    x64 = centred64(x)
+    u, s, v = (t.double() for t in (p.getU(), p.getS(), p.getV()))
+    err = float(torch.linalg.norm(x64 - (u * s) @ v.T))
+    err_f64 = f64_rsvd_err(x64, omegas[0].double(), Q, PCA_RANK)
+    del x64, u, v, p
+    out["use_rsvd"] = dict(rank=PCA_RANK, l=int(omegas[0].shape[1]),
+                           wall_s=wall, err_ratio_vs_f64=err / err_f64)
+    log("  PCA(X, use_rsvd=True, rank=64): " + json.dumps(out["use_rsvd"]))
+    check(err / err_f64 <= ERR_RATIO_MAX, f"use_rsvd {out['use_rsvd']}")
+
+    phase("phase 7: StreamingPCA")
+    lam_true = sig_true ** 2 / (PCA_ROWS - 1)
+    fd_bound = float(np.sum(lam_true[STREAM_K:]) / (STREAM_L - STREAM_K))
+    out["streaming"] = {}
+    for dtype in (torch.float64, torch.float32):
+        res = streaming_run(x, dtype, lam_true, fd_bound)
+        out["streaming"][str(dtype)] = res
+        log(f"  StreamingPCA({PCA_D}, l={STREAM_L}) {dtype}: "
+            + json.dumps(res))
+        check(res["max_rel_over_true"] <= STREAM_OVER_TOL
+              and res["max_under_true_over_fd_bound"] <= 1.0,
+              f"StreamingPCA {res}")
+    del x
+    torch.cuda.empty_cache()
+    phase("phase 7: the command lines")
+    launches, out["cli"] = phase_clis()
+    return launches, out
+
 
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
@@ -1341,6 +1800,7 @@ def main(argv):
     log(f"  numpy f64 rSVD baseline: err {err_np:.6f} "
         f"({time.perf_counter() - t0:.1f} s)")
     fwd_def, _ = entry(device="cuda", m=M, n=N, precision="default")
+    fwd_high, _ = entry(device="cuda", m=M, n=N, precision="high")
     omega = generate_omega(0, N, K + P, device="cuda")
 
     def fwd_polar(x):        # entry()'s configuration, polar interiors
@@ -1350,6 +1810,7 @@ def main(argv):
     summary = {}
     for label, prec, fwd, want in (
             ("highest", "highest", fwd_hi, launches_of(k1=Q + 1)),
+            ("high", "high", fwd_high, launches_of(k1=Q + 1)),
             ("default", "default", fwd_def, launches_of(k1=Q + 1)),
             ("default, polar_fused interiors", "default", fwd_polar,
              launches_of(k1=1, k2=2))):
@@ -1461,6 +1922,12 @@ def main(argv):
 
     phase("phase 6: the driver modes at 4096^2")
     modes = phase_driver_modes(a, a64, err_np)
+    del a
+    torch.cuda.empty_cache()
+
+    phase("phase 7: PCA and the command lines")
+    cli_launches, pca_summary = phase_pca()
+    launches_total = [t + c for t, c in zip(launches_total, cli_launches)]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1499,7 +1966,7 @@ def main(argv):
                       "pallas_kernels.py:178",
              launches=launches_total[5], **k5["K5b"]),
     ], "main_path": summary, "serving": serving, "image": image_summary,
-        "driver_modes": modes}
+        "driver_modes": modes, "pca": pca_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

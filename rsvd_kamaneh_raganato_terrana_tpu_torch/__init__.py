@@ -10,12 +10,14 @@ Layer map (the ported part so far):
 
 - ``core``   -- precision map and storage modes (``device``), seeded
                sketch RNG on the card (``rng``), numpy <-> tensor
-               hand-over (``convert``), FLOP counts (``profiling``).
-- ``ops``    -- the primitive products the QR/SVD/driver layers use.
+               hand-over (``convert``), MatrixMarket and dataset I/O on
+               the host library of ``native/`` (``io``), FLOP counts
+               (``profiling``).
+- ``ops``    -- the primitive single-device operations.
 - ``linalg`` -- CholeskyQR family and ``qr_reduced``, Newton--Schulz
                polar (``polar``), the SVD engines (tournament Jacobi
-               ``jacobi``, power iteration ``power``, the dispatch
-               ``svd``) and the hand-written Hopper kernels
+               ``jacobi`` with its block engine, power iteration
+               ``power``, the dispatch ``svd``) and the hand-written Hopper kernels
                (``kernels``: K1 ``fused_cholqr1``, K2 ``polar_qr_fused``,
                K3 ``eigh_small``, K4 ``fused_sketch_matmul``, K5
                ``quantize_uint8``; sources in ``csrc/``, built by
@@ -24,15 +26,20 @@ Layer map (the ported part so far):
                'rowspace', 'utv', 'rowspace_utv'; bf16 and int8
                storage), the serving preset (``serving``), the health
                check and subspace angles (``diagnostics``), UTV
-               (``utv``), and the batched, warm-started, one-pass and
-               adaptive-rank modes.
-- ``apps``   -- the image codec (``image``, its CLI ``image_main``;
-               ``python -m rsvd_kamaneh_raganato_terrana_tpu_torch
-               image <img>``), on the host codec of ``native/``.
+               (``utv``), Frequent Directions (``fd``), and the batched,
+               warm-started, one-pass and adaptive-rank modes.
+- ``apps``   -- PCA (``pca``, its CLI ``pca_main``), the rSVD CLI over
+               MatrixMarket files (``rsvd_main``) and the image codec
+               (``image``, its CLI ``image_main``); ``python -m
+               rsvd_kamaneh_raganato_terrana_tpu_torch rsvd|pca|image``.
 """
 
 __version__ = "0.1.0"
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import (  # noqa: F401
+    read_matrix_market,
+    write_matrix_market,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (  # noqa: F401
     SVD,
     SVDMethod,

@@ -1,14 +1,15 @@
 """Command-line dispatcher of the PyTorch port.
 
+  python -m rsvd_kamaneh_raganato_terrana_tpu_torch rsvd <mtx-or-dir> [...]
   python -m rsvd_kamaneh_raganato_terrana_tpu_torch image <img> [...]
+  python -m rsvd_kamaneh_raganato_terrana_tpu_torch pca <dataset> [yes|no] [...]
 
-The JAX package's other apps (rsvd, pca, pod) are not ported yet
-(ROADMAP.md, queue 1 item 16): they print so and exit with 1.
+Each runs on the card unless given ``--device cpu``.  The JAX package's
+``pod`` app is not ported yet (ROADMAP.md, queue 1 item 5): it prints so
+and exits with 1.
 """
 
 import sys
-
-_NOT_PORTED = ("rsvd", "pca", "pod")
 
 
 def main(argv=None):
@@ -17,19 +18,29 @@ def main(argv=None):
         print(__doc__)
         return 0
     app, rest = argv[0], argv[1:]
+    if app == "rsvd":
+        from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.rsvd_main import (
+            main as run,
+        )
+        return run(rest)
     if app == "image":
         from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.image_main import (
             main as run,
         )
-        run(rest)
-        return 0
-    if app in _NOT_PORTED:
-        print(f"{app!r} is not ported to the PyTorch package yet "
-              "(ROADMAP.md, queue 1 item 16)")
+    elif app == "pca":
+        from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pca_main import (
+            main as run,
+        )
+    elif app == "pod":
+        print("'pod' is not ported to the PyTorch package yet (ROADMAP.md, "
+              "queue 1 item 5)")
         return 1
-    print(f"unknown app {app!r}; expected image (or rsvd|pca|pod, not "
-          "ported yet)")
-    return 1
+    else:
+        print(f"unknown app {app!r}; expected rsvd|image|pca (pod is not "
+              "ported yet)")
+        return 1
+    run(rest)
+    return 0
 
 
 if __name__ == "__main__":

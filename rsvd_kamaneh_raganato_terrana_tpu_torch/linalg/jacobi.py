@@ -1,17 +1,23 @@
 """One-sided (Hestenes) Jacobi SVD with a round-robin tournament schedule
-(the JAX package's ``linalg/jacobi.py``, without its block engine).
+(the JAX package's ``linalg/jacobi.py``).
 
 Each round of the circle-method tournament rotates n/2 disjoint column
 pairs at once, applied as column updates (``apply='scatter'``) or as one
 GEMM with the assembled orthogonal J (``apply='gemm'``).  A sweep is n-1
 rounds; sweeps run until the largest normalized off-diagonal of W^T W
-falls below ``tol``.  JAX's ``lax.while_loop`` becomes a Python loop
-with one scalar fetch per sweep; the rounds of a sweep are queued with
-no host sync.
+falls below ``tol``.
 
 The block tournament (``apply='block'``, and ``'auto'`` above n = 512)
-and the chunked block driver ``jacobi_svd_chunked`` are not ported yet
-(ROADMAP.md, queue 1) and raise ``NotImplementedError``.
+pairs column blocks instead of columns: each round solves its disjoint
+2b x 2b block-pair problems with one batched eigh of the pair Grams
+(``core/device.py::eigh``) and applies them as batched GEMMs, then a
+gated scalar polish finishes.  ``jacobi_svd_chunked`` runs the same engine and reports every
+sweep to a ``progress`` callback.
+
+JAX's ``lax.while_loop`` becomes a Python loop with one scalar fetch per
+sweep, never one per round: the rounds of a sweep are queued with no
+host sync.  So the port's single-dispatch block engine has the chunked
+driver's structure, and both run the same stage functions.
 """
 
 from __future__ import annotations
@@ -21,15 +27,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import matmul_at
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
+    eigh,
+    matmul_at,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
 )
-
-#: the largest n that ``_auto_apply`` serves without the block engine
-BLOCK_ENGINE_ABOVE = 512
-
 
 def make_jacobi(x, y, z):
     """Symmetric Schur rotation (c, s) annihilating the off-diagonal y of
@@ -76,6 +81,12 @@ def round_robin_schedule(n: int) -> np.ndarray:
     return sched
 
 
+def _schedule(n: int, device):
+    """``round_robin_schedule(n)`` as an index tensor on ``device``."""
+    return torch.as_tensor(round_robin_schedule(n), dtype=torch.int64,
+                           device=device)
+
+
 def _pair_rotations(wp, wq, eps_rel):
     """Closed-form Hestenes rotations for a batch of column pairs: (c, s)
     such that (c wp - s wq, s wp + c wq) annihilates the Gram cross-term."""
@@ -93,13 +104,21 @@ def _pair_rotations(wp, wq, eps_rel):
     return c, c * t
 
 
-def _apply_round_scatter(w, v, p_idx, q_idx, c, s):
+def _apply_round_rutishauser(w, v, p_idx, q_idx, c, s):
     """The round's column updates, in place on w and v (the caller owns
-    both)."""
+    both), in Rutishauser's form: xp - s (xq + tau xp) and
+    xq + s (xp - tau xq) with tau = s / (1 + c), each an ``addcmul``.
+    For a small angle c rounds to 1, and the plain form (c xp - s xq,
+    s xp + c xq) then grows both columns by up to t^2 / 2 a rotation,
+    always upward; over the thousands of rotations of a sweep in f32
+    that leaves V measurably non-orthogonal."""
+    tau = s / (1.0 + c)
     for x in (w, v):
         xp, xq = x[:, p_idx], x[:, q_idx]
-        x[:, p_idx] = c * xp - s * xq
-        x[:, q_idx] = s * xp + c * xq
+        x[:, p_idx] = torch.addcmul(xp, s, torch.addcmul(xq, tau, xp),
+                                    value=-1.0)
+        x[:, q_idx] = torch.addcmul(xq, s, torch.addcmul(xp, tau, xq,
+                                                         value=-1.0))
     return w, v
 
 
@@ -149,9 +168,9 @@ def _jacobi_core(a, tol, max_sweeps: int, apply: str):
     n = w.shape[1]
     eps_rel = torch.tensor(torch.finfo(dtype).eps, dtype=dtype,
                            device=a.device)
-    sched = torch.as_tensor(round_robin_schedule(n), dtype=torch.int64,
-                            device=a.device)
-    apply_fn = _apply_round_gemm if apply == "gemm" else _apply_round_scatter
+    sched = _schedule(n, a.device)
+    apply_fn = (_apply_round_gemm if apply == "gemm"
+                else _apply_round_rutishauser)
     v = torch.eye(n, dtype=dtype, device=a.device)
     sweeps = 0
     off = _max_normalized_offdiag(w)
@@ -173,12 +192,140 @@ def _jacobi_core(a, tol, max_sweeps: int, apply: str):
     return u, s, v, sweeps
 
 
+def _block_round(w, v, pairs, b: int):
+    """One tournament round of block rotations, in place on w and v (the
+    caller owns both): the disjoint block pairs' 2b x 2b Grams go through
+    one batched eigh, each eigenvector basis is aligned with the identity,
+    and the pair panels are rotated by batched GEMMs."""
+    m, n = w.shape
+    nb = n // b
+    p_idx, q_idx = pairs[:, 0], pairs[:, 1]
+    wb = w.view(m, nb, b)
+    vb = v.view(n, nb, b)
+    # (npairs, rows, 2b) pair panels
+    wp = torch.cat([wb[:, p_idx], wb[:, q_idx]], dim=2).permute(1, 0, 2)
+    vp = torch.cat([vb[:, p_idx], vb[:, q_idx]], dim=2).permute(1, 0, 2)
+    g = matmul_at(wp.transpose(1, 2), wp, DOT_PRECISION)
+    # jnp.linalg.eigh symmetrizes its input; torch's reads one triangle
+    _, qrot = eigh(0.5 * (g + g.transpose(1, 2)))
+    # Identity alignment (JAX jacobi.py:250-274): eigh orders eigenvectors
+    # by eigenvalue, which permutes columns across blocks every visit and
+    # makes the cyclic iteration limit-cycle.  Send each eigenvector to the
+    # row of its dominant component; where that assignment collides,
+    # match the ascending eigenvalues to the ascending Gram diagonal.
+    two_b = qrot.shape[-1]
+    cand = torch.argmax(torch.abs(qrot), dim=1)            # (p, 2b)
+    counts = torch.zeros_like(cand).scatter_add_(1, cand,
+                                                 torch.ones_like(cand))
+    is_perm = torch.all(counts == 1, dim=1)
+    inv_cand = torch.argsort(cand, dim=1, stable=True)
+    d = torch.diagonal(g, dim1=1, dim2=2)
+    pos_order = torch.argsort(d, dim=1, stable=True)
+    inv_diag = torch.argsort(pos_order, dim=1, stable=True)
+    inv = torch.where(is_perm[:, None], inv_cand, inv_diag)
+    qrot = torch.take_along_dim(qrot, inv[:, None, :].expand(-1, two_b, -1),
+                                dim=2)
+    qdiag = torch.diagonal(qrot, dim1=1, dim2=2)
+    qrot = qrot * torch.where(qdiag < 0, -1.0, 1.0).to(qrot.dtype)[:, None, :]
+    w_new = matmul_at(wp, qrot, DOT_PRECISION).permute(1, 0, 2)
+    v_new = matmul_at(vp, qrot, DOT_PRECISION).permute(1, 0, 2)
+    wb[:, p_idx] = w_new[:, :, :b]
+    wb[:, q_idx] = w_new[:, :, b:]
+    vb[:, p_idx] = v_new[:, :, :b]
+    vb[:, q_idx] = v_new[:, :, b:]
+    return w, v
+
+
+def _block_prep(a, n_pad: int):
+    """Norm presort (de Rijk's pivot order: each block then holds columns
+    of similar scale), zero padding to ``n_pad`` columns; returns (W, the
+    identity V, the presort's inverse permutation, the initial
+    off-diagonal mass ratio)."""
+    m, n_orig = a.shape
+    order0 = torch.argsort(-torch.sum(a * a, dim=0), stable=True)
+    inv_order0 = torch.argsort(order0, stable=True)
+    w = torch.cat([a[:, order0], a.new_zeros((m, n_pad - n_orig))], dim=1)
+    v = torch.eye(n_pad, dtype=a.dtype, device=a.device)
+    return w, v, inv_order0, _offdiag_mass_ratio(w)
+
+
+def _block_sweep(w, v, sched, b: int):
+    """One block-tournament sweep; returns the factors and the post-sweep
+    off-diagonal mass ratio (the block phase's measure)."""
+    for pairs in sched:
+        w, v = _block_round(w, v, pairs, b)
+    return w, v, _offdiag_mass_ratio(w)
+
+
+def _polish_sweep(w, v, sched):
+    """One scalar-tournament sweep; returns the
+    factors and the post-sweep max normalized off-diagonal (the polish
+    phase's measure)."""
+    eps_rel = torch.tensor(torch.finfo(w.dtype).eps, dtype=w.dtype,
+                           device=w.device)
+    for pairs in sched:
+        p_idx, q_idx = pairs[:, 0], pairs[:, 1]
+        c, s = _pair_rotations(w[:, p_idx], w[:, q_idx], eps_rel)
+        w, v = _apply_round_rutishauser(w, v, p_idx, q_idx, c, s)
+    return w, v, _max_normalized_offdiag(w)
+
+
+def _block_finish(w, v, inv_order, n_orig: int):
+    """Sort by column norm, keep the ``n_orig`` largest (block rotations
+    move the zero pad columns anywhere in their pair) and un-permute V's
+    rows (A P = U S V_p^T, so A = U S (P V_p)^T)."""
+    s = torch.sqrt(torch.sum(w * w, dim=0))
+    order = torch.argsort(-s, stable=True)[:n_orig]
+    s, w = s[order], w[:, order]
+    v = v[:n_orig, order][inv_order]
+    safe = torch.clamp(s, min=torch.finfo(w.dtype).tiny)
+    u = torch.where(s[None, :] > 0, w / safe[None, :], torch.zeros_like(w))
+    return u, s, v
+
+
+def _block_jacobi_core(a, tol, max_sweeps: int, block_size: int,
+                       progress=None):
+    """(U, s, V, block sweeps) of A by the block tournament: block sweeps
+    until the off-diagonal mass ratio is below ``tol`` or a sweep shrinks
+    it by less than 1% (the floor is the dtype's pair-eigh accuracy), then
+    scalar polish sweeps until the max normalized off-diagonal is below
+    ``tol`` (none when the block phase got there): the pair eigh cannot
+    resolve singular values below eps * (s_max_in_pair / s_i)^2, scalar
+    rotations are per-pair scale invariant.  Each phase fetches one flag
+    per sweep; ``progress(phase, sweep, measure)`` is called after each
+    sweep when given."""
+    n_orig = a.shape[1]
+    b = block_size
+    nb = -(-n_orig // b)
+    nb += nb % 2                       # even block count for the tournament
+    w, v, inv_order0, off = _block_prep(a, nb * b)
+    sched = _schedule(nb, a.device)
+    prev = torch.full_like(off, float("inf"))
+    sweeps = 0
+    while sweeps < max_sweeps and bool((off > tol) & (off < prev * 0.99)):
+        prev = off
+        w, v, off = _block_sweep(w, v, sched, b)
+        sweeps += 1
+        if progress is not None:
+            progress("block", sweeps, float(off))
+    sched_s = _schedule(nb * b, a.device)
+    off_max = _max_normalized_offdiag(w)
+    i = 0
+    while i < max_sweeps and bool(off_max > tol):
+        w, v, off_max = _polish_sweep(w, v, sched_s)
+        i += 1
+        if progress is not None:
+            progress("polish", i, float(off_max))
+    u, s, v = _block_finish(w, v, inv_order0, n_orig)
+    return u, s, v, sweeps
+
+
 def _auto_apply(n: int) -> str:
     """The JAX package's measured engine crossover: GEMM rounds up to
     n = 256, scatter up to 512, the block tournament above."""
     if n <= 256:
         return "gemm"
-    if n <= BLOCK_ENGINE_ABOVE:
+    if n <= 512:
         return "scatter"
     return "block"
 
@@ -188,32 +335,49 @@ def jacobi_svd(a, tol: Optional[float] = None, max_sweeps: int = 60,
                block_size: int = 64):
     """Full SVD A = U diag(s) V^T by one-sided tournament Jacobi: U m x k,
     s descending, V n x k with k = min(m, n).  ``apply``: 'gemm' (rotation
-    rounds as GEMMs), 'scatter' (column updates) or 'auto' (the JAX
-    package's crossover, :func:`_auto_apply`).  Tall inputs are
-    preconditioned with a robust thin QR, so the sweeps run on the square
-    R factor; wide inputs are factored transposed.  ``block_size`` keeps
-    the JAX signature: it sizes the block engine, which is not ported
-    yet, so ``apply='block'`` (or 'auto' with min(m, n) > 512) raises
-    ``NotImplementedError``."""
+    rounds as GEMMs), 'scatter' (column updates), 'block' (the block
+    tournament over ``block_size``-wide column blocks, then the scalar
+    polish) or 'auto' (the JAX package's crossover, :func:`_auto_apply`).
+    Tall inputs are preconditioned with a robust thin QR, so the sweeps
+    run on the square R factor; wide inputs are factored transposed."""
+    return _jacobi_svd(a, tol, max_sweeps, apply, precondition, block_size)
+
+
+def jacobi_svd_chunked(a, tol: Optional[float] = None, max_sweeps: int = 60,
+                       block_size: int = 64, precondition: bool = True,
+                       progress=None):
+    """``jacobi_svd(apply='block')`` with every sweep reported:
+    ``progress(phase, sweep, measure)`` is called after each block sweep
+    (phase 'block', the off-diagonal mass ratio) and each polish sweep
+    ('polish', the max normalized off-diagonal).  The same stages and
+    stopping rules as the block engine, which in the port also fetches
+    one flag per sweep (module docstring)."""
+    return _jacobi_svd(a, tol, max_sweeps, "block", precondition,
+                       block_size, progress)
+
+
+def _jacobi_svd(a, tol, max_sweeps: int, apply: str, precondition: bool,
+                block_size: int, progress=None):
     m, n = a.shape
     if m < n:
-        u, s, v = jacobi_svd(a.T, tol, max_sweeps, apply, precondition,
-                             block_size)
+        u, s, v = _jacobi_svd(a.T, tol, max_sweeps, apply, precondition,
+                              block_size, progress)
         return v, s, u
-    if apply == "auto":
-        apply = _auto_apply(n)
-    if apply == "block":
-        raise NotImplementedError(
-            f"the block Jacobi engine (apply='block', chosen by 'auto' for "
-            f"n > {BLOCK_ENGINE_ABOVE}) is not ported to the PyTorch "
-            "package yet (ROADMAP.md, queue 1); use apply='scatter' or "
-            "'gemm'")
     if tol is None:
         tol = 30.0 * float(torch.finfo(a.dtype).eps)
+    if apply == "auto":
+        apply = _auto_apply(n)
+
+    def core(x):
+        if apply == "block":
+            return _block_jacobi_core(x, tol, max_sweeps,
+                                      min(block_size, x.shape[1]), progress)
+        return _jacobi_core(x, tol, max_sweeps, apply)
+
     if precondition and m > n:
         # thin QR first: the sweeps then run on the n x n R factor
         q0, r0 = qr_reduced(a, "robust")
-        ur, s, v, _ = _jacobi_core(r0, tol, max_sweeps, apply)
+        ur, s, v, _ = core(r0)
         return matmul_at(q0, ur, DOT_PRECISION), s, v
-    u, s, v, _ = _jacobi_core(a, tol, max_sweeps, apply)
+    u, s, v, _ = core(a)
     return u, s, v

@@ -6,7 +6,8 @@ Engines, as in JAX:
                            rounds (``linalg/jacobi.py``, ``apply='scatter'``);
 - ``'parallel_jacobi'`` -- the same sweeps with the crossover of
                            ``jacobi_svd(apply='auto')``: GEMM rounds up to
-                           n = 256, scatter up to 512;
+                           n = 256, scatter up to 512, the block
+                           tournament above;
 - ``'power'``           -- power iteration with deflation
                            (``linalg/power.py``);
 - ``'eigh'``            -- one eigendecomposition of the small-side Gram
@@ -17,9 +18,7 @@ Engines, as in JAX:
 - ``'auto'``            -- 'parallel_jacobi' for min(m, n) <= 256, else
                            'xla'.
 
-V holds the right singular vectors as columns for every method.  The
-block Jacobi engine, which 'parallel_jacobi' reaches above n = 512, is
-not ported yet (ROADMAP.md, queue 1) and raises ``NotImplementedError``.
+V holds the right singular vectors as columns for every method.
 """
 
 from __future__ import annotations
@@ -30,10 +29,7 @@ import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import matmul_at
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
-from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi import (
-    BLOCK_ENGINE_ABOVE,
-    jacobi_svd,
-)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi import jacobi_svd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power import power_svd
 
 
@@ -51,19 +47,6 @@ class SVDMethod(enum.Enum):
         if isinstance(value, cls):
             return value
         return cls(str(value).lower())
-
-
-def check_ported(method, min_dim: int = 0) -> SVDMethod:
-    """Parse ``method`` and raise ``NotImplementedError`` when it would
-    reach the block Jacobi engine on a matrix whose smaller side is
-    ``min_dim`` (only 'parallel_jacobi' does, above n = 512)."""
-    method = SVDMethod.parse(method)
-    if method is SVDMethod.ParallelJacobi and min_dim > BLOCK_ENGINE_ABOVE:
-        raise NotImplementedError(
-            f"'parallel_jacobi' at min(m, n) = {min_dim} > "
-            f"{BLOCK_ENGINE_ABOVE} runs the block Jacobi engine, which is "
-            "not ported to the PyTorch package yet (ROADMAP.md, queue 1)")
-    return method
 
 
 def _gram_eigh_svd(a, eigh_fn=torch.linalg.eigh):

@@ -1,4 +1,5 @@
-"""Randomized SVD driver, serving preset, diagnostics and UTV."""
+"""Randomized SVD driver, serving preset, diagnostics, UTV and Frequent
+Directions."""
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.diagnostics import (  # noqa: F401
     factor_health,
@@ -22,6 +23,9 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
     rsvd_warm,
     rsvd_with_omega,
     subspace_iteration,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.fd import (  # noqa: F401
+    FrequentDirections,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.serving import (  # noqa: F401
     prepare_operand,

@@ -21,9 +21,8 @@ The other modes: ``rsvd_batched`` (a stack, one sketch per element),
 sketch, one pass over A), ``rsvd_adaptive`` (rank for an accuracy
 target) and the image preset ``rsvd_image_preset``.
 
-Not ported yet (ROADMAP.md), each raising ``NotImplementedError``: the
-``'high'`` precision; sparse operands; the block Jacobi engine (a
-'parallel_jacobi' tail wider than 512).
+Not ported yet (ROADMAP.md): sparse operands, which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,7 +51,6 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
     SVDMethod,
-    check_ported,
     svd as small_svd,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
@@ -308,10 +306,9 @@ def _fold_weights(tri):
     return s, torch.clamp(s, min=torch.finfo(acc).tiny)
 
 
-def _check_ported(method, precision, finish, tail_min_dim):
-    """Refuse unported or unknown options before any work is done;
-    ``tail_min_dim`` is the smaller side of the tail's matrix."""
-    check_ported(method, tail_min_dim)
+def _check_options(method, precision, finish):
+    """Refuse unknown options before any work is done."""
+    SVDMethod.parse(method)
     resolve_precision(precision)
     if finish not in _FINISHES:
         raise ValueError(f"unknown finish {finish!r} (use 'project', "
@@ -344,8 +341,9 @@ def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
     """rSVD given an explicit sketch matrix Omega (n x l).  Returns
     (U, s, V) truncated to k (all l when k = 0).
 
-    ``precision``: 'highest' | 'default' | 'bf16' (A cast once to bf16,
-    'default' numerics) | 'int8' (A quantized once to row-scaled int8).
+    ``precision``: 'highest' | 'high' | 'default' | 'bf16' (A cast once
+    to bf16, 'default' numerics) | 'int8' (A quantized once to row-scaled
+    int8).
     ``a`` may be a pre-quantized :class:`Int8Stored` under any precision
     (the JAX package raises for one under 'bf16').
 
@@ -365,8 +363,7 @@ def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
 
     ``method`` is the small-SVD engine of the tail (``linalg/svd.py``);
     the default 'jacobi' is the JAX signature's."""
-    _check_ported(method, precision, finish,
-                  min(omega.shape[1], *a.shape))
+    _check_options(method, precision, finish)
     a_stage = _stage_operand(a, precision)
     if finish in ("rowspace", "rowspace_utv"):
         if q < 1:
@@ -423,7 +420,7 @@ def rsvd_core(a, seed, *, k, p, q, method, sketch, qr_method, precision,
             raise ValueError("sketch='fused' (a documented negative-"
                              "result experiment) only supports "
                              "finish='project'")
-        _check_ported(method, precision, finish, min(l, n))
+        _check_options(method, precision, finish)
         y = kernels.fused_sketch_matmul(a, l, seed)
         inner = qr_method if interior_qr is None or q == 0 else interior_qr
         q_mat = _interior_basis(y, inner)

@@ -302,18 +302,20 @@ def test_complex_input_goes_to_xla_only():
         tsvd.svd(a, "jacobi")
 
 
-def test_block_engine_raises_naming_roadmap():
-    a = torch.zeros((520, 513), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjac.jacobi_svd(from_numpy(_matrix("square")), apply="block")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjac.jacobi_svd(a)                     # 'auto' above 512: block
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsvd.svd(a, "parallel_jacobi")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsvd.check_ported("parallel_jacobi", 513)
-    assert tsvd.check_ported("parallel_jacobi", 512) is \
-        tsvd.SVDMethod.ParallelJacobi
+def test_block_engine_runs_where_jax_reaches_it():
+    """The block engine, which raised before it was ported, now runs
+    wherever the JAX package reaches it: apply='block', 'auto' above
+    n = 512 and svd(..., 'parallel_jacobi') there."""
+    a = _matrix("square")
+    u, s, v = tjac.jacobi_svd(from_numpy(a), apply="block", block_size=8)
+    np.testing.assert_allclose(s.numpy(), np.linalg.svd(a, compute_uv=False),
+                               rtol=1e-12)
+    np.testing.assert_allclose((u * s) @ v.T, a, atol=1e-12)
+    zeros = torch.zeros((520, 513), dtype=torch.float64)
+    for u, s, v in (tjac.jacobi_svd(zeros),          # 'auto' above 512
+                    tsvd.svd(zeros, "parallel_jacobi")):
+        assert u.shape == (520, 513) and v.shape == (513, 513)
+        assert torch.all(s == 0) and torch.all(u == 0)
     assert tjac._auto_apply(512) == jjac._auto_apply(512) == "scatter"
     assert tjac._auto_apply(513) == jjac._auto_apply(513) == "block"
 

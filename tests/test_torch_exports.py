@@ -18,7 +18,7 @@ import rsvd_kamaneh_raganato_terrana_tpu_torch as torch_pkg
 
 JAX_ROOT = Path(jax_pkg.__file__).resolve().parent
 TORCH_ROOT = Path(torch_pkg.__file__).resolve().parent
-SUBPACKAGES = ("", "rsvd", "linalg", "core", "apps")
+SUBPACKAGES = ("", "rsvd", "linalg", "core", "apps", "ops")
 
 
 def init_exports(root: Path, sub: str) -> set:
@@ -68,8 +68,35 @@ def test_port_init_exports_what_jax_exports_and_port_defines(sub):
     ("core", "rademacher"),
     ("core", "sketch_matrix"),
     ("core", "rsvd_flops"),
+    ("", "read_matrix_market"),
+    ("", "write_matrix_market"),
+    ("core", "read_matrix_market"),
+    ("core", "write_matrix_market"),
+    ("core", "load_whitespace_dataset"),
+    ("apps", "PCA"),
+    ("apps", "load_tourists_dataset"),
+    ("apps", "load_athletic_dataset"),
+    ("rsvd", "FrequentDirections"),
+    ("ops", "matvec"),
+    ("ops", "frobenius_norm"),
+    ("ops", "normalize"),
+    ("ops", "transpose"),
 ])
 def test_named_exports(sub, name):
     assert name in init_exports(JAX_ROOT, sub)
     assert name in init_exports(TORCH_ROOT, sub)
     assert callable(getattr(port_module(sub), name))
+
+
+@pytest.mark.parametrize("module, name", [
+    ("apps.pca", "StreamingPCA"),
+    ("linalg.jacobi", "jacobi_svd_chunked"),
+])
+def test_names_jax_keeps_in_their_modules(module, name):
+    """Names the JAX package leaves out of its ``__init__`` files: the
+    port defines them in the same modules."""
+    jax_module = (JAX_ROOT / module.replace(".", "/")).with_suffix(".py")
+    assert any(isinstance(node, (ast.FunctionDef, ast.ClassDef))
+               and node.name == name
+               for node in ast.parse(jax_module.read_text()).body)
+    assert callable(getattr(port_module(module), name))

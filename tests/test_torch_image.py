@@ -395,6 +395,6 @@ def test_cli_direct_call_and_unported_apps(tmp_path, capsys):
     image_cli([img, "--k", "6", "--no-tile", "--downscale", "4",
                "--out-dir", str(tmp_path), "--device", "cpu"])
     assert (tmp_path / "256_01_factors.rsv").exists()
-    assert tmain.main(["pca", "x"]) == 1
+    assert tmain.main(["pod", "x"]) == 1
     assert "not ported" in capsys.readouterr().out
     assert tmain.main([]) == 0

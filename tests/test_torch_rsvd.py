@@ -136,6 +136,11 @@ def test_import_leaves_jax_out():
             "import rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.kernels\n"
             "import rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi\n"
             "import rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pca\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pca_main\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.apps.rsvd_main\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.fd\n"
+            "import rsvd_kamaneh_raganato_terrana_tpu_torch.__main__\n"
             "print('jax' in sys.modules, 'torch' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -147,12 +152,18 @@ def test_import_leaves_jax_out():
     dict(precision="high"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kwargs):
-    """(iv) Unported options raise before any work is done."""
+    """(iv) 'high', unported before, now runs; on the CPU it computes in
+    full precision, as JAX's HIGH does there, so it equals 'highest'
+    bitwise.  An unknown precision still raises before any work."""
     a = from_numpy(_gapped_operator(48, 32))
+    omega = from_numpy(_omega(32, 8))
     kw = dict(method="eigh", qr_method="robust")
-    kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdrv.rsvd_with_omega(a, from_numpy(_omega(32, 8)), q=1, **kw)
+    got = tdrv.rsvd_with_omega(a, omega, q=1, **dict(kw, **kwargs))
+    want = tdrv.rsvd_with_omega(a, omega, q=1, precision="highest", **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="unknown precision"):
+        tdrv.rsvd_with_omega(a, omega, q=1, precision="higher", **kw)
 
 
 def test_rsvd_runs_at_its_defaults():
