@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path, its three-kernel ``rsvd()``
 path, ``rsvd()`` at its defaults, the serving path, the image codec,
-the other driver modes, PCA, the rsvd/pca command lines and POD/ROM on
-one CUDA card, and hold every kernel of those paths to its plain
+the other driver modes, PCA, the rsvd/pca command lines, POD/ROM and
+the randomized-NLA extensions (block Krylov through K1/K2/K3 among
+them) on one CUDA card, and hold every kernel of those paths to its plain
 PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
@@ -117,7 +118,31 @@ Phases (any failure raises; nothing is caught):
    ``IncrementalSVD(method='eigh_pallas')`` with every K3 launch (32)
    held bitwise to its plain version and counted, and one profiled FOM
    step and ROM step.
-9. A ``kernels`` JSON line, the card's name and power limit, and as the
+9. The randomized-NLA extensions, each against an f64 yardstick on the
+   card.  Block Krylov (``rsvd_krylov``) on an 8192^2 f32 operand with
+   sigma_i = (i + 1)^(-1/2), k = 64, p = 16, q = 2: with
+   ``qr_method='cholqr1_fused'`` and ``method='eigh_pallas'`` (K1 3 and
+   K3 1 launches, counted; K3's launch bitwise its plain version on the
+   240 x 240 Gram it was handed, each K1 call's dQ reported), with
+   ``'polar_fused'`` (K2 3 launches, counted) and at its defaults; each
+   error within 1% of an f64 Krylov's on the same Omega and below
+   ``rsvd``'s at equal q, sigma within 1e-4 of sigma_1 of the same call
+   through the plain versions, one profiler pass over the K1/K3 call, and
+   non-finite output from K1 and its plain version on an operand of rank
+   below l.  The diagnostics probes on the main path's factors (the
+   certificates above the true f64 2-norm error), ``spectral_norm_
+   estimate``/``stable_rank_estimate``; Nystrom, ``reigh``,
+   ``reigh_generalized`` and ``nystrom_pcg`` on a 16384-point RBF kernel
+   matrix against f64 eigvalsh; ``sketch_lstsq`` ('gaussian'/'sparse',
+   damp 0 / > 0), ``sketch_minnorm`` and ``lstsq_residual`` on a
+   262144 x 512 panel against f64 lstsq, CountSketch's embedding of its
+   Q; Hutchinson, Hutch++, ``diag_estimate``, SLQ and ``logdet_psd``
+   (dense and matrix-free) on an 8192^2 SPD matrix; ``rlu`` at 8192^2,
+   ``cca`` on 262144-row views (its rSVD branch), ``dmd`` of 65536 x 401
+   snapshots, ``rpca`` at 4096^2 (f32 and f64) and ``complete_lowrank``
+   at 4096^2.  No kernel is on those paths but the probes' main-path
+   call (K1 3 launches): checked.
+10. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -127,8 +152,10 @@ the package is not importable next to this script.
 import contextlib
 import ctypes
 import functools
+import importlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -178,12 +205,48 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.incremental import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 from rsvd_kamaneh_raganato_terrana_tpu_torch.native import get_codec
+from rsvd_kamaneh_raganato_terrana_tpu_torch.ops import sketching
+from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.sketching import (
+    countsketch_apply,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import lstsq as lstsq_mod
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import (
+    complete_lowrank,
+    diag_estimate,
+    dmd,
+    dmd_reconstruction_error,
+    factorization_error_estimate,
+    hutchinson,
+    hutchpp,
+    logdet_psd,
+    lstsq_residual,
+    nystrom_pcg,
+    nystrom_psd,
+    range_error_estimate,
+    reigh,
+    reigh_generalized,
+    rlu,
+    rlu_reconstruct,
+    rlu_solve,
+    rpca,
+    rsvd_krylov,
+    sketch_lstsq,
+    sketch_minnorm,
+    slq_trace,
+    spectral_norm_estimate,
+    stable_rank_estimate,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     generate_omega,
     reconstruction_error,
     rsvd_with_omega,
 )
+
+# the package's ``rsvd.cca`` attribute is the function of that name
+cca_mod = importlib.import_module(
+    "rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cca")
+cca = cca_mod.cca
 
 M = N = 4096
 K, P, Q = 64, 16, 2
@@ -279,6 +342,43 @@ ROM_CPU_TOL = 1e-6        # card vs CPU ROM errors, relative
 CLI_POD_TOL = 1e-9        # the pod command line vs the in-process study
 INC_SIG_TOL = 1e-6        # incremental sigma vs numpy (tests/test_incremental.py:54)
 INC_ANGLE_TOL = 1e-5      # rad, incremental span vs numpy's
+# phase 9: the randomized-NLA extensions
+KRY_N = 8192              # block Krylov operand, sigma_i = (i + 1)^(-1/2)
+KRY_L = (K + P) * (Q + 1)  # 240: the l(q+1) x l(q+1) Gram K3 factors
+KRY_RATIO_MAX = 1.01      # error over the f64 Krylov's on the same Omega
+KRY_RANK_DEFICIENT = (4096, 32)   # side, rank < l: K1's NaN contract
+# the certificate's factor 10 sqrt(2/pi), and the bound on how far its
+# probe norms (max ||E g||) can sit above ||E||_F
+PROBE_FACTOR = 10.0 * math.sqrt(2.0 / math.pi)
+PROBE_FRO_SLACK = 1.5
+SPECTRAL_TOL = 1e-3       # spectral_norm_estimate vs sigma_1, gapped operand
+NYS_POINTS, NYS_DIM, NYS_H = 16384, 8, 2.0   # RBF kernel matrix, 1 GB f32
+NYS_K, NYS_OVER_TOL = 128, 1e-4   # Nystrom eigenvalues never over the true
+NYS_RECON_MAX = 3.0       # ||A - U L U^T||_F / optimum (tests/test_nystrom.py:51)
+REIGH_K, REIGH_TOP, REIGH_TOL = 64, 16, 1e-4
+GEN_K, GEN_RESID_TOL, GEN_ORTH_TOL = 8, 1e-2, 1e-3
+PCG_MU_REL, PCG_RANK, PCG_ITERS = 1e-3, 50, 30
+LS_ROWS, LS_COLS, LS_RHS = 262144, 512, 4    # 512 MB f32
+LS_COND, LS_NOISE, LS_DAMP_REL = 30.0, 1e-2, 1.0
+LS_RESID_TOL = 1e-4       # relative residual over the f64 optimum's
+LS_RES_FN_TOL = 1e-4      # lstsq_residual vs the f64 residual, relative
+CS_SIZE = 16 * LS_COLS    # CountSketch rows for the embedding check
+CS_RANGE = (0.5, 1.5)     # singular values of S Q
+CS_CPU_TOL = 1e-5         # card vs CPU on the same S, relative (atomics)
+TR_N = 8192               # SPD operand, eigenvalues logspace(0, -2)
+TR_SIGMAS = 5.0           # Hutchinson / Hutch++ within 5 standard errors
+TR_DIAG_OUT = 2.0 / 150   # diag outliers past 5 se (tests/test_trace.py:141)
+SLQ_TRACE_TOL, LOGDET_TOL = 0.1, 0.05   # tests/test_slq.py:48-60
+RLU_N, RLU_RANK, RLU_NOISE = 8192, 64, 1e-4
+RLU_RATIO_MAX, RLU_SOLVE_TOL = 2.0, 1e-3
+CCA_ROWS, CCA_P, CCA_Q, CCA_SHARED, CCA_K = 262144, 512, 384, 8, 8
+CCA_TOL = 1e-4            # correlations vs the exact branch in f64
+DMD_N, DMD_M, DMD_PAIRS = 65536, 401, 8     # 16 discrete eigenvalues
+DMD_EIG_TOL = 1e-4
+RPCA_N, RPCA_RANK, RPCA_FRAC, RPCA_ITERS = 4096, 8, 0.05, 40
+RPCA_TOL = 1e-3
+COMP_N, COMP_RANK, COMP_FRAC, COMP_ITERS = 4096, 10, 0.2, 30
+COMP_TOL = 1e-2           # unobserved RMSE over the entries' RMS
 
 
 T_START = time.perf_counter()
@@ -1971,6 +2071,607 @@ def phase_pod():
     return out
 
 
+# ---- phase 9: the randomized-NLA extensions -------------------------------
+
+def krylov_operand(n, seed):
+    """An n x n f32 operand with sigma_i = (i + 1)^(-1/2) and random
+    singular vectors, made on the card: a slowly decaying, full-rank
+    spectrum (block Krylov's use case)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u, _ = torch.linalg.qr(torch.randn(n, n, device="cuda", generator=gen))
+    v, _ = torch.linalg.qr(torch.randn(n, n, device="cuda", generator=gen))
+    s = (torch.arange(n, device="cuda", dtype=torch.float32) + 1.0) ** -0.5
+    with device.ieee_fp32():
+        return (u * s) @ v.T
+
+
+def err64(a64, u, s, v):
+    """||A - U diag(s) V^T||_F in f64 on the card."""
+    u, s, v = (x.double() for x in (u, s, v))
+    return float(torch.linalg.norm(a64 - (u * s) @ v.T))
+
+
+def same_omega(omega):
+    """``driver.generate_omega`` patched to hand back ``omega`` (cast to
+    the dtype asked for): an f64 yardstick on the f32 call's Omega."""
+    return mock.patch.object(driver, "generate_omega",
+                             lambda seed, n, l, dtype=torch.float32, *a,
+                             **kw: omega.to(dtype))
+
+
+def k1_calls_vs_plain(recorder):
+    """(shape, max |dQ|, max |Q^T Q - I| of K1 and of the plain version)
+    of each recorded K1 call: reported, not held (a deflated Krylov
+    block's condition number squared scales their difference)."""
+    torch.cuda.synchronize()
+    out = []
+    for y, args, kwargs, (q, _) in recorder.calls:
+        q0, _ = kernels.fused_cholqr1_reference(y, *args, **kwargs)
+        out.append([list(y.shape), float((q - q0).abs().max()),
+                    orth_err(q), orth_err(q0)])
+    return out
+
+
+def phase_krylov():
+    """Block Krylov through K1/K3 and K2, counted, against its plain
+    versions and an f64 Krylov on the same Omega."""
+    a = krylov_operand(KRY_N, seed=9)
+    a64 = a.double()
+    omega = generate_omega(0, KRY_N, K + P, device="cuda")
+    with same_omega(omega):
+        u, s, v = rsvd_krylov(a64, k=K, p=P, q=Q)
+    err_f64 = err64(a64, u, s, v)
+    u, s, v = rsvd(a, k=K, p=P, q=Q, method="eigh")
+    err_rsvd = err64(a64, u, s, v)
+    log(f"  f64 Krylov on the same Omega: err {err_f64:.6f}; f32 rsvd at "
+        f"q={Q}: {err_rsvd:.6f}")
+    out = dict(err_f64_krylov=err_f64, err_rsvd_same_q=err_rsvd)
+    launches_total = list(NONE)
+
+    def call(qr_method, method="eigh"):
+        return lambda: rsvd_krylov(a, k=K, p=P, q=Q, qr_method=qr_method,
+                                   method=method)
+
+    runs = (("cholqr1_fused", "eigh_pallas", launches_of(k1=Q + 1, k3=1)),
+            ("polar_fused", "eigh", launches_of(k2=Q + 1)),
+            ("robust", "eigh", NONE))
+    for qr_method, method, want in runs:
+        label = f"{qr_method}/{method}"
+        fwd = call(qr_method, method)
+        rec1 = Recorder(kernels.fused_cholqr1)
+        rec3 = Recorder(kernels.eigh_small)
+        with mock.patch.object(kernels, "fused_cholqr1", rec1), \
+                mock.patch.object(kernels, "eigh_small", rec3):
+            reset_counts()
+            u, s, v = fwd()
+            torch.cuda.synchronize()
+            launches = counts()
+        check(launches == want, f"Krylov {label}: (K1, K2, K3, K4, K5a, "
+              f"K5b) launches {launches}, not {want}")
+        launches_total = [t + c for t, c in zip(launches_total, launches)]
+        check(u.shape == (KRY_N, K) and finite(u, s, v),
+              f"Krylov {label}: factors")
+        err = err64(a64, u, s, v)
+        run = dict(launches_k1_to_k5b=list(launches),
+                   err_ratio_vs_f64=err / err_f64,
+                   err_over_rsvd=err / err_rsvd,
+                   u_orth=orth_err(u), ms=cuda_ms(fwd, 5))
+        if launches != NONE:
+            with plain_kernels():
+                _, s0, _ = fwd()
+                run["plain_ms"] = cuda_ms(fwd, 1)
+            run["max_rel_dsigma_vs_plain"] = float(
+                (s - s0).abs().max() / s0[0])
+            check(run["max_rel_dsigma_vs_plain"] <= SIGMA_TOL["highest"],
+                  f"Krylov {label}: sigma vs plain {run}")
+        if rec3.calls:
+            n, same, dlam = eigh_vs_plain(*rec3.calls[0])   # bitwise
+            check(n == KRY_L, f"Krylov {label}: K3 at n = {n}, not {KRY_L}")
+            g = rec3.calls[0][0]
+            run.update(
+                k3_n=n, k3_bitwise=same, k3_rel_dlam=dlam,
+                k3_ms=cuda_ms(lambda: kernels.eigh_small(g), 5),
+                torch_eigh_ms=cuda_ms(lambda: torch.linalg.eigh(g), 5))
+            run["k3_rounds"] = 8 * (n - 1)
+            run["k3_us_per_round"] = 1e3 * run["k3_ms"] / run["k3_rounds"]
+            run["ms_with_cusolver_tail"] = cuda_ms(call(qr_method), 5)
+        if rec1.calls:
+            run["k1_calls_vs_plain"] = k1_calls_vs_plain(rec1)
+        check(run["err_ratio_vs_f64"] <= KRY_RATIO_MAX,
+              f"Krylov {label}: err ratio {run}")
+        check(err < err_rsvd, f"Krylov {label}: error {err} not below "
+              f"rsvd's {err_rsvd} at q={Q}")
+        out[label] = run
+        log(f"  rsvd_krylov [{label}]: " + json.dumps(run))
+    out["profile_k1_k3"] = profile_call(call("cholqr1_fused", "eigh_pallas"),
+                                        reps=5)
+    log("  profile [Krylov, K1/K3]: " + json.dumps(out["profile_k1_k3"]))
+    # K1's contract on a Krylov block of an operand of rank below l:
+    # non-finite from the kernel and from its plain version (not counted)
+    side, rank = KRY_RANK_DEFICIENT
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    low = torch.randn(side, rank, device="cuda", generator=gen) @ torch.randn(
+        rank, side, device="cuda", generator=gen)
+    got = rsvd_krylov(low, k=K, p=P, q=Q, qr_method="cholqr1_fused")
+    with plain_kernels():
+        got0 = rsvd_krylov(low, k=K, p=P, q=Q, qr_method="cholqr1_fused")
+    out["rank_deficient_non_finite"] = [not finite(*got), not finite(*got0)]
+    check(out["rank_deficient_non_finite"] == [True, True],
+          f"Krylov on a rank-{rank} operand: non-finite (kernel, plain) "
+          f"{out['rank_deficient_non_finite']}")
+    out["spectral_norm_gapped"] = spectral_checks(a, sigma1=1.0, gapped=True)
+    del a, a64
+    torch.cuda.empty_cache()
+    return launches_total, out
+
+
+def spec_norm64(e):
+    """||E||_2 in f64: the root of the largest eigenvalue of E^T E."""
+    return float(torch.linalg.eigvalsh(e.T @ e)[-1].sqrt())
+
+
+def spectral_checks(a, sigma1, gapped):
+    """spectral_norm_estimate and stable_rank_estimate at their defaults
+    against sigma_1 and ||A||_F^2 / sigma_1^2: held to SPECTRAL_TOL on a
+    gapped spectrum; on a gapless one the power iteration's 30 rounds
+    leave a gap that is reported, and the estimate must stay a lower
+    bound."""
+    est = float(spectral_norm_estimate(a))
+    srank = float(stable_rank_estimate(a))
+    fro2 = float(torch.sum(a.double() ** 2))
+    out = dict(sigma1=sigma1, estimate=est, rel_gap=(sigma1 - est) / sigma1,
+               stable_rank=srank, stable_rank_true=fro2 / sigma1 ** 2)
+    out["stable_rank_rel_err"] = srank / out["stable_rank_true"] - 1.0
+    check(est <= sigma1 * (1 + 1e-5), f"spectral norm over sigma_1 {out}")
+    if gapped:
+        check(abs(out["rel_gap"]) <= SPECTRAL_TOL
+              and abs(out["stable_rank_rel_err"]) <= 2 * SPECTRAL_TOL,
+              f"spectral norm / stable rank {out}")
+    return out
+
+
+def phase_probes():
+    """The certificates on the main path's factors (4096^2, k = 64)."""
+    fwd, (a,) = entry(device="cuda", m=M, n=N, precision="highest")
+    u, s, v = fwd(a)
+    a64, u64, s64, v64 = (x.double() for x in (a, u, s, v))
+    out = {}
+    for name, est, e in (
+            ("range", lambda: range_error_estimate(a, u),
+             a64 - u64 @ (u64.T @ a64)),
+            ("factorization",
+             lambda: factorization_error_estimate(a, u, s, v),
+             a64 - (u64 * s64) @ v64.T)):
+        got = float(est())
+        true2, fro = spec_norm64(e), float(torch.linalg.norm(e))
+        ceiling = PROBE_FACTOR * PROBE_FRO_SLACK * fro
+        run = dict(estimate=got, true_2norm=true2, fro=fro,
+                   over_true=got / true2,
+                   probe_norm_over_fro=got / (PROBE_FACTOR * fro),
+                   ms=cuda_ms(est, 5))
+        check(true2 <= got <= ceiling, f"{name} certificate {run}")
+        out[name] = run
+        log(f"  {name}_error_estimate: " + json.dumps(run))
+        del e
+    sigma1 = float(torch.linalg.eigvalsh(a64.T @ a64)[-1].sqrt())
+    out["spectral_norm_gapless"] = spectral_checks(a, sigma1, gapped=False)
+    log("  spectral_norm / stable_rank (gapless Gaussian operand): "
+        + json.dumps(out["spectral_norm_gapless"]))
+    return out
+
+
+def rbf_kernel(points, dim, h, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(points, dim, device="cuda", generator=gen)
+    with device.ieee_fp32():
+        k = torch.exp(-torch.cdist(x, x) ** 2 / (2.0 * h * h))
+    return 0.5 * (k + k.T)
+
+
+def phase_nystrom():
+    """nystrom_psd, reigh, reigh_generalized and nystrom_pcg on an RBF
+    kernel matrix, against f64 eigvalsh on the card."""
+    a = rbf_kernel(NYS_POINTS, NYS_DIM, NYS_H, seed=11)
+    (lam,), eig_s = timed(lambda: (torch.linalg.eigvalsh(a.double()).flip(
+        0),))
+    out = dict(points=NYS_POINTS, f64_eigvalsh_s=eig_s,
+               lam1=float(lam[0]), lam_k_over_lam1=float(lam[NYS_K - 1]
+                                                         / lam[0]))
+    log(f"  RBF {NYS_POINTS}^2: f64 eigvalsh {eig_s:.2f} s, lam_1 "
+        f"{out['lam1']:.4f}")
+    (u, lk), t = timed(lambda: nystrom_psd(a, k=NYS_K))
+    opt = float(torch.sqrt(torch.sum(lam[NYS_K:] ** 2)))
+    with device.ieee_fp32():
+        rec = float(torch.linalg.norm(a - (u * lk) @ u.T))
+    over = float(((lk.double() - lam[:NYS_K]) / lam[:NYS_K]).max())
+    out["nystrom_psd"] = dict(s=t, recon_over_opt=rec / opt,
+                              max_rel_over_true=over,
+                              top16_rel_err=float(((lk[:16].double()
+                                                    - lam[:16]).abs()
+                                                   / lam[:16]).max()))
+    check(over <= NYS_OVER_TOL and rec <= NYS_RECON_MAX * opt,
+          f"nystrom_psd {out['nystrom_psd']}")
+    (w, _), t = timed(lambda: reigh(a, k=REIGH_K))
+    top = float(((w[:REIGH_TOP].double() - lam[:REIGH_TOP]).abs()
+                 / lam[:REIGH_TOP]).max())
+    out["reigh"] = dict(s=t, top_rel_err=top, k=REIGH_K)
+    check(top <= REIGH_TOL, f"reigh {out['reigh']}")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    g = torch.randn(NYS_POINTS, 5, device="cuda", generator=gen)
+    with device.ieee_fp32():
+        b = torch.diag(1.0 + torch.rand(NYS_POINTS, device="cuda",
+                                        generator=gen)) + 0.02 * g @ g.T
+    (wg, vg), t = timed(lambda: reigh_generalized(a, b, k=GEN_K))
+    with device.ieee_fp32():
+        bv = b @ vg
+        resid = torch.linalg.norm(a @ vg - bv * wg, dim=0) / (
+            wg.abs() * torch.linalg.norm(bv, dim=0))
+        vbv = float((vg.T @ bv - torch.eye(GEN_K, device="cuda")).abs().max())
+    out["reigh_generalized"] = dict(s=t, max_rel_resid=float(resid.max()),
+                                    vtbv_err=vbv)
+    check(float(resid.max()) <= GEN_RESID_TOL and vbv <= GEN_ORTH_TOL,
+          f"reigh_generalized {out['reigh_generalized']}")
+    del b, g, bv
+    mu = PCG_MU_REL * out["lam1"]
+    rhs = torch.randn(NYS_POINTS, 2, device="cuda", generator=gen)
+    x, t = timed(lambda: nystrom_pcg(a, rhs, mu, rank=PCG_RANK,
+                                     iters=PCG_ITERS))
+    x_cg = lstsq_mod._pcg_scan(
+        lambda p: device.matmul_at(a, p, "highest") + mu * p, lambda r: r,
+        rhs, PCG_ITERS)
+
+    def rel_res(y):
+        r = device.matmul_at(a.double(), y.double(), "highest") + mu * \
+            y.double() - rhs.double()
+        return float(torch.linalg.norm(r) / torch.linalg.norm(rhs.double()))
+    out["nystrom_pcg"] = dict(s=t, mu=mu, iters=PCG_ITERS, rank=PCG_RANK,
+                              rel_resid=rel_res(x), plain_cg_rel_resid=rel_res(
+                                  x_cg), ms=cuda_ms(lambda: nystrom_pcg(
+                                      a, rhs, mu, rank=PCG_RANK,
+                                      iters=PCG_ITERS), 3))
+    check(out["nystrom_pcg"]["rel_resid"]
+          < out["nystrom_pcg"]["plain_cg_rel_resid"],
+          f"nystrom_pcg {out['nystrom_pcg']}")
+    log("  Nystrom: " + json.dumps(out))
+    del a, lam
+    torch.cuda.empty_cache()
+    return out
+
+
+def ls_operand(seed):
+    """A LS_ROWS x LS_COLS f32 panel of condition LS_COND and its
+    right-hand sides b = A X + noise (relative LS_NOISE), on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v, _ = torch.linalg.qr(torch.randn(LS_COLS, LS_COLS, device="cuda",
+                                       generator=gen))
+    s = torch.logspace(0, -math.log10(LS_COND), LS_COLS, device="cuda")
+    with device.ieee_fp32():
+        a = (torch.randn(LS_ROWS, LS_COLS, device="cuda", generator=gen)
+             * s) @ v.T
+        b0 = a @ torch.randn(LS_COLS, LS_RHS, device="cuda", generator=gen)
+    noise = torch.randn(LS_ROWS, LS_RHS, device="cuda", generator=gen)
+    b = b0 + LS_NOISE * torch.linalg.norm(b0, dim=0) / math.sqrt(
+        LS_ROWS) * noise
+    return a, b
+
+
+def phase_lstsq():
+    """sketch_lstsq ('gaussian' and 'sparse', damp 0 and > 0),
+    sketch_minnorm on the transpose and lstsq_residual, against f64 on
+    the card; CountSketch's embedding on the panel's Q."""
+    a, b = ls_operand(seed=13)
+    a64, b64 = a.double(), b.double()
+    nb = torch.linalg.norm(b64, dim=0)
+    x_opt = torch.linalg.lstsq(a64, b64).solution
+    damp = LS_DAMP_REL * float(torch.linalg.eigvalsh(a64.T @ a64)[0])
+    x_ridge = torch.linalg.solve(
+        a64.T @ a64 + damp * torch.eye(LS_COLS, dtype=torch.float64,
+                                       device="cuda"), a64.T @ b64)
+
+    def rel_resid(x, damp_):
+        r2 = torch.linalg.norm(a64 @ x.double() - b64, dim=0) ** 2
+        return torch.sqrt(r2 + damp_ * torch.linalg.norm(x.double(),
+                                                         dim=0) ** 2) / nb
+    out = {"damp": damp}
+    for kind in ("gaussian", "sparse"):
+        for damp_ in (0.0, damp):
+            def call(kind=kind, damp_=damp_):
+                return sketch_lstsq(a, b, kind=kind, damp=damp_)
+            x = call()
+            best = rel_resid(x_opt if damp_ == 0 else x_ridge, damp_)
+            got = rel_resid(x, damp_)
+            run = dict(rel_resid=float(got.max()), optimum=float(best.max()),
+                       over_optimum=float((got - best).max()),
+                       ms=cuda_ms(call, 3))
+            if damp_ == 0:
+                res_fn = lstsq_residual(a, x, b).double()
+                res64 = torch.linalg.norm(a64 @ x.double() - b64, dim=0)
+                run["lstsq_residual_rel_err"] = float(
+                    ((res_fn - res64).abs() / res64).max())
+                check(run["lstsq_residual_rel_err"] <= LS_RES_FN_TOL,
+                      f"lstsq_residual {run}")
+            check(run["over_optimum"] <= LS_RESID_TOL,
+                  f"sketch_lstsq {kind} damp={damp_}: {run}")
+            out[f"{kind}_damp{'0' if damp_ == 0 else '+'}"] = run
+            log(f"  sketch_lstsq [{kind}, damp={damp_:.4g}]: "
+                + json.dumps(run))
+    out["profile_gaussian"] = profile_call(lambda: sketch_lstsq(a, b),
+                                           reps=3)
+    log("  profile [sketch_lstsq gaussian]: "
+        + json.dumps(out["profile_gaussian"]))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    c = torch.randn(LS_COLS, LS_RHS, device="cuda", generator=gen)
+    x = sketch_minnorm(a.T, c)
+    x_star = a64 @ torch.linalg.solve(a64.T @ a64, c.double())
+    out["minnorm"] = dict(
+        rel_resid=float((torch.linalg.norm(a64.T @ x.double() - c.double(),
+                                           dim=0)
+                         / torch.linalg.norm(c.double(), dim=0)).max()),
+        rel_err_vs_pinv=float(torch.linalg.norm(x.double() - x_star)
+                              / torch.linalg.norm(x_star)),
+        ms=cuda_ms(lambda: sketch_minnorm(a.T, c), 3))
+    check(out["minnorm"]["rel_resid"] <= LS_RESID_TOL,
+          f"sketch_minnorm {out['minnorm']}")
+    log("  sketch_minnorm: " + json.dumps(out["minnorm"]))
+    del a64, b64, x_star
+    q, _ = torch.linalg.qr(a)
+    key = torch.Generator(device="cuda").manual_seed(15)
+    draws = sketching._buckets_and_signs(key, LS_ROWS, CS_SIZE, 8)
+    with mock.patch.object(sketching, "_buckets_and_signs",
+                           lambda *args: draws):
+        sq = countsketch_apply(key, q, CS_SIZE)
+        draws_cpu = [(bk.cpu(), sg.cpu()) for bk, sg in draws]
+    with mock.patch.object(sketching, "_buckets_and_signs",
+                           lambda *args: draws_cpu):
+        sq_cpu = countsketch_apply(torch.Generator().manual_seed(15),
+                                   q.cpu(), CS_SIZE)
+    sv = torch.linalg.svdvals(sq.double())
+    out["countsketch"] = dict(
+        sketch_rows=CS_SIZE, sv_max=float(sv[0]), sv_min=float(sv[-1]),
+        rel_err_vs_cpu=float(torch.linalg.norm(sq.cpu() - sq_cpu)
+                             / torch.linalg.norm(sq_cpu)),
+        ms=cuda_ms(lambda: countsketch_apply(key, q, CS_SIZE), 3))
+    check(CS_RANGE[0] <= out["countsketch"]["sv_min"]
+          and out["countsketch"]["sv_max"] <= CS_RANGE[1]
+          and out["countsketch"]["rel_err_vs_cpu"] <= CS_CPU_TOL,
+          f"countsketch {out['countsketch']}")
+    log("  countsketch: " + json.dumps(out["countsketch"]))
+    del a, b, q, sq, draws
+    torch.cuda.empty_cache()
+    return out
+
+
+def matmul_op(x, a):
+    """The matrix-free operator of phase 9: A X (or A v)."""
+    return device.matmul_at(a, x[:, None], "highest")[:, 0] if x.dim() == 1 \
+        else device.matmul_at(a, x, "highest")
+
+
+def phase_trace():
+    """The trace, diagonal and SLQ estimators on an SPD matrix of known
+    spectrum, dense and matrix-free, against f64 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    u, _ = torch.linalg.qr(torch.randn(TR_N, TR_N, device="cuda",
+                                       generator=gen))
+    lam = torch.logspace(0, -2, TR_N, device="cuda")
+    with device.ieee_fp32():
+        a = (u * lam) @ u.T
+    a = 0.5 * (a + a.T)
+    del u
+    a64 = a.double()
+    tr = float(torch.trace(a64))
+    logdet = 2.0 * float(torch.sum(torch.log(torch.diagonal(
+        torch.linalg.cholesky(a64)))))
+    diag = torch.diagonal(a64)
+    out = dict(n=TR_N, trace=tr, logdet=logdet)
+    free = dict(n=TR_N, operands=(a,))
+    est, se = hutchinson(a)
+    est_op, _ = hutchinson(matmul_op, **free)
+    out["hutchinson"] = dict(estimate=float(est), stderr=float(se),
+                             err_in_se=abs(float(est) - tr) / float(se),
+                             matrix_free_rel_diff=abs(float(est_op - est))
+                             / abs(float(est)), ms=cuda_ms(
+                                 lambda: hutchinson(a), 5))
+    _, se96 = hutchinson(a, num_samples=96)
+    pp, pp_op = float(hutchpp(a)), float(hutchpp(matmul_op, **free))
+    out["hutchpp"] = dict(estimate=pp, err_in_hutchinson_se=abs(pp - tr)
+                          / float(se96), matrix_free_rel_diff=abs(pp_op - pp)
+                          / abs(pp), ms=cuda_ms(lambda: hutchpp(a), 5))
+    d, dse = diag_estimate(a)
+    d_op, _ = diag_estimate(matmul_op, **free)
+    out["diag_estimate"] = dict(
+        outlier_share=float(((d.double() - diag).abs()
+                             > TR_SIGMAS * dse.double()).double().mean()),
+        matrix_free_max_diff=float((d_op - d).abs().max()),
+        ms=cuda_ms(lambda: diag_estimate(a), 5))
+    st = float(slq_trace(a, lambda x: x))
+    ld = float(logdet_psd(a))
+    ld_op = float(logdet_psd(matmul_op, **free))
+    out["slq_trace"] = dict(estimate=st, rel_err=abs(st - tr) / tr)
+    out["logdet_psd"] = dict(estimate=ld, rel_err=abs(ld - logdet)
+                             / abs(logdet), matrix_free_rel_diff=abs(
+                                 ld_op - ld) / abs(ld),
+                             ms=cuda_ms(lambda: logdet_psd(a), 3))
+    log("  trace estimators: " + json.dumps(out))
+    check(out["hutchinson"]["err_in_se"] <= TR_SIGMAS
+          and out["hutchpp"]["err_in_hutchinson_se"] <= TR_SIGMAS
+          and out["diag_estimate"]["outlier_share"] <= TR_DIAG_OUT
+          and out["slq_trace"]["rel_err"] <= SLQ_TRACE_TOL
+          and out["logdet_psd"]["rel_err"] <= LOGDET_TOL,
+          f"trace estimators {out}")
+    check(out["hutchinson"]["matrix_free_rel_diff"] <= 1e-6
+          and out["hutchpp"]["matrix_free_rel_diff"] <= 1e-6
+          and out["diag_estimate"]["matrix_free_max_diff"] <= 1e-6
+          and out["logdet_psd"]["matrix_free_rel_diff"] <= 1e-4,
+          f"matrix-free vs dense {out}")
+    del a, a64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rlu():
+    """rlu on a rank-64 8192^2 operand plus noise, against the f64
+    rSVD's error on the same Omega; rlu_solve on its factors."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with device.ieee_fp32():
+        a = torch.randn(RLU_N, RLU_RANK, device="cuda", generator=gen) @ \
+            torch.randn(RLU_RANK, RLU_N, device="cuda", generator=gen)
+    a = a / math.sqrt(RLU_RANK) + RLU_NOISE * torch.randn(
+        RLU_N, RLU_N, device="cuda", generator=gen)
+    a64 = a.double()
+    omega = generate_omega(0, RLU_N, K + P, device="cuda")
+    with same_omega(omega):
+        u, s, v = rsvd(a64, k=K, p=P, q=Q, method="eigh")
+    err_svd = err64(a64, u, s, v)
+    res, t = timed(lambda: rlu(a, k=K, p=P, q=Q))
+    err = float(torch.linalg.norm(a64 - rlu_reconstruct(res).double()))
+    x = torch.randn(RLU_N, 2, device="cuda", generator=gen)
+    with device.ieee_fp32():
+        rhs = a @ x
+    xh = rlu_solve(res, rhs)
+    solve_res = float(torch.linalg.norm(a64 @ xh.double() - rhs.double())
+                      / torch.linalg.norm(rhs.double()))
+    out = dict(s=t, ms=cuda_ms(lambda: rlu(a, k=K, p=P, q=Q), 3),
+               err=err, err_f64_rsvd=err_svd, ratio=err / err_svd,
+               solve_rel_resid=solve_res,
+               perm_dtypes=[str(res.perm_rows.dtype),
+                            str(res.perm_cols.dtype)])
+    log("  rlu: " + json.dumps(out))
+    check(out["ratio"] <= RLU_RATIO_MAX and solve_res <= RLU_SOLVE_TOL
+          and res.perm_rows.dtype == torch.int64, f"rlu {out}")
+    del a, a64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cca():
+    """cca on two 262144-row views sharing 8 directions (the rSVD
+    branch), against the exact branch in f64 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    z = torch.randn(CCA_ROWS, CCA_SHARED, device="cuda", generator=gen)
+    views = []
+    for d in (CCA_P, CCA_Q):
+        with device.ieee_fp32():
+            w = z @ torch.randn(CCA_SHARED, d, device="cuda", generator=gen)
+        views.append(w + torch.randn(CCA_ROWS, d, device="cuda",
+                                     generator=gen))
+    x, y = views
+    res, t = timed(lambda: cca(x, y, k=CCA_K))
+    exact = cca_mod._cca_impl(x.double(), y.double(), CCA_K, 1e-6, 0,
+                              use_rsvd=False)
+    diff = float((res.correlations.double() - exact[0]).abs().max())
+    out = dict(s=t, ms=cuda_ms(lambda: cca(x, y, k=CCA_K), 3),
+               correlations=res.correlations.tolist(), max_abs_diff=diff)
+    log("  cca: " + json.dumps(out))
+    check(diff <= CCA_TOL, f"cca {out}")
+    del x, y, z, views
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dmd():
+    """dmd of 401 snapshots of a linear system with 16 known discrete
+    eigenvalues, 65536 states."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    theta = torch.linspace(0.1, 2.5, DMD_PAIRS, device="cuda",
+                           dtype=torch.float64)
+    radius = torch.linspace(0.996, 0.9995, DMD_PAIRS, device="cuda",
+                            dtype=torch.float64)
+    mu = torch.polar(radius, theta)
+    phi = torch.complex(*(torch.randn(DMD_N, DMD_PAIRS, device="cuda",
+                                      generator=gen, dtype=torch.float64)
+                          for _ in range(2)))
+    t = torch.arange(DMD_M, device="cuda", dtype=torch.float64)
+    snaps = (2.0 * (phi @ (mu[:, None] ** t[None, :])).real).float()
+    res, secs = timed(lambda: dmd(snaps, k=2 * DMD_PAIRS))
+    known = np.concatenate([to_numpy(mu), np.conj(to_numpy(mu))])
+    miss = max(float(np.min(np.abs(res.eigs - z))) for z in known)
+    out = dict(s=secs, max_eig_err=miss,
+               reconstruction_error=dmd_reconstruction_error(res, snaps))
+    log("  dmd: " + json.dumps(out))
+    check(miss <= DMD_EIG_TOL, f"dmd {out}")
+    del snaps
+    return out
+
+
+def phase_rpca_completion():
+    """rpca of a rank-8 4096^2 matrix with 5% spikes (f32 and f64) and
+    complete_lowrank of a rank-10 one from 20% of its entries."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    low = torch.randn(RPCA_N, RPCA_RANK, device="cuda", generator=gen) @ \
+        torch.randn(RPCA_RANK, RPCA_N, device="cuda", generator=gen) / \
+        math.sqrt(RPCA_RANK)
+    spikes = torch.where(torch.rand(RPCA_N, RPCA_N, device="cuda",
+                                    generator=gen) < RPCA_FRAC,
+                         10.0 * torch.randn(RPCA_N, RPCA_N, device="cuda",
+                                            generator=gen),
+                         torch.zeros((), device="cuda"))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        m_mat = (low + spikes).to(dtype)
+        res, secs = timed(lambda: rpca(m_mat, iters=RPCA_ITERS))
+        rel = float(torch.linalg.norm(res.low_rank.double() - low.double())
+                    / torch.linalg.norm(low.double()))
+        run = dict(s=secs, rel_err=rel, rank=int(res.rank),
+                   final_resid=float(res.resid[-1]))
+        if dtype == torch.float32:
+            run["profile"] = profile_call(
+                lambda: rpca(m_mat, iters=RPCA_ITERS), reps=1)
+        out[str(dtype).replace("torch.", "")] = run
+        log(f"  rpca [{dtype}]: " + json.dumps(run))
+        check(rel <= RPCA_TOL, f"rpca {dtype}: {run}")
+    # the rank bar in f64: in f32 the estimator's 1e-6 sigma_1 threshold
+    # sits at L's roundoff, which it counts
+    check(out["float64"]["rank"] == RPCA_RANK, f"rpca rank {out}")
+    del spikes
+    low = torch.randn(COMP_N, COMP_RANK, device="cuda", generator=gen) @ \
+        torch.randn(COMP_RANK, COMP_N, device="cuda", generator=gen) / \
+        math.sqrt(COMP_RANK)
+    mask = torch.rand(COMP_N, COMP_N, device="cuda",
+                      generator=gen) < COMP_FRAC
+    obs = torch.where(mask, low, torch.zeros((), device="cuda"))
+    res, secs = timed(lambda: complete_lowrank(obs, mask, k=COMP_RANK,
+                                               iters=COMP_ITERS))
+    with device.ieee_fp32():
+        x = (res.u * res.s) @ res.v.T
+    hidden = ~mask
+    rmse = float(torch.sqrt(torch.mean((x - low)[hidden] ** 2)))
+    rms = float(torch.sqrt(torch.mean(low[hidden] ** 2)))
+    out["completion"] = dict(s=secs, unobserved_rmse=rmse, entries_rms=rms,
+                             ratio=rmse / rms,
+                             final_obs_rmse=float(res.obs_rmse[-1]))
+    log("  complete_lowrank: " + json.dumps(out["completion"]))
+    check(rmse <= COMP_TOL * rms, f"completion {out['completion']}")
+    return out
+
+
+def phase_extensions():
+    """Phase 9: every ported extension on the card.  Returns ((K1, K2,
+    K3, K4, K5a, K5b) launches of its counted runs, summary): the
+    Krylov calls, and the main-path call whose factors the probes
+    certify (K1 q + 1 times); every other part runs no kernel, which is
+    checked."""
+    out = {}
+    t0 = time.perf_counter()
+    launches, out["krylov"] = phase_krylov()
+    for name, fn, want in (
+            ("probes", phase_probes, launches_of(k1=Q + 1)),
+            ("nystrom", phase_nystrom, NONE), ("lstsq", phase_lstsq, NONE),
+            ("trace", phase_trace, NONE), ("rlu", phase_rlu, NONE),
+            ("cca", phase_cca, NONE), ("dmd", phase_dmd, NONE),
+            ("rpca_completion", phase_rpca_completion, NONE)):
+        phase(f"phase 9: {name}")
+        reset_counts()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        check(got == want, f"phase 9 {name}: (K1, K2, K3, K4, K5a, K5b) "
+              f"launches {got}, not {want}")
+        launches = [t + c for t, c in zip(launches, got)]
+    out["s"] = time.perf_counter() - t0
+    return launches, out
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
     path, timings.  ``want`` = (K1, K2, K3, K4, K5a, K5b) launches per
@@ -2321,6 +3022,10 @@ def main(argv):
     launches_total[2] += pod_summary["pod_h100"][
         "incremental_f32_eigh_pallas"]["launches_k1_to_k5b"][2]
 
+    phase("phase 9: randomized NLA extensions (block Krylov through K1/K2/K3)")
+    ext_launches, ext_summary = phase_extensions()
+    launches_total = [t + c for t, c in zip(launches_total, ext_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2358,7 +3063,8 @@ def main(argv):
                       "pallas_kernels.py:178",
              launches=launches_total[5], **k5["K5b"]),
     ], "main_path": summary, "serving": serving, "image": image_summary,
-        "driver_modes": modes, "pca": pca_summary, "pod": pod_summary}
+        "driver_modes": modes, "pca": pca_summary, "pod": pod_summary,
+        "extensions": ext_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

@@ -5,9 +5,11 @@ This system has no weights: its state is the operand A and the sketch
 Omega.  Tests and ``chip_smoke.py`` make both with numpy and pass the
 same arrays to the JAX package and to this one.  A JAX array converts
 through its ``__array__``; jax itself is never imported here.  Fitted
-state of the POD application (a ``POD`` of modes and singular values,
-a DEIM model) crosses over field by field (:func:`pod_from_jax`,
-:func:`deim_from_jax`), so an online stage can be compared alone.
+state (a ``POD`` of modes and singular values, a DEIM model, randomized
+LU factors, a CCA fit) crosses over field by field
+(:func:`pod_from_jax`, :func:`deim_from_jax`, :func:`rlu_from_jax`,
+:func:`cca_from_jax`), so a downstream stage can be compared apart from
+the random draws that made the state.
 """
 
 from __future__ import annotations
@@ -66,3 +68,21 @@ def deim_from_jax(deim, device=None):
     return Deim(from_numpy(deim.basis, device),
                 from_numpy(deim.indices, device, torch.int64),
                 from_numpy(deim.proj, device))
+
+
+def rlu_from_jax(res, device=None):
+    """The port's ``rsvd.rlu.RluResult`` holding a JAX ``RluResult``'s
+    fields, read as numpy, its two permutations widened to int64."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.rlu import RluResult
+
+    return RluResult(from_numpy(res.perm_rows, device, torch.int64),
+                     from_numpy(res.perm_cols, device, torch.int64),
+                     *(from_numpy(x, device) for x in res[2:]))
+
+
+def cca_from_jax(res, device=None):
+    """The port's ``rsvd.cca.CcaResult`` holding a JAX ``CcaResult``'s
+    fields, read as numpy."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cca import CcaResult
+
+    return CcaResult(*(from_numpy(x, device) for x in res))

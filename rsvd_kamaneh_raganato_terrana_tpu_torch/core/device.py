@@ -98,17 +98,56 @@ def matmul_at(a, b, precision="highest", out_dtype=None):
         return torch.matmul(a, b).to(out_dtype)
 
 
-def eigh(g):
+def eigh_nan(g):
     """``torch.linalg.eigh`` (ascending eigenvalues, eigenvectors in
-    columns, batched over leading axes) with the eigenvectors made
-    orthonormal to working precision by one Newton--Schulz step,
-    Q <- Q (3I - Q^T Q) / 2.  ``jnp.linalg.eigh``, which the JAX package
-    calls, returns them so; torch's f32 eigh on CUDA runs cuSOLVER's
-    Jacobi solver at its default tolerance, whose eigenvectors are
-    orthogonal only to some 1e-5 (chip_smoke.py's phase 7 measures it on
-    the block engine's pair Grams), and every rotation built from them
-    carries that error."""
-    lam, q = torch.linalg.eigh(g)
+    columns, batched over leading axes) with XLA's contract on a matrix
+    that holds a non-finite entry: NaN eigenvalues and vectors, where
+    torch's raises (or not, as LAPACK and cuSOLVER happen to report).
+    Such a matrix is factored as the identity and its results
+    overwritten, with no host sync, so that a failed Cholesky or QR
+    upstream surfaces as NaN, not as an exception.  Finite matrices get
+    ``torch.linalg.eigh``'s results bit for bit."""
+    bad = ~torch.isfinite(g).flatten(-2).all(-1)
+    eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
+    lam, q = torch.linalg.eigh(torch.where(bad[..., None, None], eye, g))
+    nan = float("nan")
+    return (torch.where(bad[..., None], nan, lam),
+            torch.where(bad[..., None, None], nan, q))
+
+
+def svd_nan(a):
+    """``torch.linalg.svd(a, full_matrices=False)`` with XLA's contract on
+    a matrix that holds a non-finite entry: NaN factors, where torch's
+    raises.  As in :func:`eigh_nan`, no host sync; finite matrices get
+    torch's results bit for bit."""
+    bad = ~torch.isfinite(a).all()
+    u, s, vh = torch.linalg.svd(torch.where(bad, torch.zeros_like(a), a),
+                                full_matrices=False)
+    nan = float("nan")
+    return (torch.where(bad, nan, u), torch.where(bad, nan, s),
+            torch.where(bad, nan, vh))
+
+
+def eigh(g):
+    """:func:`eigh_nan` with the eigenvectors made orthonormal to working
+    precision by one Newton--Schulz step, Q <- Q (3I - Q^T Q) / 2.
+    ``jnp.linalg.eigh``, which the JAX package calls, returns them so;
+    torch's f32 eigh on CUDA runs cuSOLVER's Jacobi solver at its default
+    tolerance, whose eigenvectors are orthogonal only to some 1e-5
+    (chip_smoke.py's phase 7 measures it on the block engine's pair
+    Grams), and every rotation built from them carries that error."""
+    lam, q = eigh_nan(g)
     qtq = matmul_at(q.transpose(-1, -2), q, "highest")
     return lam, 1.5 * q - 0.5 * matmul_at(q, qtq, "highest")
 
+
+def cholesky(g):
+    """Lower Cholesky factor of ``g`` (batched over leading axes) with
+    XLA's failure contract: where the factorization fails, the factor
+    is NaN on and below its diagonal (zero above, as XLA returns it).
+    ``torch.linalg.cholesky`` raises there and ``torch.linalg.
+    cholesky_ex`` returns a finite partial factor with ``info > 0``;
+    ``info`` is read on the device, with no host sync."""
+    c, info = torch.linalg.cholesky_ex(g)
+    return torch.where((info == 0)[..., None, None], c,
+                       torch.tril(torch.full_like(c, float("nan"))))

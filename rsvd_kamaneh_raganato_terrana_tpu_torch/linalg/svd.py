@@ -11,10 +11,14 @@ Engines, as in JAX:
 - ``'power'``           -- power iteration with deflation
                            (``linalg/power.py``);
 - ``'eigh'``            -- one eigendecomposition of the small-side Gram
-                           matrix, ``torch.linalg.eigh``;
+                           matrix, ``torch.linalg.eigh`` (NaN out for a
+                           non-finite Gram, as XLA's, where torch's
+                           raises: ``core/device.py::eigh_nan``);
 - ``'eigh_pallas'``     -- the same Gram route with the eigh by kernel K3
                            (``linalg/kernels.py::eigh_small``);
-- ``'xla'``             -- ``torch.linalg.svd``;
+- ``'xla'``             -- ``torch.linalg.svd`` (NaN out for a
+                           non-finite input, as XLA's:
+                           ``core/device.py::svd_nan``);
 - ``'auto'``            -- 'parallel_jacobi' for min(m, n) <= 256, else
                            'xla'.
 
@@ -27,7 +31,11 @@ import enum
 
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import matmul_at
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
+    eigh_nan,
+    matmul_at,
+    svd_nan,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi import jacobi_svd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power import power_svd
@@ -49,7 +57,7 @@ class SVDMethod(enum.Enum):
         return cls(str(value).lower())
 
 
-def _gram_eigh_svd(a, eigh_fn=torch.linalg.eigh):
+def _gram_eigh_svd(a, eigh_fn=eigh_nan):
     """SVD via the eigendecomposition of the small-side Gram matrix: one
     eigh and one GEMM.  ``eigh_fn`` follows the ``torch.linalg.eigh``
     contract (ascending eigenvalues, eigenvectors in columns)."""
@@ -87,7 +95,7 @@ def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
         method = (SVDMethod.ParallelJacobi if min(a.shape) <= 256
                   else SVDMethod.XLA)
     if method is SVDMethod.XLA:
-        u, s, vh = torch.linalg.svd(a, full_matrices=False)
+        u, s, vh = svd_nan(a)
         v = vh.conj().T
     elif method is SVDMethod.Jacobi:
         u, s, v = jacobi_svd(a, apply="scatter", **kwargs)

@@ -1,4 +1,5 @@
-"""Primitive single-device operations (`primitives`)."""
+"""Primitive single-device operations (`primitives`) and sparse sign
+embeddings (`sketching`)."""
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (  # noqa: F401
     DOT_PRECISION,
@@ -8,4 +9,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (  # noqa: F4
     matvec,
     normalize,
     transpose,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.sketching import (  # noqa: F401
+    countsketch_apply,
 )

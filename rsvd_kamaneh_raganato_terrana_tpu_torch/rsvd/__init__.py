@@ -1,5 +1,23 @@
-"""Randomized SVD driver, serving preset, diagnostics, UTV, Frequent
-Directions, interpolative/CUR decompositions and DEIM."""
+"""Randomized SVD driver, serving preset, diagnostics and error
+certificates, UTV, Frequent Directions, interpolative/CUR
+decompositions, DEIM, and the randomized-NLA extensions: block Krylov,
+sketched least squares, Nystrom and randomized eigh, trace and SLQ
+estimators, randomized LU, CCA, DMD, robust PCA and completion."""
+
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cca import (  # noqa: F401
+    CcaResult,
+    cca,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.completion import (  # noqa: F401
+    CompletionResult,
+    TuckerCompletionResult,
+    complete_lowrank,
+    complete_tucker,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.rpca import (  # noqa: F401
+    RpcaResult,
+    rpca,
+)
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.deim import (  # noqa: F401
     Deim,
@@ -11,8 +29,18 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.deim import (  # noqa: F401
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.diagnostics import (  # noqa: F401
     factor_health,
+    factorization_error_estimate,
     principal_angles,
+    range_error_estimate,
+    spectral_norm_estimate,
+    stable_rank_estimate,
     subspace_distance,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.dmd import (  # noqa: F401
+    DmdResult,
+    dmd,
+    dmd_predict,
+    dmd_reconstruction_error,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
     Int8Stored,
@@ -43,6 +71,39 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.interp import (  # noqa: F401
     leverage_sample,
     leverage_scores,
     row_id,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.krylov import (  # noqa: F401
+    krylov_basis,
+    rsvd_krylov,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.lstsq import (  # noqa: F401
+    lstsq_residual,
+    sketch_lstsq,
+    sketch_minnorm,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.nystrom import (  # noqa: F401
+    nystrom_pcg,
+    nystrom_preconditioner,
+    nystrom_psd,
+    nystrom_reconstruct,
+    reigh,
+    reigh_generalized,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.slq import (  # noqa: F401
+    lanczos_tridiag,
+    logdet_psd,
+    slq_trace,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.trace import (  # noqa: F401
+    diag_estimate,
+    hutchinson,
+    hutchpp,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.rlu import (  # noqa: F401
+    RluResult,
+    rlu,
+    rlu_reconstruct,
+    rlu_solve,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.serving import (  # noqa: F401
     prepare_operand,

@@ -1,0 +1,182 @@
+"""Low-rank matrix completion by Singular Value Projection (the JAX
+package's ``rsvd/completion.py``; Jain, Meka & Dhillon 2010):
+
+    X_{t+1} = P_k( X_t + eta * P_Omega(A - X_t) ),
+
+P_k the rank-k projection by the driver's randomized range finder and
+tail, with a fresh sketch each iteration (the seed's generator folded
+with i; torch Philox draws).  As in the JAX package: the adaptive NIHT
+step (Tanner & Wei 2013) unless ``eta`` is given, a backtracking
+safeguard that accepts a step only when the observed RMSE does not
+grow, and a two-sided ALS debias after each projection (the n and m
+k x k normal-equation systems on the observed entries, batched).
+
+The iterations are a Python loop over device tensors: the accept test
+is ``torch.where`` on the device, the RMSE trace is written by index,
+and no step branches on a tensor; the host syncs of a call are those of
+the driver's 'robust' QR fallback flag.  ``complete_tucker`` needs the
+Tucker format, which is not ported yet, and raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import matmul_at
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
+    fold_in_shard,
+    key_from_seed,
+    sketch_matrix,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _mm,
+    rsvd_with_omega,
+)
+
+
+class CompletionResult(NamedTuple):
+    u: torch.Tensor          # m x k
+    s: torch.Tensor          # k
+    v: torch.Tensor          # n x k
+    obs_rmse: torch.Tensor   # RMSE on observed entries per iteration (iters,)
+
+
+def _rank_k_project(x, key, k: int, p: int, q: int, precision):
+    """P_k(x): the driver's range finder and tail with a fresh sketch
+    ('half' reorth: interior bases only need conditioning here)."""
+    l = min(k + p, min(x.shape))
+    omega = sketch_matrix(key, x.shape[1], l, x.dtype)
+    return rsvd_with_omega(x, omega, q=q, k=k, method="eigh",
+                           precision=precision, reorth="half")
+
+
+def _masked_grams(basis, maskf, lam, eye_k):
+    """For each column j of the mask (maskf: rows x cols), the k x k Gram
+    sum_i mask_ij b_i b_i^T of the rows b_i of ``basis`` (rows x k), as
+    one GEMM over the k^2 pairwise products, plus the Tikhonov floor
+    lam * max(trace, 1) I."""
+    rows, k = basis.shape
+    pairs = (basis[:, :, None] * basis[:, None, :]).reshape(rows, k * k)
+    gram = matmul_at(maskf.T, pairs, "highest").reshape(-1, k, k)
+    scale = torch.clamp(torch.diagonal(gram, dim1=1, dim2=2).sum(-1),
+                        min=1.0)
+    return gram + (lam * scale)[:, None, None] * eye_k
+
+
+def complete_lowrank(
+    a_obs,
+    mask,
+    k: int,
+    iters: int = 30,
+    eta: float | None = None,
+    p: int = 10,
+    q: int = 1,
+    seed: int = 0,
+    precision: str = "highest",
+) -> CompletionResult:
+    """Rank-k completion of a partially observed matrix.
+
+    a_obs: m x n with arbitrary values outside the mask (never read);
+    mask: bool m x n, True = observed.  Returns the factor form (U, s, V)
+    of the completed matrix and the observed-RMSE trace.  eta=None
+    (default) takes the adaptive NIHT step; a float fixes it.  A tensor
+    stays on its device; any other array goes to the card."""
+    a_obs = as_tensor(a_obs)
+    mask = as_tensor(mask, device=a_obs.device, dtype=torch.bool)
+    m, n = a_obs.shape
+    dtype, dev = a_obs.dtype, a_obs.device
+    n_obs = torch.clamp(torch.sum(mask), min=1).to(dtype)
+    frac = n_obs / (m * n)
+    adaptive = eta is None
+    eta0 = (2.0 / frac) if adaptive else torch.tensor(eta, dtype=dtype,
+                                                      device=dev)
+    a_masked = torch.where(mask, a_obs, torch.zeros_like(a_obs))
+    key = key_from_seed(seed, dev)
+    maskf = mask.to(dtype)
+    # Tikhonov floor for the per-row/column normal equations, relative to
+    # each Gram's own diagonal scale
+    lam = 1e-8
+    kk = min(k, m, n)
+    eye_k = torch.eye(kk, dtype=dtype, device=dev)
+    tiny = torch.finfo(dtype).tiny
+
+    def obs_rmse_at(x):
+        resid = torch.where(mask, a_masked - x, torch.zeros_like(x))
+        return torch.sqrt(torch.sum(resid * resid) / n_obs), resid
+
+    def fit_cols(u):
+        """The n x k coefficients minimizing the observed residual of
+        u @ W^T: n k x k normal-equation solves, batched."""
+        gram = _masked_grams(u, maskf, lam, eye_k)
+        return torch.linalg.solve(gram, _mm(a_masked.T, u)[..., None])[..., 0]
+
+    def fit_rows(v):
+        """The m x k coefficients minimizing the observed residual of
+        Z @ v^T."""
+        gram = _masked_grams(v, maskf.T, lam, eye_k)
+        return torch.linalg.solve(gram, _mm(a_masked, v)[..., None])[..., 0]
+
+    u = a_obs.new_zeros((m, kk))
+    s = a_obs.new_zeros((kk,))
+    v = a_obs.new_zeros((n, kk))
+    x = torch.zeros_like(a_obs)
+    boost = torch.ones((), dtype=dtype, device=dev)
+    rmse = a_obs.new_zeros((iters,))
+    for i in range(iters):
+        r_cur, resid = obs_rmse_at(x)
+        rmse[i] = r_cur
+        if adaptive:
+            # NIHT: exact line search along the gradient restricted to
+            # the current column space; i = 0 has no basis yet and takes
+            # the 2/p step
+            if i == 0:
+                eta_n = eta0
+            else:
+                g_t = _mm(u, _mm(u.T, resid))
+                num = torch.sum(g_t * g_t)
+                den = torch.sum(torch.where(mask, g_t,
+                                            torch.zeros_like(g_t)) ** 2)
+                eta_n = torch.where(den > 0,
+                                    num / torch.clamp(den, min=tiny), eta0)
+            eta_i = boost * torch.minimum(torch.clamp(eta_n, min=1.0),
+                                          4.0 * eta0)
+        else:
+            eta_i = boost * eta0
+        cu, _, _ = _rank_k_project(x + eta_i * resid, fold_in_shard(key, i),
+                                   k, p, q, precision)
+        # two-sided ALS debias: refit the coefficients on the observed
+        # entries for the projected column basis, orthonormalize, refit
+        # the row side, back to SVD form by the k x k SVD
+        qw, _ = torch.linalg.qr(fit_cols(cu))   # n x k orthonormal
+        z = fit_rows(qw)                         # m x k
+        cu, cs, vz_t = torch.linalg.svd(z, full_matrices=False)
+        cv = _mm(qw, vz_t.T)
+        cx = _mm(cu * cs[None, :], cv.T)
+        r_new, _ = obs_rmse_at(cx)
+        ok = r_new <= r_cur
+        u = torch.where(ok, cu, u)
+        s = torch.where(ok, cs, s)
+        v = torch.where(ok, cv, v)
+        x = torch.where(ok, cx, x)
+        boost = torch.where(ok, torch.clamp(1.2 * boost, max=1.0),
+                            0.5 * boost)
+    return CompletionResult(u, s, v, rmse)
+
+
+class TuckerCompletionResult(NamedTuple):
+    core: torch.Tensor
+    factors: Tuple[torch.Tensor, ...]
+    obs_rmse: torch.Tensor
+
+
+def complete_tucker(a_obs, mask, ranks: Tuple[int, ...], iters: int = 30,
+                    eta: float | None = None, p: int = 10, q: int = 1,
+                    seed: int = 0, precision: str = "highest"):
+    """Low-multilinear-rank tensor completion: not ported yet."""
+    raise NotImplementedError(
+        "complete_tucker needs the Tucker format (rsvd/tucker.py), which "
+        "is not ported to the PyTorch package yet (ROADMAP.md, queue 1 "
+        "item 8)")

@@ -1,16 +1,24 @@
-"""Subspace diagnostics and the serving health check (the JAX package's
-``rsvd/diagnostics.py``, as far as the serving path needs it).
+"""Posterior error certificates, subspace diagnostics and the serving
+health check (the JAX package's ``rsvd/diagnostics.py``).
 
+- ``range_error_estimate``: a high-probability upper bound on
+  ||(I - QQ^T) A||_2 from r Gaussian probes (Halko-Martinsson-Tropp
+  2011, eq. 4.3): with probability >= 1 - 10^{-r},
+  ||E||_2 <= 10 sqrt(2/pi) max_i ||E g_i||_2.
+- ``factorization_error_estimate``: the same certificate for a
+  (U, s, V) triple.
+- ``spectral_norm_estimate`` / ``stable_rank_estimate``: ||A||_2 by
+  power iteration on the Gram operator, and ||A||_F^2 / ||A||_2^2.
 - ``factor_health``: the post-hoc check of a factorization triple that
   the serving configurations rely on (they have no rank-deficiency
   fallback): one set of device ops and ONE 5-element host fetch.
 - ``principal_angles`` / ``subspace_distance``: angles between two
   subspaces, the metric for "did the sketch capture the same subspace".
 
-The probe estimators (``range_error_estimate``,
-``factorization_error_estimate``, ``spectral_norm_estimate``,
-``stable_rank_estimate``) are not ported yet (ROADMAP.md): they draw from
-a salted stream of JAX's RNG that torch cannot reproduce.
+The probes come from a stream of their own: the seed's generator folded
+with a fixed tag (``_probe_key``), disjoint from ``generate_omega``'s
+stream for the same seed, as the JAX package's salted key is.  They are
+torch Philox draws, not JAX's threefry values.
 """
 
 from __future__ import annotations
@@ -19,10 +27,59 @@ import math
 
 import torch
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
+    fold_in_shard,
+    gaussian,
+    key_from_seed,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power import (
+    power_triplet,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION as _HI,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
+
+# The certificate needs probes INDEPENDENT of the factorization it
+# certifies.  generate_omega(seed, ...) and these estimators both default
+# to seed 0, so unsalted probes would be Omega itself and (I - QQ^T) A g
+# would be ~0 by construction.  Folding a fixed tag into the seed's key
+# puts the probes on a disjoint stream for every seed (the JAX package's
+# tag).
+_PROBE_TAG = 0x9E3779B9
+
+
+def _probe_key(seed, device):
+    return fold_in_shard(key_from_seed(seed, device), _PROBE_TAG)
+
+
+def _probes(seed, shape, dtype, device):
+    """Standard-normal probes of ``shape`` from the salted stream."""
+    return gaussian(_probe_key(seed, device), shape, dtype)
+
+
+def _certificate(resid):
+    """10 sqrt(2/pi) max_i ||resid[:, i]||_2."""
+    norms = torch.sqrt(torch.sum(resid * resid, dim=0))
+    return 10.0 * math.sqrt(2.0 / math.pi) * torch.max(norms)
+
+
+def range_error_estimate(a, q_mat, seed=0, num_probes: int = 10):
+    """Certified upper bound on ||(I - QQ^T) A||_2, holding with
+    probability >= 1 - 10^{-num_probes} over the probes (drawn from a
+    stream disjoint from ``generate_omega``'s for the same seed)."""
+    g = _probes(seed, (a.shape[1], num_probes), a.dtype, a.device)
+    ag = _mm(a, g, _HI)                            # m x r
+    return _certificate(ag - _mm(q_mat, _mm(q_mat.T, ag, _HI), _HI))
+
+
+def factorization_error_estimate(a, u, s, v, seed=0, num_probes: int = 10):
+    """Certified upper bound on ||A - U diag(s) V^T||_2 (the same probe
+    argument applied to the factorization's residual operator; probes
+    from the salted stream, see ``_probe_key``)."""
+    g = _probes(seed, (a.shape[1], num_probes), a.dtype, a.device)
+    return _certificate(_mm(a, g, _HI)
+                        - _mm(u * s[None, :], _mm(v.T, g, _HI), _HI))
 
 
 def principal_angles(u, v):
@@ -85,3 +142,21 @@ def factor_health(u, s, v, tol: float = 1e-2) -> dict:
                  and out["v_orth_err"] < tol
                  and out["s_ascending_violation"] <= 0.0)
     return out
+
+
+def spectral_norm_estimate(a, seed=0, num_iters: int = 30):
+    """||A||_2 estimate by power iteration on the Gram operator
+    (x <- A^T (A x)).  A lower bound that converges geometrically in
+    (sigma_2/sigma_1)^2."""
+    x0 = _probes(seed, (a.shape[1],), a.dtype, a.device)
+    sigma, _, _ = power_triplet(a, x0, num_iters)
+    return sigma
+
+
+def stable_rank_estimate(a, seed=0, num_iters: int = 30):
+    """Stable rank srank(A) = ||A||_F^2 / ||A||_2^2, with ||A||_F exact
+    and ||A||_2 from :func:`spectral_norm_estimate` (so a slight
+    over-estimate while the power iteration has not converged)."""
+    fro_sq = torch.sum(torch.square(a))
+    sig = spectral_norm_estimate(a, seed=seed, num_iters=num_iters)
+    return fro_sq / torch.clamp(sig * sig, min=torch.finfo(a.dtype).tiny)

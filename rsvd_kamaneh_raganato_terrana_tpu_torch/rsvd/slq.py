@@ -1,0 +1,148 @@
+"""Stochastic Lanczos quadrature: tr(f(A)) for symmetric A without f(A)
+(the JAX package's ``rsvd/slq.py``; Ubaru, Chen & Saad 2017):
+
+    tr(f(A)) ~ (n/m) sum_i  sum_j (e_1^T u_j^{(i)})^2 f(theta_j^{(i)})
+
+with (theta, u) the eigenpairs of the steps x steps tridiagonal T_i that
+Lanczos builds from the Rademacher probe v_i.
+
+Lanczos keeps FULL reorthogonalization, twice, against a fixed
+(steps, n) basis whose rows past the current step are zero, as the JAX
+scan does.  The probes run together: each step is one product of A with
+the n x m block of current vectors (the JAX package vmaps one probe's
+Lanczos over the probes), and the m small tridiagonal eigenproblems are
+one batched ``torch.linalg.eigh`` (``core/device.py::eigh_nan``).  A matrix-free operator
+``apply_a(v, *operands)`` on single vectors is batched the same way by
+``torch.func.vmap``.  The probes come from ``rademacher`` on a generator
+seeded from ``seed`` (torch Philox draws, not JAX's values).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
+    eigh_nan,
+    ieee_fp32,
+    matmul_at,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
+    key_from_seed,
+    rademacher,
+)
+
+_EPS = 1e-30
+
+
+def _mv(a, v):
+    return matmul_at(a, v, "highest")
+
+
+def _lanczos_block(apply_a, v0, steps: int):
+    """``steps`` Lanczos iterations from each column of the (unnormalized)
+    n x m block v0, with full reorthogonalization against every stored
+    vector of its own probe, twice.  Returns (alpha: steps x m,
+    beta: (steps - 1) x m).
+
+    An early (invariant-subspace) breakdown gives beta ~ 0, and the later
+    quadrature weights vanish."""
+    n, m = v0.shape
+    v = v0 / torch.clamp(torch.linalg.norm(v0, dim=0), min=_EPS)
+    basis = v0.new_zeros((steps, n, m))
+    basis[0] = v
+    alphas = v0.new_zeros((steps, m))
+    betas = v0.new_zeros((steps, m))
+    for i in range(steps):
+        w = apply_a(v)
+        alpha = torch.sum(v * w, dim=0)
+        w = w - alpha * v
+        # rows past i are zero, so the products over the whole (steps, n)
+        # basis are exact
+        with ieee_fp32():
+            for _ in range(2):
+                coeff = torch.einsum("snm,nm->sm", basis, w)
+                w = w - torch.einsum("snm,sm->nm", basis, coeff)
+        beta = torch.linalg.norm(w, dim=0)
+        v = w / torch.clamp(beta, min=_EPS)
+        if i + 1 < steps:
+            basis[i + 1] = v
+        alphas[i] = alpha
+        betas[i] = beta
+    return alphas, betas[:-1]
+
+
+def lanczos_tridiag(a, v0, steps: int):
+    """``steps`` Lanczos iterations on the dense symmetric ``a`` from the
+    (unnormalized) vector v0, fully reorthogonalized.  Returns
+    (alpha: steps, beta: steps - 1) of the tridiagonal T."""
+    a = as_tensor(a)
+    v0 = as_tensor(v0, device=a.device, dtype=a.dtype)
+    al, be = _lanczos_block(lambda x: _mv(a, x), v0[:, None], steps)
+    return al[:, 0], be[:, 0]
+
+
+def _quadrature(alphas, betas, fn):
+    """Gauss quadrature of each probe's tridiagonal (columns of alphas,
+    betas): sum_j w_j^2 f(theta_j), one batched eigh."""
+    t = (torch.diag_embed(alphas.T) + torch.diag_embed(betas.T, 1)
+         + torch.diag_embed(betas.T, -1))
+    theta, u = eigh_nan(t)
+    w2 = u[:, 0, :] ** 2
+    return torch.sum(w2 * fn(theta), dim=-1)
+
+
+def slq_trace(a, fn: Callable, seed=0, num_probes: int = 16,
+              steps: int = 30, n: int = None, dtype=torch.float32,
+              operands=()):
+    """tr(f(A)) for symmetric A, f applied to Ritz values only.
+
+    ``a``: a square matrix or a matrix-free operator
+    ``apply_a(v, *operands) -> A v`` on single vectors (pass ``n``; the
+    probes are drawn on the device of the first tensor in ``operands``,
+    the card when there is none).  ``fn`` is an elementwise torch
+    function (e.g. ``torch.log``, ``lambda x: 1 / (x + mu)``)."""
+    if callable(a):
+        if n is None:
+            raise ValueError("matrix-free slq_trace needs n")
+        n = int(n)
+        dev = next((o.device for o in operands
+                    if isinstance(o, torch.Tensor)), torch.device("cuda"))
+        batched = torch.func.vmap(lambda v: a(v, *operands), in_dims=1,
+                                  out_dims=1)
+        apply_a = batched
+    else:
+        a = as_tensor(a)
+        n, dtype, dev = a.shape[0], a.dtype, a.device
+
+        def apply_a(x):
+            return _mv(a, x)
+    probes = rademacher(key_from_seed(seed, dev), (num_probes, n), dtype)
+    al, be = _lanczos_block(apply_a, probes.T, steps)
+    return float(n) * torch.mean(_quadrature(al, be, fn))
+
+
+def _logdet_fn(shift: float) -> Callable:
+    """log(x + shift), floored at the dtype's tiny (a literal floor such
+    as 1e-300 underflows to 0 in f32 and lets log(0) = -inf in for a
+    numerically singular A)."""
+
+    def fn(x):
+        return torch.log(torch.clamp(x + shift,
+                                     min=torch.finfo(x.dtype).tiny))
+
+    return fn
+
+
+def logdet_psd(a, seed=0, num_probes: int = 16, steps: int = 30,
+               shift: float = 0.0, n: int = None, dtype=torch.float32,
+               operands=()):
+    """log det(A + shift I) for symmetric positive-definite A by SLQ: no
+    Cholesky of A, ``steps`` products per probe.  ``a`` may be a
+    matrix-free operator (pass ``n``/``operands``, see
+    :func:`slq_trace`)."""
+    return slq_trace(a, _logdet_fn(float(shift)), seed=seed,
+                     num_probes=num_probes, steps=steps, n=n, dtype=dtype,
+                     operands=operands)

@@ -81,6 +81,22 @@ def test_port_init_exports_what_jax_exports_and_port_defines(sub):
     ("ops", "frobenius_norm"),
     ("ops", "normalize"),
     ("ops", "transpose"),
+    ("ops", "countsketch_apply"),
+    ("rsvd", "range_error_estimate"),
+    ("rsvd", "factorization_error_estimate"),
+    ("rsvd", "spectral_norm_estimate"),
+    ("rsvd", "stable_rank_estimate"),
+    ("rsvd", "rsvd_krylov"),
+    ("rsvd", "sketch_lstsq"),
+    ("rsvd", "nystrom_pcg"),
+    ("rsvd", "hutchpp"),
+    ("rsvd", "logdet_psd"),
+    ("rsvd", "rlu_solve"),
+    ("rsvd", "cca"),
+    ("rsvd", "dmd"),
+    ("rsvd", "rpca"),
+    ("rsvd", "complete_lowrank"),
+    ("rsvd", "complete_tucker"),
 ])
 def test_named_exports(sub, name):
     assert name in init_exports(JAX_ROOT, sub)
