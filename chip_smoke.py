@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path, its three-kernel ``rsvd()``
 path, ``rsvd()`` at its defaults, the serving path, the image codec,
-the other driver modes, PCA, the rsvd/pca command lines, POD/ROM and
-the randomized-NLA extensions (block Krylov through K1/K2/K3 among
-them) on one CUDA card, and hold every kernel of those paths to its plain
+the other driver modes, PCA, the rsvd/pca command lines, POD/ROM, the
+randomized-NLA extensions (block Krylov through K1/K2/K3 among them),
+the tensor and hierarchical formats, GP, checkpoints and autodiff on
+one CUDA card, and hold every kernel of those paths to its plain
 PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
@@ -142,7 +143,31 @@ Phases (any failure raises; nothing is caught):
    snapshots, ``rpca`` at 4096^2 (f32 and f64) and ``complete_lowrank``
    at 4096^2.  No kernel is on those paths but the probes' main-path
    call (K1 3 launches): checked.
-10. A ``kernels`` JSON line, the card's name and power limit, and as the
+10. The tensor and hierarchical formats, each against a truth known by
+   construction or an f64 run on the card.  ``tucker`` and
+   ``tucker_adaptive`` (tol 2e-3, cap 96) of a 1024^3 f32 tensor of
+   multilinear rank 64 plus noise at 1e-3 of its norm (error within 1%
+   of the noise, factors orthonormal, adaptive ranks 64), its factors
+   through ``save_tensor_factors`` and back, one call under ``trace``
+   (the chrome trace names its GEMM kernels); ``tt_decompose`` and
+   ``tt_adaptive`` of a 128^4 tensor of TT rank 16 plus noise;
+   ``cp_decompose`` 'als' (25 sweeps, weights within 1e-3 of the
+   planted ones) and 'rand' of a 512^3 tensor of CP rank 16 plus noise;
+   the Tucker video codec on 64 frames of 1080 x 1920 (a pan) at ranks
+   (16, 96, 96) against per-frame ``compress_video`` at equal storage;
+   ``complete_tucker`` of a 256^3 rank-8 tensor from 20% of its
+   entries; ``hodlr_build`` of a 16384-point RBF kernel + 0.05^2 I
+   (levels 5, k 24), its matvec, reconstruction and CG solve against the
+   dense matrix and a dense f64 Cholesky solve; ``GP`` at
+   benchmarks/gp_scale_bench.py's configuration (32768 points, levels
+   6, rank 24, the implicit build; max |mean - f| < 0.1), its HODLR
+   matrix through ``save_model``/``load_model``; a gradient through
+   ``rsvd_with_omega`` at 4096^2 in f64 against central differences and
+   ``torch.func.vmap(grad)`` over 4 x 1024^2; the main path's factors
+   through ``save_factors`` (K1 3 launches, counted; no other part
+   launches a kernel, which is checked).  Each stage timed by
+   ``PhaseTimer``, its CSV logged.
+11. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -158,6 +183,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -182,7 +208,13 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch import __main__ as cli
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import image
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import advdiff, pca, pod, rom
+from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.gp import GP
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pod import make_pod
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import checkpoint
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import (
+    PhaseTimer,
+    trace,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.config import (
     AdvDiffConfig,
     PodConfig,
@@ -213,6 +245,19 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import lstsq as lstsq_mod
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import (
     complete_lowrank,
+    complete_tucker,
+    cp_decompose,
+    cp_reconstruct,
+    hodlr_build,
+    hodlr_compression_ratio,
+    hodlr_matvec,
+    hodlr_reconstruct,
+    hodlr_solve,
+    tt_adaptive,
+    tt_decompose,
+    tt_reconstruct,
+    tucker_adaptive,
+    tucker_reconstruct,
     diag_estimate,
     dmd,
     dmd_reconstruction_error,
@@ -243,10 +288,13 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     rsvd_with_omega,
 )
 
-# the package's ``rsvd.cca`` attribute is the function of that name
+# the package's ``rsvd.cca`` and ``rsvd.tucker`` attributes are the
+# functions of those names
 cca_mod = importlib.import_module(
     "rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cca")
 cca = cca_mod.cca
+tucker = importlib.import_module(
+    "rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.tucker").tucker
 
 M = N = 4096
 K, P, Q = 64, 16, 2
@@ -379,6 +427,24 @@ RPCA_N, RPCA_RANK, RPCA_FRAC, RPCA_ITERS = 4096, 8, 0.05, 40
 RPCA_TOL = 1e-3
 COMP_N, COMP_RANK, COMP_FRAC, COMP_ITERS = 4096, 10, 0.2, 30
 COMP_TOL = 1e-2           # unobserved RMSE over the entries' RMS
+# phase 10: tensor and hierarchical formats
+TENSOR_NOISE = 1e-3       # planted noise norm over the signal's
+NOISE_SLACK = 1.01        # ||A - A_hat||_F over the planted ||N||_F
+FORMAT_ORTH_TOL = 1e-4    # max |U^T U - I| of a Tucker factor
+TUCKER_N, TUCKER_R = 1024, 64          # 1024^3 f32, 4.3 GB
+TUCKER_TOL, TUCKER_CAP = 2e-3, 96      # tucker_adaptive: ranks (64, 64, 64)
+TT_N, TT_R, TT_TOL, TT_CAP = 128, 16, 3e-3, 24   # 128^4 f32, 1.07 GB
+CP_N, CP_R, CP_SWEEPS = 512, 16, 25    # 512^3 f32, 537 MB
+CP_W_TOL = 1e-3           # CP-ALS weights vs the planted ones, relative
+TVIDEO, TVIDEO_RANKS, TVIDEO_TERMS = (64, 1080, 1920), (16, 96, 96), 24
+CT_N, CT_R, CT_FRAC, CT_ITERS = 256, 8, 0.2, 30
+CT_TOL = 1e-2             # complete_tucker: unobserved RMSE over the RMS
+HODLR_N, HODLR_LEVELS, HODLR_K = 16384, 5, 24    # 1.07 GB f32 kernel
+HODLR_TOL = 1e-4          # matvec / reconstruction / solve residual
+GP_N, GP_LEVELS, GP_RANK, GP_NOISE = 32768, 6, 24, 0.05
+GP_TEST, GP_MEAN_TOL = 512, 0.1        # benchmarks/gp_scale_bench.py:27-58
+AD_N, AD_K, AD_P, AD_FD_TOL = 4096, 64, 16, 1e-6   # tests/test_autodiff.py:48
+VMAP_N, VMAP_B, VMAP_TOL = 1024, 4, 1e-3
 
 
 T_START = time.perf_counter()
@@ -2672,6 +2738,498 @@ def phase_extensions():
     return launches, out
 
 
+def planted(signal, gen):
+    """signal + N, N Gaussian at TENSOR_NOISE of the signal's norm, formed
+    in place; returns (A, ||N||_F)."""
+    noise = torch.randn(signal.shape, device="cuda", generator=gen)
+    noise *= TENSOR_NOISE * torch.linalg.vector_norm(signal) \
+        / torch.linalg.vector_norm(noise)
+    noise_norm = float(torch.linalg.vector_norm(noise))
+    a = signal.contiguous()
+    a += noise
+    return a, noise_norm
+
+
+def orthonormal(rows, cols, gen):
+    return torch.linalg.qr(torch.randn(rows, cols, device="cuda",
+                                       generator=gen))[0]
+
+
+def err_over_noise(a, rec, noise_norm):
+    return float(torch.linalg.vector_norm(a - rec)) / noise_norm
+
+
+def max_orth_err(factors):
+    with device.ieee_fp32():
+        return max(float((u.T @ u - torch.eye(u.shape[1], device="cuda"))
+                         .abs().max()) for u in factors)
+
+
+def phase_tucker(gen, tmp):
+    """tucker and tucker_adaptive of a 1024^3 tensor of multilinear rank
+    64 plus 1e-3 noise; the factors' round trip through a checkpoint; one
+    call under ``trace``."""
+    n, r = TUCKER_N, TUCKER_R
+    signal = tucker_reconstruct(
+        torch.randn(r, r, r, device="cuda", generator=gen),
+        [orthonormal(n, r, gen) for _ in range(3)])
+    a, noise_norm = planted(signal, gen)
+    ranks = (r, r, r)
+    (core, factors), secs = timed(lambda: tucker(a, ranks))
+    rec = tucker_reconstruct(core, factors)
+    out = dict(shape=[n] * 3, ranks=list(ranks), first_call_s=secs,
+               ms=cuda_ms(lambda: tucker(a, ranks), 3),
+               err_over_noise=err_over_noise(a, rec, noise_norm),
+               factor_orth=max_orth_err(factors))
+    check(out["err_over_noise"] <= NOISE_SLACK, f"tucker {out}")
+    check(out["factor_orth"] <= FORMAT_ORTH_TOL, f"tucker {out}")
+    (core_a, f_a, ranks_a), secs = timed(lambda: tucker_adaptive(
+        a, tol=TUCKER_TOL, rank_cap=(TUCKER_CAP,) * 3))
+    out["adaptive"] = dict(
+        tol=TUCKER_TOL, ranks=list(ranks_a), s=secs,
+        err_over_noise=err_over_noise(a, tucker_reconstruct(core_a, f_a),
+                                      noise_norm))
+    check(ranks_a == ranks, f"tucker_adaptive ranks {out['adaptive']}")
+    check(out["adaptive"]["err_over_noise"] <= NOISE_SLACK,
+          f"tucker_adaptive {out['adaptive']}")
+    # the factors' round trip: saved from the card, loaded, rebuilt
+    path = os.path.join(tmp, "tucker")
+    checkpoint.save_tensor_factors(path, "tucker", core=core,
+                                   factors=factors, meta={"ranks": ranks})
+    back = checkpoint.load_tensor_factors(path)
+    check(np.array_equal(back["core"], to_numpy(core)) and all(
+        np.array_equal(x, to_numpy(y))
+        for x, y in zip(back["factors"], factors)), "tucker checkpoint")
+    rec2 = tucker_reconstruct(torch.from_numpy(back["core"]).cuda(), [
+        torch.from_numpy(f).cuda() for f in back["factors"]])
+    check(torch.equal(rec2, rec), "tucker_reconstruct of the loaded factors")
+    del rec, rec2
+    # one call under the profiler's trace: the file names its kernels
+    trace_dir = os.path.join(tmp, "trace")
+    with trace(trace_dir):
+        tucker(a, ranks)
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    check(len(files) == 1, f"trace files {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    out["trace"] = dict(file_bytes=os.path.getsize(
+        os.path.join(trace_dir, files[0])), kernel_events=sum(
+        e.get("cat") == "kernel" for e in events),
+        distinct_kernels=len(kernel_names),
+        gemm_kernels=sum("gemm" in k.lower() or "nvjet" in k.lower()
+                         for k in kernel_names))
+    check(out["trace"]["gemm_kernels"] > 0, f"trace {out['trace']}")
+    log("  tucker: " + json.dumps(out))
+    return out
+
+
+def phase_tt(gen, tmp):
+    """tt_decompose and tt_adaptive of a 128^4 tensor of TT rank 16 plus
+    1e-3 noise (left-orthonormal cores and a Gaussian last core)."""
+    n, r = TT_N, TT_R
+    cores, r_prev = [], 1
+    for _ in range(3):
+        cores.append(orthonormal(r_prev * n, r, gen).reshape(r_prev, n, r))
+        r_prev = r
+    cores.append(torch.randn(r, n, 1, device="cuda", generator=gen))
+    a, noise_norm = planted(tt_reconstruct(cores), gen)
+    ranks = (r, r, r)
+    got, secs = timed(lambda: tt_decompose(a, ranks))
+    out = dict(shape=[n] * 4, ranks=list(ranks), first_call_s=secs,
+               ms=cuda_ms(lambda: tt_decompose(a, ranks), 3),
+               err_over_noise=err_over_noise(a, tt_reconstruct(got),
+                                             noise_norm))
+    check(out["err_over_noise"] <= NOISE_SLACK, f"tt {out}")
+    (got_a, ranks_a), secs = timed(lambda: tt_adaptive(
+        a, tol=TT_TOL, rank_cap=TT_CAP))
+    out["adaptive"] = dict(tol=TT_TOL, ranks=list(ranks_a), s=secs,
+                           err_over_noise=err_over_noise(
+                               a, tt_reconstruct(got_a), noise_norm))
+    check(out["adaptive"]["err_over_noise"] <= NOISE_SLACK,
+          f"tt_adaptive {out['adaptive']}")
+    path = os.path.join(tmp, "tt")
+    checkpoint.save_tensor_factors(path, "tt", cores=got)
+    back = checkpoint.load_tensor_factors(path)["cores"]
+    check(all(np.array_equal(x, to_numpy(y)) for x, y in zip(back, got)),
+          "tt checkpoint")
+    log("  tt: " + json.dumps(out))
+    return out
+
+
+def phase_cp(gen, tmp):
+    """cp_decompose ('als' and 'rand') of a 512^3 tensor of CP rank 16
+    (unit-norm Gaussian factors, weights in [1, 3]) plus 1e-3 noise."""
+    n, r = CP_N, CP_R
+    fs = [torch.randn(n, r, device="cuda", generator=gen) for _ in range(3)]
+    fs = [f / torch.linalg.vector_norm(f, dim=0) for f in fs]
+    w = torch.sort(1.0 + 2.0 * torch.rand(r, device="cuda", generator=gen),
+                   descending=True)[0]
+    a, noise_norm = planted(cp_reconstruct(w, fs), gen)
+    a_norm = float(torch.linalg.vector_norm(a))
+    out = {}
+    for method in ("als", "rand"):
+        def call(iters=CP_SWEEPS, method=method):
+            return cp_decompose(a, r, iters=iters, method=method)
+        (w_c, f_c), secs = timed(call)
+        resid = float(torch.linalg.vector_norm(a - cp_reconstruct(w_c, f_c)))
+        ms, ms0 = cuda_ms(call, 2), cuda_ms(lambda: call(0), 2)
+        run = dict(first_call_s=secs, ms=ms, init_ms=ms0,
+                   ms_per_sweep=(ms - ms0) / CP_SWEEPS,
+                   fit=1.0 - resid / a_norm,
+                   err_over_noise=resid / noise_norm)
+        if method == "als":
+            got = torch.sort(w_c.abs(), descending=True)[0]
+            run["max_rel_weight_err"] = float(((got - w) / w).abs().max())
+            check(run["max_rel_weight_err"] <= CP_W_TOL, f"cp als {run}")
+            check(run["err_over_noise"] <= NOISE_SLACK, f"cp als {run}")
+            path = os.path.join(tmp, "cp")
+            checkpoint.save_tensor_factors(path, "cp", weights=w_c,
+                                           factors=f_c)
+            back = checkpoint.load_tensor_factors(path)
+            check(np.array_equal(back["weights"], to_numpy(w_c)) and all(
+                np.array_equal(x, to_numpy(y))
+                for x, y in zip(back["factors"], f_c)), "cp checkpoint")
+        else:
+            check(math.isfinite(resid), f"cp rand {run}")
+        out[method] = run
+    out.update(shape=[n] * 3, rank=r, sweeps=CP_SWEEPS)
+    log("  cp: " + json.dumps(out))
+    return out
+
+
+def video_pan(gen):
+    """(T, H, W) frames of a smooth image panning 3 pixels a frame: a sum
+    of TVIDEO_TERMS separable sinusoids with amplitudes 0.7^k."""
+    t, h, w = TVIDEO
+    y = torch.linspace(0.0, 1.0, h, device="cuda")
+    x = torch.linspace(0.0, (w + 3 * t) / w, w + 3 * t, device="cuda")
+    base = torch.zeros(h, w + 3 * t, device="cuda")
+    for k in range(TVIDEO_TERMS):
+        f, g, p1, p2 = (torch.rand(4, device="cuda", generator=gen)
+                        * torch.tensor([30.0, 30.0, 6.3, 6.3],
+                                       device="cuda"))
+        base += 0.7 ** k * torch.sin(f * y + p1)[:, None] \
+            * torch.sin(g * x + p2)[None, :]
+    return torch.stack([base[:, 3 * i:3 * i + w] for i in range(t)])
+
+
+def psnr(x, ref):
+    mse = float(torch.mean((x - ref) ** 2))
+    return 10.0 * math.log10(float(ref.max() - ref.min()) ** 2 / mse)
+
+
+def phase_video():
+    """The Tucker video codec on 64 frames of 1080 x 1920 (a pan) at ranks
+    (16, 96, 96), against per-frame ``compress_video`` at equal
+    storage."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    frames = video_pan(gen)
+    host = to_numpy(frames)
+    (core, factors), secs = timed(lambda: image.compress_video_tucker(
+        host, TVIDEO_RANKS))
+    rec = torch.from_numpy(image.reconstruct_video_tucker(
+        core, factors)).cuda()
+    t, h, w = TVIDEO
+    stored = core.size + sum(f.size for f in factors)
+    k = max(stored // (t * (h + w + 1)), 1)
+    (u, s_f, v), secs_f = timed(lambda: image.compress_video(host, k=k))
+    with device.ieee_fp32():
+        rec_f = torch.einsum("tik,tk,tjk->tij", *(torch.from_numpy(x).cuda()
+                                                   for x in (u, s_f, v)))
+    out = dict(frames=list(TVIDEO), ranks=list(TVIDEO_RANKS), s=secs,
+               psnr=psnr(rec, frames), stored_floats=int(stored),
+               ratio=t * h * w / stored,
+               per_frame=dict(k=int(k), s=secs_f, psnr=psnr(rec_f, frames),
+                              stored_floats=int(u.size + s_f.size + v.size),
+                              ratio=t * h * w / (u.size + s_f.size
+                                                 + v.size)))
+    check(out["psnr"] > out["per_frame"]["psnr"], f"video tucker {out}")
+    log("  video tucker: " + json.dumps(out))
+    return out
+
+
+def phase_complete_tucker(gen):
+    """complete_tucker of a 256^3 tensor of multilinear rank 8 from 20%
+    of its entries, 30 iterations."""
+    n, r = CT_N, CT_R
+    t = tucker_reconstruct(torch.randn(r, r, r, device="cuda", generator=gen),
+                           [orthonormal(n, r, gen) for _ in range(3)])
+    mask = torch.rand(t.shape, device="cuda", generator=gen) < CT_FRAC
+    obs = torch.where(mask, t, torch.zeros((), device="cuda"))
+    res, secs = timed(lambda: complete_tucker(obs, mask, (r, r, r),
+                                              iters=CT_ITERS))
+    x = tucker_reconstruct(res.core, res.factors)
+    hidden = ~mask
+    rmse = float(torch.sqrt(torch.mean((x - t)[hidden] ** 2)))
+    rms = float(torch.sqrt(torch.mean(t[hidden] ** 2)))
+    out = dict(shape=[n] * 3, ranks=[r] * 3, observed=CT_FRAC,
+               iters=CT_ITERS, s=secs, unobserved_rmse=rmse,
+               entries_rms=rms, ratio=rmse / rms,
+               final_obs_rmse=float(res.obs_rmse[-1]))
+    check(rmse <= CT_TOL * rms, f"complete_tucker {out}")
+    log("  complete_tucker: " + json.dumps(out))
+    return out
+
+
+def rbf_points(n, gen):
+    """n sorted points of U(0, 20) in f64 on the card."""
+    return torch.sort(20.0 * torch.rand(n, device="cuda", generator=gen,
+                                        dtype=torch.float64))[0]
+
+
+def phase_hodlr(gen):
+    """hodlr_build of the RBF kernel (lengthscale 0.2) of 16384 sorted
+    points in [0, 20] plus 0.05^2 I, levels 5, k 24; its matvec,
+    reconstruction and solve against the dense matrix, the solve against
+    a dense f64 Cholesky solve."""
+    x = rbf_points(HODLR_N, gen)
+    k64 = torch.exp(-0.5 * (x[:, None] - x[None, :]) ** 2 / 0.04) \
+        + GP_NOISE ** 2 * torch.eye(HODLR_N, device="cuda",
+                                    dtype=torch.float64)
+    k32 = k64.float()
+    h, secs = timed(lambda: hodlr_build(k32, levels=HODLR_LEVELS,
+                                        k=HODLR_K))
+    y = torch.randn(HODLR_N, device="cuda", generator=gen)
+    with device.ieee_fp32():
+        ky = k32 @ y
+    out = dict(n=HODLR_N, levels=HODLR_LEVELS, k=HODLR_K, build_s=secs,
+               build_ms=cuda_ms(lambda: hodlr_build(
+                   k32, levels=HODLR_LEVELS, k=HODLR_K), 2),
+               compression_ratio=hodlr_compression_ratio(h),
+               matvec_rel_err=float(torch.linalg.vector_norm(
+                   hodlr_matvec(h, y) - ky) / torch.linalg.vector_norm(ky)),
+               matvec_ms=cuda_ms(lambda: hodlr_matvec(h, y), 20),
+               dense_matvec_ms=cuda_ms(lambda: k32 @ y, 20),
+               reconstruct_rel_err=float(torch.linalg.vector_norm(
+                   hodlr_reconstruct(h) - k32) / torch.linalg.vector_norm(
+                   k32)))
+    b64 = torch.sin(x) + 0.1 * torch.cos(7.0 * x)
+    b = b64.float()
+    (sol, steps), secs = timed(lambda: hodlr_solve(h, b, return_steps=True))
+    dense = torch.cholesky_solve(b64[:, None], torch.linalg.cholesky(k64))
+    sol64 = sol.double()
+    out["solve"] = dict(
+        steps=int(steps[0]), first_call_s=secs,
+        ms=cuda_ms(lambda: hodlr_solve(h, b), 3),
+        rel_err_vs_dense_f64=float(torch.linalg.vector_norm(
+            sol64 - dense[:, 0]) / torch.linalg.vector_norm(dense)),
+        rel_residual_dense_f64=float(torch.linalg.vector_norm(
+            k64 @ sol64 - b64) / torch.linalg.vector_norm(b64)),
+        dense_f64_cholesky_solve_ms=cuda_ms(lambda: torch.cholesky_solve(
+            b64[:, None], torch.linalg.cholesky(k64)), 2))
+    check(out["matvec_rel_err"] <= HODLR_TOL, f"hodlr {out}")
+    check(out["reconstruct_rel_err"] <= HODLR_TOL, f"hodlr {out}")
+    check(bool(torch.isfinite(sol).all())
+          and out["solve"]["rel_residual_dense_f64"] <= HODLR_TOL,
+          f"hodlr_solve {out}")
+    log("  hodlr: " + json.dumps(out))
+    return out
+
+
+def phase_gp():
+    """GP at benchmarks/gp_scale_bench.py's configuration: 32768 points,
+    levels 6, rank 24, noise 0.05, the implicit (never-dense) build;
+    fit, predict at 512 points with variance, the log-marginal-likelihood
+    by SLQ; max |mean - f| < 0.1 (the bench's own bar)."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0.0, 20.0, GP_N)).astype(np.float32)
+    y = (np.sin(x) + 0.1 * np.cos(7.0 * x)
+         + 0.05 * rng.standard_normal(GP_N)).astype(np.float32)
+    xt = np.linspace(0.5, 19.5, GP_TEST).astype(np.float32)
+    truth = np.sin(xt) + 0.1 * np.cos(7.0 * xt)
+
+    def make():
+        return GP(noise=GP_NOISE, levels=GP_LEVELS, rank=GP_RANK,
+                  implicit_threshold=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gp, fit_s = timed(lambda: make().fit(x, y))
+    check("implicit" in gp.solver_used_, gp.solver_used_)
+    (mean, var), pred_s = timed(lambda: gp.predict(xt, return_var=True))
+    lml, lml_s = timed(lambda: gp.log_marginal_likelihood(num_probes=8,
+                                                          steps=30))
+    peak = torch.cuda.max_memory_allocated()
+    (_, steps), solve_s = timed(lambda: hodlr_solve(
+        gp._hodlr, gp.y_train_, return_steps=True))
+    (_, steps_var), _ = timed(lambda: hodlr_solve(
+        gp._hodlr, gp.kernel(torch.from_numpy(xt)[:, None].cuda(),
+                             gp.x_train_).T, return_steps=True))
+    err = float(np.max(np.abs(to_numpy(mean) - truth)))
+    out = dict(n=GP_N, levels=GP_LEVELS, rank=GP_RANK, noise=GP_NOISE,
+               solver_used=gp.solver_used_, fit_s=fit_s, predict_s=pred_s,
+               lml_s=lml_s, lml=lml, max_abs_mean_err=err,
+               var_range=[float(var.min()), float(var.max())],
+               peak_gb=peak / 1e9, cg_steps_fit=int(steps[0]),
+               cg_solve_s=solve_s, cg_steps_var_max=int(steps_var.max()),
+               cg_steps_var_min=int(steps_var.min()))
+    check(err < GP_MEAN_TOL, f"gp mean {out}")
+    check(bool(torch.isfinite(var).all()) and math.isfinite(lml),
+          f"gp {out}")
+    out["profile_fit"] = profile_call(lambda: make().fit(x, y), reps=1,
+                                      keep_top=8)
+    out["profile_cg_solve"] = profile_call(
+        lambda: hodlr_solve(gp._hodlr, gp.y_train_), reps=1, keep_top=8)
+    out["host_syncs_per_cg_step"] = \
+        out["profile_cg_solve"]["host_sync_events_per_call"] / int(steps[0])
+    log("  gp: " + json.dumps(out))
+    return out, gp
+
+
+def well_separated(n, gen, dtype):
+    u = torch.linalg.qr(torch.randn(n, n, device="cuda", generator=gen,
+                                    dtype=dtype))[0]
+    v = torch.linalg.qr(torch.randn(n, n, device="cuda", generator=gen,
+                                    dtype=dtype))[0]
+    s = torch.logspace(0.0, -2.0, n, device="cuda", dtype=dtype)
+    return (u * s) @ v.T
+
+
+def phase_autodiff():
+    """grad through rsvd_with_omega at 4096^2 (k 64, p 16, q 2, 'eigh'
+    tail) in f64 against central differences; vmap(grad) over a stack of
+    4 x 1024^2 f32 against a loop of grads."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    a = well_separated(AD_N, gen, torch.float64)
+    omega = torch.randn(AD_N, AD_K + AD_P, device="cuda", generator=gen,
+                        dtype=torch.float64)
+
+    def loss(x):
+        u, s, v = rsvd_with_omega(x, omega, q=Q, k=AD_K, method="eigh")
+        return torch.sum(s * s) + 0.1 * torch.sum(
+            driver.reconstruct(u, s, v) ** 2)
+
+    def value_and_grad():
+        x = a.detach().requires_grad_(True)
+        val = loss(x)
+        return val, torch.autograd.grad(val, x)[0]
+
+    (_, g), secs = timed(value_and_grad)
+    d = torch.randn(a.shape, device="cuda", generator=gen,
+                    dtype=torch.float64)
+
+    def central(eps):
+        with torch.no_grad():
+            return float((loss(a + eps * d) - loss(a - eps * d))
+                         / (2 * eps))
+
+    # the rSVD of this dense spectrum (sigma_i / sigma_(i+1) = 1.0011)
+    # has a large third derivative: a central difference's eps^2 term is
+    # ~4e-7 relative at eps 1e-6 and ~4e-5 at 1e-5, so two of them are
+    # extrapolated (Richardson), which cancels it
+    fd_1, fd_2 = central(1e-6), central(5e-7)
+    fd = (4.0 * fd_2 - fd_1) / 3.0
+    dd = float(torch.sum(g * d))
+    out = dict(n=AD_N, k=AD_K, p=AD_P, q=Q, first_call_s=secs,
+               value_and_grad_ms=cuda_ms(value_and_grad, 3),
+               forward_ms=cuda_ms(lambda: loss(a), 3),
+               directional=dd, central_difference_1e_6=fd_1,
+               rel_err_central_1e_6=abs(dd - fd_1) / abs(fd_1),
+               central_difference_extrapolated=fd,
+               rel_err=abs(dd - fd) / abs(fd))
+    check(bool(torch.isfinite(g).all()) and out["rel_err"] <= AD_FD_TOL,
+          f"grad vs central differences {out}")
+    stack = torch.stack([well_separated(VMAP_N, gen, torch.float32)
+                         for _ in range(VMAP_B)])
+
+    def sum_sigma(x):
+        return torch.sum(rsvd(x, k=AD_K, p=AD_P, q=1, method="eigh")[1])
+
+    batched = torch.func.vmap(torch.func.grad(sum_sigma),
+                              randomness="same")
+    gs, secs = timed(lambda: batched(stack))
+    loop = torch.stack([torch.func.grad(sum_sigma)(m) for m in stack])
+    out["vmap"] = dict(
+        stack=[VMAP_B, VMAP_N, VMAP_N], first_call_s=secs,
+        ms=cuda_ms(lambda: batched(stack), 3),
+        loop_ms=cuda_ms(lambda: [torch.func.grad(sum_sigma)(m)
+                                 for m in stack], 3),
+        rel_diff_vs_loop=float(torch.linalg.vector_norm(gs - loop)
+                               / torch.linalg.vector_norm(loop)))
+    check(bool(torch.isfinite(gs).all())
+          and out["vmap"]["rel_diff_vs_loop"] <= VMAP_TOL,
+          f"vmap(grad) {out['vmap']}")
+    log("  autodiff: " + json.dumps(out))
+    return out
+
+
+def phase_main_path_checkpoint(tmp):
+    """The main path's factors (entry()'s 'default' call) saved from the
+    card and loaded back; K1 runs q + 1 times."""
+    fwd, (a,) = entry(device="cuda", m=M, n=N, precision="default")
+    u, s, v = fwd(a)
+    path = os.path.join(tmp, "main_path")
+    checkpoint.save_factors(path, u, s, v, meta={"k": K})
+    u2, s2, v2, meta = checkpoint.load_factors(path)
+    check(all(np.array_equal(x, to_numpy(y)) for x, y in
+              ((u2, u), (s2, s), (v2, v))) and meta == {"k": K},
+          "main path checkpoint")
+    return dict(bytes=os.path.getsize(path + ".npz"))
+
+
+def phase_formats():
+    """Phase 10: the tensor and hierarchical formats on the card.  Returns
+    ((K1, K2, K3, K4, K5a, K5b) launches of its counted runs, summary):
+    none of its parts runs a kernel but the main-path call whose factors
+    are checkpointed (K1 q + 1 times), which is checked."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    timer = PhaseTimer()
+    out = {}
+    launches = list(NONE)
+    tmp = tempfile.mkdtemp()
+    try:
+        for name, fn, want in (
+                ("tucker", lambda: phase_tucker(gen, tmp), NONE),
+                ("tt", lambda: phase_tt(gen, tmp), NONE),
+                ("cp", lambda: phase_cp(gen, tmp), NONE),
+                ("video_tucker", phase_video, NONE),
+                ("complete_tucker", lambda: phase_complete_tucker(gen),
+                 NONE),
+                ("hodlr", lambda: phase_hodlr(gen), NONE),
+                ("gp", phase_gp, NONE),
+                ("autodiff", phase_autodiff, NONE),
+                ("main_path_checkpoint",
+                 lambda: phase_main_path_checkpoint(tmp),
+                 launches_of(k1=Q + 1))):
+            phase(f"phase 10: {name}")
+            reset_counts()
+            with timer.phase(name):
+                res = fn()
+                torch.cuda.synchronize()
+            got = counts()
+            check(got == want, f"phase 10 {name}: (K1, K2, K3, K4, K5a, "
+                  f"K5b) launches {got}, not {want}")
+            launches = [t + c for t, c in zip(launches, got)]
+            if name == "gp":
+                res, gp = res
+            out[name] = res
+            torch.cuda.empty_cache()
+        # the GP's HODLR matrix through save_model / load_model
+        path = os.path.join(tmp, "hodlr")
+        checkpoint.save_model(path, gp._hodlr, meta={"n": GP_N})
+        h2, meta = checkpoint.load_model(path)
+        check(type(h2) is type(gp._hodlr) and meta == {"n": GP_N}
+              and (h2.n, h2.k) == (gp._hodlr.n, gp._hodlr.k)
+              and torch.equal(h2.leaves, gp._hodlr.leaves)
+              and all(torch.equal(x, y) for fa, fb in zip(h2[:4],
+                                                           gp._hodlr[:4])
+                      for x, y in zip(fa, fb)), "hodlr save_model")
+        out["checkpoint_bytes"] = {
+            f: os.path.getsize(os.path.join(tmp, f))
+            for f in sorted(os.listdir(tmp)) if f.endswith(".npz")}
+        csv_path = os.path.join(tmp, "phase10.csv")
+        timer.write_csv(csv_path)
+        with open(csv_path) as f:
+            log("  PhaseTimer CSV:\n" + "\n".join(
+                "    " + line for line in f.read().strip().splitlines()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["stage_ms"] = {name: timer.total_ms(name) for name in timer.phases}
+    out["s"] = time.perf_counter() - t0
+    return launches, out
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
     path, timings.  ``want`` = (K1, K2, K3, K4, K5a, K5b) launches per
@@ -3026,6 +3584,11 @@ def main(argv):
     ext_launches, ext_summary = phase_extensions()
     launches_total = [t + c for t, c in zip(launches_total, ext_launches)]
 
+    phase("phase 10: tensor and hierarchical formats, GP, checkpoints, "
+          "autodiff")
+    fmt_launches, fmt_summary = phase_formats()
+    launches_total = [t + c for t, c in zip(launches_total, fmt_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3064,7 +3627,7 @@ def main(argv):
              launches=launches_total[5], **k5["K5b"]),
     ], "main_path": summary, "serving": serving, "image": image_summary,
         "driver_modes": modes, "pca": pca_summary, "pod": pod_summary,
-        "extensions": ext_summary}
+        "extensions": ext_summary, "formats": fmt_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

@@ -13,8 +13,8 @@ unless the caller names another).
 Where JAX maps one compiled program over channels, tiles or frames
 (``lax.map``), a Python loop runs :func:`rsvd_with_omega` per matrix.
 Sharding tiles or frames over a mesh (``mesh=``) waits for the
-distributed slice (ROADMAP.md queue 1 item 15); the Tucker video codec
-for the port of the tensor formats (queue 1 item 13).
+distributed slice (ROADMAP.md queue 1 item 10).  The Tucker video codec
+runs the randomized Tucker of ``rsvd/tucker.py``.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def _check_mesh(mesh):
         raise NotImplementedError(
             "mesh= (sharding tiles or frames over several cards) is not "
             "ported to the PyTorch package yet (ROADMAP.md, queue 1 item "
-            "15); pass mesh=None")
+            "10); pass mesh=None")
 
 
 def _stacked_numpy(factors):
@@ -420,18 +420,35 @@ def reconstruct_video(u, s, v) -> np.ndarray:
 
 
 def compress_video_tucker(frames, ranks, p: int = 10, q: int = 1,
-                          seed: int = 0, dtype=torch.float32):
-    """Tucker (ST-HOSVD) video compression: not ported yet."""
-    raise NotImplementedError(
-        "compress_video_tucker needs the Tucker format, which is not ported "
-        "to the PyTorch package yet (ROADMAP.md, queue 1 item 13)")
+                          seed: int = 0, dtype=torch.float32, device=None):
+    """Tucker (ST-HOSVD) compression of a frame stack (T, H, W) with
+    multilinear ``ranks = (rt, rh, rw)``, on ``device`` (the card unless
+    the caller names another).
+
+    Unlike :func:`compress_video` (independent per-frame factors), the
+    Tucker core captures TEMPORAL redundancy too: storage is
+    rt*rh*rw + T*rt + H*rh + W*rw floats, so for slowly varying video the
+    same reconstruction error costs a fraction of per-frame rSVD.
+    Returns host-side ``(core, (Ut, Uh, Uw))``."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.tucker import tucker
+
+    core, factors = tucker(from_numpy(np.asarray(frames), device=_device(
+        device), dtype=dtype), tuple(ranks), p=p, q=q, seed=seed)
+    return to_numpy(core), tuple(to_numpy(f) for f in factors)
 
 
-def reconstruct_video_tucker(core, factors):
-    """Inverse of :func:`compress_video_tucker`: not ported yet."""
-    raise NotImplementedError(
-        "reconstruct_video_tucker needs the Tucker format, which is not "
-        "ported to the PyTorch package yet (ROADMAP.md, queue 1 item 13)")
+def reconstruct_video_tucker(core, factors, device=None) -> np.ndarray:
+    """Inverse of :func:`compress_video_tucker`: (T, H, W) frame stack,
+    contracted on ``device`` (the card unless the caller names
+    another)."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.tucker import (
+        tucker_reconstruct,
+    )
+
+    dev = _device(device)
+    return to_numpy(tucker_reconstruct(
+        from_numpy(core, device=dev),
+        tuple(from_numpy(f, device=dev) for f in factors)))
 
 
 def _truncate_byte(x: np.ndarray) -> np.ndarray:

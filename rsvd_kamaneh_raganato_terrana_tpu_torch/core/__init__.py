@@ -1,7 +1,7 @@
 """Device/precision policy (`device`), seeded RNG (`rng`), numpy
 hand-over (`convert`), MatrixMarket and dataset I/O (`io`), the
-configuration dataclasses and parsers (`config`) and FLOP counts
-(`profiling`)."""
+configuration dataclasses and parsers (`config`), timers, traces and
+FLOP counts (`profiling`) and factor checkpoints (`checkpoint`)."""
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (  # noqa: F401
     fold_in_shard,
@@ -11,7 +11,11 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (  # noqa: F401
     sketch_matrix,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import (  # noqa: F401
+    PhaseTimer,
+    matmul_gflops,
     rsvd_flops,
+    timeit,
+    trace,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.io import (  # noqa: F401
     load_whitespace_dataset,
@@ -24,4 +28,9 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.config import (  # noqa: F401
     RSVDConfig,
     parse_pod_config,
     parse_prm_config,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.checkpoint import (  # noqa: F401
+    export_matrix_market,
+    load_factors,
+    save_factors,
 )

@@ -6,10 +6,12 @@ Omega.  Tests and ``chip_smoke.py`` make both with numpy and pass the
 same arrays to the JAX package and to this one.  A JAX array converts
 through its ``__array__``; jax itself is never imported here.  Fitted
 state (a ``POD`` of modes and singular values, a DEIM model, randomized
-LU factors, a CCA fit) crosses over field by field
-(:func:`pod_from_jax`, :func:`deim_from_jax`, :func:`rlu_from_jax`,
-:func:`cca_from_jax`), so a downstream stage can be compared apart from
-the random draws that made the state.
+LU factors, a CCA fit, a HODLR matrix, tensor-format factors) crosses
+over field by field (:func:`pod_from_jax`, :func:`deim_from_jax`,
+:func:`rlu_from_jax`, :func:`cca_from_jax`, :func:`hodlr_from_jax`,
+:func:`tucker_from_numpy`, :func:`tt_from_numpy`,
+:func:`cp_from_numpy`), so a downstream stage can be compared apart
+from the random draws that made the state.
 """
 
 from __future__ import annotations
@@ -86,3 +88,36 @@ def cca_from_jax(res, device=None):
     from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cca import CcaResult
 
     return CcaResult(*(from_numpy(x, device) for x in res))
+
+
+def hodlr_from_jax(h, device=None):
+    """The port's ``rsvd.hodlr.HodlrMatrix`` holding a JAX
+    ``HodlrMatrix``'s per-level factor stacks and leaves, read as numpy,
+    and its ``n`` and ``k``."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.hodlr import (
+        HodlrMatrix,
+    )
+
+    def stacks(xs):
+        return tuple(from_numpy(x, device) for x in xs)
+
+    return HodlrMatrix(stacks(h.u_upper), stacks(h.v_upper),
+                       stacks(h.u_lower), stacks(h.v_lower),
+                       from_numpy(h.leaves, device), n=int(h.n), k=int(h.k))
+
+
+def tucker_from_numpy(core, factors, device=None):
+    """(core, factors) of a Tucker decomposition as tensors."""
+    return from_numpy(core, device), tuple(from_numpy(f, device)
+                                           for f in factors)
+
+
+def tt_from_numpy(cores, device=None):
+    """The cores of a tensor train as tensors."""
+    return tuple(from_numpy(c, device) for c in cores)
+
+
+def cp_from_numpy(weights, factors, device=None):
+    """(weights, factors) of a CP decomposition as tensors."""
+    return from_numpy(weights, device), tuple(from_numpy(f, device)
+                                              for f in factors)

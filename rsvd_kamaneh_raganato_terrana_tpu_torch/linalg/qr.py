@@ -15,7 +15,10 @@ Two differences from JAX are forced by PyTorch:
   otherwise the shifted and Householder fallbacks would never fire.
 - JAX's ``lax.cond`` fallback becomes a host-side branch on the
   degradation flag (one device sync) in ``robust``/``robust1`` only; the
-  ``cholqr*`` serving chain stays sync-free.
+  ``cholqr*`` serving chain stays sync-free.  Inside a ``torch.func``
+  transform (``vmap``, ``grad``, ``jvp``) both branches are computed and
+  selected with ``torch.where``, which is what ``jax.vmap`` makes of the
+  ``lax.cond``: a batched flag cannot be read on the host.
 """
 
 from __future__ import annotations
@@ -119,6 +122,17 @@ def _householder(a):
     return q, r
 
 
+def _householder_where(a, q, r, degraded):
+    """(Q, R) from Householder QR where ``degraded``, else the given
+    CholeskyQR factors.  Outside a ``torch.func`` transform the flag is
+    read on the host (one sync) and only the chosen branch runs; inside
+    one (a batched flag has no host value) both run and are selected."""
+    if torch._C._are_functorch_transforms_active():
+        hq, hr = _householder(a)
+        return torch.where(degraded, hq, q), torch.where(degraded, hr, r)
+    return _householder(a) if bool(degraded) else (q, r)
+
+
 def qr_reduced(a, method: str = "robust"):
     """Reduced QR: Q (m x n), R (n x n) for m >= n.
 
@@ -148,11 +162,9 @@ def qr_reduced(a, method: str = "robust"):
         q, r = qr_reduced(a.to(torch.float32), method)
         return q.to(a.dtype), r.to(a.dtype)
     if method == "robust":
-        q, r, degraded = robust_cholesky_qr2(a)
-        return _householder(a) if bool(degraded) else (q, r)
+        return _householder_where(a, *robust_cholesky_qr2(a))
     if method == "robust1":
-        q, r, degraded = _cholesky_qr_flagged(a)
-        return _householder(a) if bool(degraded) else (q, r)
+        return _householder_where(a, *_cholesky_qr_flagged(a))
     if method == "cholqr1":
         return cholesky_qr1(a)
     if method == "cholqr1_fused":

@@ -2,11 +2,17 @@
 certificates, UTV, Frequent Directions, interpolative/CUR
 decompositions, DEIM, and the randomized-NLA extensions: block Krylov,
 sketched least squares, Nystrom and randomized eigh, trace and SLQ
-estimators, randomized LU, CCA, DMD, robust PCA and completion."""
+estimators, randomized LU, CCA, DMD, robust PCA and completion, the
+tensor formats (Tucker, TT, CP) and HODLR."""
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cca import (  # noqa: F401
     CcaResult,
     cca,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cp import (  # noqa: F401
+    cp_decompose,
+    cp_reconstruct,
+    khatri_rao,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.completion import (  # noqa: F401
     CompletionResult,
@@ -63,6 +69,15 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.fd import (  # noqa: F401
     FrequentDirections,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.hodlr import (  # noqa: F401
+    HodlrMatrix,
+    hodlr_build,
+    hodlr_build_implicit,
+    hodlr_compression_ratio,
+    hodlr_matvec,
+    hodlr_reconstruct,
+    hodlr_solve,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.interp import (  # noqa: F401
     column_id,
     cur,
@@ -99,6 +114,13 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.trace import (  # noqa: F401
     hutchinson,
     hutchpp,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.tt import (  # noqa: F401
+    tt_adaptive,
+    tt_compression_ratio,
+    tt_decompose,
+    tt_ranks,
+    tt_reconstruct,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.rlu import (  # noqa: F401
     RluResult,
     rlu,
@@ -113,4 +135,9 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.utv import (  # noqa: F401
     rutv,
     rutv_reconstruct,
     utv_rescore,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.tucker import (  # noqa: F401
+    tucker,
+    tucker_adaptive,
+    tucker_reconstruct,
 )

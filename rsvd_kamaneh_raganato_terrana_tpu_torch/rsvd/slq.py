@@ -94,6 +94,15 @@ def _quadrature(alphas, betas, fn):
     return torch.sum(w2 * fn(theta), dim=-1)
 
 
+def _tensors(xs):
+    """The tensors in ``xs``, nested tuples (a ``HodlrMatrix``) walked."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (tuple, list)):
+            yield from _tensors(x)
+
+
 def slq_trace(a, fn: Callable, seed=0, num_probes: int = 16,
               steps: int = 30, n: int = None, dtype=torch.float32,
               operands=()):
@@ -102,14 +111,14 @@ def slq_trace(a, fn: Callable, seed=0, num_probes: int = 16,
     ``a``: a square matrix or a matrix-free operator
     ``apply_a(v, *operands) -> A v`` on single vectors (pass ``n``; the
     probes are drawn on the device of the first tensor in ``operands``,
-    the card when there is none).  ``fn`` is an elementwise torch
+    nested tuples included, the card when there is none).  ``fn`` is an elementwise torch
     function (e.g. ``torch.log``, ``lambda x: 1 / (x + mu)``)."""
     if callable(a):
         if n is None:
             raise ValueError("matrix-free slq_trace needs n")
         n = int(n)
-        dev = next((o.device for o in operands
-                    if isinstance(o, torch.Tensor)), torch.device("cuda"))
+        dev = next((t.device for t in _tensors(operands)),
+                   torch.device("cuda"))
         batched = torch.func.vmap(lambda v: a(v, *operands), in_dims=1,
                                   out_dims=1)
         apply_a = batched

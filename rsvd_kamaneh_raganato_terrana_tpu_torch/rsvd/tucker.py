@@ -1,0 +1,160 @@
+"""Randomized Tucker decomposition (sequentially-truncated randomized
+HOSVD), the JAX package's ``rsvd/tucker.py``.
+
+A ~ G x_1 U1 x_2 U2 ... x_d Ud with orthonormal factor matrices U_i
+(n_i x r_i) and core G (r_1 x ... x r_d).  ST-HOSVD (Vannieuwenhoven et
+al. 2012) with the matrix stage replaced by the rSVD range finder: for
+each mode in turn, largest first, sketch the mode unfolding of the
+CURRENT (already partially compressed) tensor, take U_i from the range
+basis, and contract it in at once, so later modes work on a tensor that
+shrinks geometrically.
+
+Error: ||A - [G; U]||_F^2 <= sum_i eps_i^2, eps_i mode i's truncation
+error.  Each mode's range finder uses the driver's 'robust' QR, which
+reads its fallback flag on the host once per QR, as the main path does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
+    resolve_precision,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
+    DOT_PRECISION,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._modewise import (
+    mode_contract,
+    mode_spectrum,
+    rank_for_budget,
+    tighten_contract,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _mm,
+    generate_omega,
+    subspace_iteration,
+)
+
+_HI = DOT_PRECISION
+
+
+def _unfold(t, mode: int):
+    """Mode-`mode` unfolding: n_mode x prod(other dims)."""
+    return t.movedim(mode, 0).reshape(t.shape[mode], -1)
+
+
+def _fold(mat, mode: int, shape):
+    """Inverse of `_unfold` for a tensor of (full) `shape`."""
+    shp = (mat.shape[0],) + tuple(s for i, s in enumerate(shape)
+                                  if i != mode)
+    return mat.reshape(shp).movedim(0, mode)
+
+
+def mode_dot(t, mat, mode: int, precision=_HI):
+    """Mode-`mode` product t x_mode mat (mat: r x n_mode contracts the
+    mode-`mode` axis)."""
+    moved = t.movedim(mode, 0)
+    out = _mm(mat, moved.reshape(moved.shape[0], -1), precision)
+    return out.reshape((mat.shape[0],) + tuple(moved.shape[1:])).movedim(
+        0, mode)
+
+
+def _order(shape):
+    """Modes in decreasing size (stable): each contraction shrinks the
+    tensor the most before later, cheaper modes are sketched."""
+    return sorted(range(len(shape)), key=lambda i: -shape[i])
+
+
+def _tucker_impl(a, seed, ranks: Tuple[int, ...], p: int, q: int,
+                 precision: str):
+    prec = resolve_precision(precision)
+    core = a
+    factors = [None] * a.ndim
+    for mode in _order(a.shape):
+        unf = _unfold(core, mode)                  # n_mode x rest
+        l = min(ranks[mode] + p, min(unf.shape))
+        omega = generate_omega(seed + 7919 * mode, unf.shape[1], l,
+                               unf.dtype, device=unf.device)
+        q_mat = subspace_iteration(unf, omega, q, precision=prec)
+        u, contracted = tighten_contract(unf, q_mat, ranks[mode], prec)
+        factors[mode] = u
+        core = _fold(contracted, mode, core.shape)  # mode axis -> r_mode
+    return core, tuple(factors)
+
+
+def tucker(
+    a,
+    ranks: Sequence[int],
+    p: int = 10,
+    q: int = 1,
+    seed: int = 0,
+    precision: str = "highest",
+):
+    """Randomized Tucker: returns ``(core, factors)`` with
+    ``core.shape == tuple(r_eff)`` and ``factors[i].shape ==
+    (a.shape[i], r_eff[i])``, each factor orthonormal.  ``r_eff`` is
+    ``ranks`` clipped to what each mode's unfolding can support: a
+    mode's rank can never exceed min(n_i, product of the OTHER modes'
+    dims as they stand when that mode is processed -- earlier modes are
+    already contracted to their ranks).  Read the effective ranks off
+    ``core.shape``.
+
+    ``p``/``q``/``precision`` are the rSVD stage-A knobs (oversampling,
+    power iterations, product precision) applied per mode.  A tensor
+    stays on its device; any other array goes to the card."""
+    a = as_tensor(a)
+    if len(ranks) != a.ndim:
+        raise ValueError(f"need {a.ndim} ranks, got {len(ranks)}")
+    # mirror _tucker_impl's processing order so the clip accounts for
+    # already-contracted modes shrinking the unfolding
+    eff = [int(min(r, n)) for r, n in zip(ranks, a.shape)]
+    cur = list(a.shape)
+    for mode in _order(a.shape):
+        rest = math.prod(s for j, s in enumerate(cur) if j != mode)
+        eff[mode] = min(eff[mode], rest)
+        cur[mode] = eff[mode]
+    return _tucker_impl(a, seed, tuple(eff), p, q, precision)
+
+
+def tucker_reconstruct(core, factors, precision=_HI):
+    """A ~ core x_1 U1 x_2 U2 ... x_d Ud."""
+    out = core
+    for mode, u in enumerate(factors):
+        out = mode_dot(out, u, mode, precision)
+    return out
+
+
+def tucker_adaptive(
+    a,
+    tol: float,
+    p: int = 10,
+    q: int = 1,
+    seed: int = 0,
+    rank_cap: Optional[Sequence[int]] = None,
+):
+    """Rank-adaptive ST-HOSVD: pick each mode's rank from the energy of
+    the projected unfolding so the total relative error meets ``tol``
+    (per-mode budget tol/sqrt(d), by the ST-HOSVD error split).
+
+    One small spectrum fetch to the host per mode.  Returns ``(core,
+    factors, ranks)``."""
+    a = as_tensor(a)
+    d = a.ndim
+    budget = float(tol) / math.sqrt(d)
+    caps = tuple(rank_cap) if rank_cap is not None else a.shape
+    core = a
+    factors = [None] * d
+    for mode in _order(a.shape):
+        unf = _unfold(core, mode)
+        cap = int(min(caps[mode], min(unf.shape)))
+        l = min(cap + p, min(unf.shape))
+        q_mat, w, vecs, total = mode_spectrum(
+            unf, seed + 7919 * mode, l, q)
+        r = rank_for_budget(w, total, budget, cap)
+        u, contracted = mode_contract(unf, q_mat, vecs, r)
+        factors[mode] = u
+        core = _fold(contracted, mode, core.shape)
+    return core, tuple(factors), tuple(f.shape[1] for f in factors)

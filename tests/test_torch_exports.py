@@ -97,6 +97,31 @@ def test_port_init_exports_what_jax_exports_and_port_defines(sub):
     ("rsvd", "rpca"),
     ("rsvd", "complete_lowrank"),
     ("rsvd", "complete_tucker"),
+    ("rsvd", "tucker"),
+    ("rsvd", "tucker_adaptive"),
+    ("rsvd", "tucker_reconstruct"),
+    ("rsvd", "tt_decompose"),
+    ("rsvd", "tt_reconstruct"),
+    ("rsvd", "tt_ranks"),
+    ("rsvd", "tt_compression_ratio"),
+    ("rsvd", "tt_adaptive"),
+    ("rsvd", "cp_decompose"),
+    ("rsvd", "cp_reconstruct"),
+    ("rsvd", "khatri_rao"),
+    ("rsvd", "HodlrMatrix"),
+    ("rsvd", "hodlr_build"),
+    ("rsvd", "hodlr_build_implicit"),
+    ("rsvd", "hodlr_matvec"),
+    ("rsvd", "hodlr_reconstruct"),
+    ("rsvd", "hodlr_compression_ratio"),
+    ("rsvd", "hodlr_solve"),
+    ("core", "PhaseTimer"),
+    ("core", "timeit"),
+    ("core", "trace"),
+    ("core", "matmul_gflops"),
+    ("core", "save_factors"),
+    ("core", "load_factors"),
+    ("core", "export_matrix_market"),
 ])
 def test_named_exports(sub, name):
     assert name in init_exports(JAX_ROOT, sub)
@@ -107,6 +132,18 @@ def test_named_exports(sub, name):
 @pytest.mark.parametrize("module, name", [
     ("apps.pca", "StreamingPCA"),
     ("linalg.jacobi", "jacobi_svd_chunked"),
+    ("apps.gp", "GP"),
+    ("apps.gp", "rbf_kernel"),
+    ("apps.image", "compress_video_tucker"),
+    ("apps.image", "reconstruct_video_tucker"),
+    ("core.checkpoint", "save_tensor_factors"),
+    ("core.checkpoint", "load_tensor_factors"),
+    ("core.checkpoint", "save_model"),
+    ("core.checkpoint", "load_model"),
+    ("rsvd._modewise", "tighten_contract"),
+    ("rsvd._modewise", "mode_spectrum"),
+    ("rsvd._modewise", "mode_contract"),
+    ("rsvd.tucker", "mode_dot"),
 ])
 def test_names_jax_keeps_in_their_modules(module, name):
     """Names the JAX package leaves out of its ``__init__`` files: the

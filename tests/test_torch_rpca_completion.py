@@ -156,9 +156,20 @@ def test_complete_lowrank_recovers_on_its_own_stream():
 
 
 def test_complete_tucker_raises_until_tucker_is_ported():
-    t = from_numpy(np.zeros((4, 5, 6)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcomp.complete_tucker(t, t > 0, ranks=(2, 2, 2))
+    """``complete_tucker`` is ported with the Tucker format (queue 1 item
+    8): it runs and returns JAX's result type, with the fields of JAX's
+    result types (tests/test_torch_tucker_tt_cp.py holds its values)."""
+    g = np.random.default_rng(6)
+    t = np.einsum("i,j,k->ijk", *(g.standard_normal(n) for n in (6, 5, 4)))
+    mask = g.random(t.shape) < 0.7
+    res = tcomp.complete_tucker(from_numpy(np.where(mask, t, 0.0)),
+                                from_numpy(mask), ranks=(1, 1, 1), iters=6)
+    assert isinstance(res, tcomp.TuckerCompletionResult)
+    assert tuple(res.core.shape) == (1, 1, 1)
+    assert [tuple(f.shape) for f in res.factors] == [(6, 1), (5, 1), (4, 1)]
+    rmse = to_numpy(res.obs_rmse)
+    assert rmse.shape == (6,) and np.isfinite(rmse).all()
+    assert rmse[-1] < rmse[0]
     assert tcomp.TuckerCompletionResult._fields == \
         jcomp.TuckerCompletionResult._fields
     assert tcomp.CompletionResult._fields == jcomp.CompletionResult._fields
