@@ -1,6 +1,7 @@
 """Time entry()'s main path ('default' and 'highest', 4096^2 f32, k = 64;
-5 x 50 calls each, CUDA events) and a lone 80 x 80 eigh with and without
-``core/device.py::eigh_nan``, on the package tree at <tree>, on one CUDA
+5 x 50 calls each, CUDA events) and a lone 80 x 80 eigh: torch's, through
+``core/device.py::eigh_nan`` and through ``core/device.py::eigh`` (with
+its Newton-Schulz step), on the package tree at <tree>, on one CUDA
 card.  Prints one JSON line.  To compare two commits, unpack each with
 ``git archive`` into a gitignored directory and run, in one call,
 parent, change, change, parent:
@@ -37,6 +38,8 @@ out["linalg_eigh_80_ms"] = cuda_ms(lambda: torch.linalg.eigh(g), 200)
 try:
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import eigh_nan
     out["eigh_nan_80_ms"] = cuda_ms(lambda: eigh_nan(g), 200)
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import eigh
+    out["eigh_80_ms"] = cuda_ms(lambda: eigh(g), 200)
 except ImportError:
     pass
 print(json.dumps(out))

@@ -3,9 +3,10 @@
 path, ``rsvd()`` at its defaults, the serving path, the image codec,
 the other driver modes, PCA, the rsvd/pca command lines, POD/ROM, the
 randomized-NLA extensions (block Krylov through K1/K2/K3 among them),
-the tensor and hierarchical formats, GP, checkpoints and autodiff on
-one CUDA card, and hold every kernel of those paths to its plain
-PyTorch version.
+the tensor and hierarchical formats, GP, checkpoints and autodiff,
+sparse operands and retrieval, kernel PCA, spectral clustering, the
+sklearn estimators and out-of-core streaming on one CUDA card, and hold
+every kernel of those paths to its plain PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
 
@@ -52,7 +53,12 @@ Phases (any failure raises; nothing is caught):
    Reconstruction errors are compared with a numpy f64 rSVD of the same
    k, p and q (``err_ratio_vs_numpy``, as bench.py computes it; for the
    fused sketch on the same Omega); singular values with the same call
-   through the plain versions.
+   through the plain versions.  On the 'highest' and 'default' calls,
+   where the Gram-eigh tail's U = Q U~ loses orthogonality:
+   ||X^T X - I||_F of Q alone and of U~ and U with U~ from torch's eigh
+   as it comes (``eigh_nan``) and from ``core/device.py::eigh`` (the
+   tail's default), each beside an f64 eigh of the same Gram; the same
+   on phase 9's Krylov calls.
 4. The serving path: ``rsvd_serving(prepare_operand(A), k=64, p=16,
    q=2)`` on phase 3's operand, for storage 'int8' (pre-quantized),
    'bf16' and 'default', with 'cholqr1' interiors (no kernel) and
@@ -167,7 +173,32 @@ Phases (any failure raises; nothing is caught):
    through ``save_factors`` (K1 3 launches, counted; no other part
    launches a kernel, which is checked).  Each stage timed by
    ``PhaseTimer``, its CSV logged.
-11. A ``kernels`` JSON line, the card's name and power limit, and as the
+11. Sparse operands, retrieval, kernel PCA, clustering, the estimators
+   and out-of-core streaming.  A synthetic interaction matrix of
+   MovieLens-20M's shape (138,493 x 26,744, 20,000,263 ratings from seed
+   0): ``rsvd`` of the sparse A against the same call on the dense A
+   (same Omega) and against itself (cuSPARSE is not bitwise), its CSR
+   products timed against their bytes bound beside the layouts the
+   driver does not take, one profiler pass; ``factorize_interactions``,
+   ``top_k_items`` and ``top_k_items_quantized`` for 1024 users against
+   a dense f64 score; ``RandomizedSVD`` on the sparse A, its variance
+   ratios against scipy.sparse in f64.  ``KernelPCA`` 'randomized' and
+   'nystrom' at 16384 points in 64-D and 'exact' at 1024 against f64
+   eigvalsh of the centred kernel, ``transform`` of 4096 new rows.
+   ``spectral_cluster`` of 8 planted blobs at 16384 points ('auto':
+   ``reigh``; labels the planted ones up to a permutation) and of k-NN
+   half moons at 2048 ('exact').  ``RandomizedPCA(n_components=64)`` on
+   phase 7's factor model against the centred Gram's f64 spectrum.
+   ``rsvd_streaming`` of a 100000^2 ``SynthesizedMatrix`` (rank 128 plus
+   noise) with ``qr_method='cholqr1_fused'``, ``method='eigh_pallas'``
+   (K1 2q + 1 = 5 and K3 1 launches, counted, each held to its plain
+   version), its error within 1% of the noise by one more streamed pass;
+   and of a 65536 x 16384 f32 A in pinned host memory on each wire
+   ('none', 'bfloat16', 'int8') against the in-core rSVD on the same
+   Omega, with the copies' rate and overlap, ``rsvd_streaming_onepass``
+   and a checkpointed run stopped after two passes and resumed bitwise.
+   No other part launches a kernel, which is checked.
+12. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -207,6 +238,12 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch import __main__ as cli
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import image
+from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import (
+    cluster,
+    estimators,
+    kpca,
+    retrieval,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import advdiff, pca, pod, rom
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.gp import GP
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pod import make_pod
@@ -243,6 +280,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.sketching import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import lstsq as lstsq_mod
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import streaming
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import (
     complete_lowrank,
     complete_tucker,
@@ -445,6 +483,32 @@ GP_N, GP_LEVELS, GP_RANK, GP_NOISE = 32768, 6, 24, 0.05
 GP_TEST, GP_MEAN_TOL = 512, 0.1        # benchmarks/gp_scale_bench.py:27-58
 AD_N, AD_K, AD_P, AD_FD_TOL = 4096, 64, 16, 1e-6   # tests/test_autodiff.py:48
 VMAP_N, VMAP_B, VMAP_TOL = 1024, 4, 1e-3
+# phase 11: sparse operands, retrieval, kernel PCA, clustering, the
+# estimators and out-of-core streaming
+ML20M = (138493, 26744, 20000263)   # GroupLens ml-20m: users, items, ratings
+ML_ZIPF = (0.4, 0.5)      # activity / popularity exponents (users, items)
+ML_FACTORS = 16           # rank of the planted preference model
+SP_SIGMA_TOL = 1e-4       # sparse vs dense rsvd on the same Omega, of sigma_1
+RET_USERS, RET_TOPK = 1024, 10
+RET_TIE = 1e-5            # f64 score gaps below this (of max |score|) excuse
+RET_OVERLAP = 8           # quantized top-10 overlap (tests/test_retrieval.py)
+EST_RATIO_TOL = 1e-6      # explained_variance_ratio_ vs f64, absolute
+                          # (tests/test_estimators.py:37-38)
+KPCA_N, KPCA_D, KPCA_K, KPCA_DECAY = 16384, 64, 16, 0.7
+KPCA_NEW, KPCA_EXACT_N = 4096, 1024
+KPCA_RAND_TOL = 1e-4      # 'randomized' eigenvalues vs f64, of lambda_1
+KPCA_NYS_P, KPCA_NYS_TOL = 64, 1e-2   # 'nystrom' (tests/test_kpca.py:75-84)
+KPCA_EXACT_TOL = 1e-5     # 'exact' (f32 eigh) vs f64, of lambda_1
+KPCA_TRANSFORM_TOL = 1e-4  # transform vs its f64 evaluation, of max |z|
+CL_N, CL_K, CL_D, CL_SCALE = 16384, 8, 16, 5.0
+CL_GAMMA = 1.0 / (2 * CL_D)   # 1 / (2 d sigma^2) of the unit-variance blobs
+MOONS_N, MOONS_NOISE, MOONS_ACC = 2048, 0.05, 0.99  # test_cluster.py:25-33
+EST_PCA_P, EST_PCA_Q = 32, 3   # RandomizedPCA's sketch on the 0.97^i spectrum
+EST_PCA_TOL = 1e-4        # sigma vs the centred Gram's f64, of sigma_1
+NS_N, NS_RANK, NS_K, NS_P = 100000, 128, 128, 16   # BASELINE.md:29-32
+NS_EDGE = 1e-2            # K1's operand: noise's spectral edge / sigma_1
+HOST_M, HOST_N, HOST_RANK, HOST_K, HOST_Q = 65536, 16384, 64, 64, 1
+STREAM_TOL = 1e-4         # streamed vs in-core sigma, of sigma_1
 
 
 T_START = time.perf_counter()
@@ -2249,6 +2313,10 @@ def phase_krylov():
               f"rsvd's {err_rsvd} at q={Q}")
         out[label] = run
         log(f"  rsvd_krylov [{label}]: " + json.dumps(run))
+    out["fault_c"] = {f"{qr}/{meth}": fault_c_krylov(a, qr, meth)
+                      for qr, meth in (("cholqr1_fused", "eigh_pallas"),
+                                       ("robust", "eigh"))}
+    log("  fault C [Krylov tail]: " + json.dumps(out["fault_c"]))
     out["profile_k1_k3"] = profile_call(call("cholqr1_fused", "eigh_pallas"),
                                         reps=5)
     log("  profile [Krylov, K1/K3]: " + json.dumps(out["profile_k1_k3"]))
@@ -3230,6 +3298,657 @@ def phase_formats():
     return launches, out
 
 
+# ---- phase 11: sparse operands, retrieval, kernel PCA, clustering, the
+# estimators and out-of-core streaming --------------------------------------
+
+class Interrupted(Exception):
+    """Raised into a streamed run to stop it between two passes."""
+
+
+def zipf_draw(n, exponent, size, gen):
+    """``size`` indices in [0, n) with P(i) ~ (i + 1)^-exponent, by
+    inverse-CDF sampling on the card."""
+    w = (torch.arange(n, device="cuda", dtype=torch.float64) + 1.0) \
+        ** -exponent
+    cdf = torch.cumsum(w, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(size, device="cuda", dtype=torch.float64, generator=gen)
+    return torch.clamp(torch.searchsorted(cdf, u), max=n - 1)
+
+
+def ml20m_operand(seed=0):
+    """A synthetic interaction matrix of MovieLens-20M's shape (138,493
+    users x 26,744 items, 20,000,263 ratings): (user, item) pairs drawn
+    from power laws of user activity and item popularity (``ML_ZIPF``),
+    distinct, ratings from a rank-``ML_FACTORS`` preference model plus
+    noise rounded to half stars in [0.5, 5].  A coalesced COO tensor on
+    the card."""
+    users, items, nnz = ML20M
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draw = nnz + nnz // 10
+    keys = zipf_draw(users, ML_ZIPF[0], draw, gen) * items + zipf_draw(
+        items, ML_ZIPF[1], draw, gen)
+    keys = torch.unique(keys)
+    check(keys.numel() >= nnz, f"ml20m: {keys.numel()} distinct pairs")
+    keys = torch.sort(keys[torch.randperm(keys.numel(), device="cuda",
+                                          generator=gen)[:nnz]]).values
+    u, i = keys // items, keys % items
+    del keys
+    fu = torch.randn(users, ML_FACTORS, device="cuda", generator=gen)
+    fi = torch.randn(items, ML_FACTORS, device="cuda", generator=gen)
+    score = 3.5 + 0.3 * torch.sum(fu[u] * fi[i], dim=1) + 0.5 * torch.randn(
+        nnz, device="cuda", generator=gen)
+    r = torch.clamp(torch.round(2.0 * score) / 2.0, 0.5, 5.0)
+    a = torch.sparse_coo_tensor(torch.stack([u, i]), r, (users, items),
+                                check_invariants=False)
+    return a._coalesced_(True)
+
+
+def spmm_bytes(rows, cols, nnz, l, idx_bytes=4):
+    """Bytes a CSR x dense product must move: values and column indices
+    once, the row pointers, the dense operand once, the output once."""
+    return nnz * (4 + idx_bytes) + 4 * (rows + 1) + 4 * l * (cols + rows)
+
+
+def retrieval_checks(tables, ids):
+    """top_k_items and top_k_items_quantized against a dense f64 score of
+    the same tables: exact ids wherever the f64 gap to a neighbouring
+    score exceeds ``RET_TIE`` of the row's max |score|, quantized overlap
+    >= ``RET_OVERLAP`` of ``RET_TOPK`` per user."""
+    vals, top = retrieval.top_k_items(tables, ids, RET_TOPK)
+    qt = retrieval.quantize_tables(tables)
+    _, top_q = retrieval.top_k_items_quantized(qt, ids, RET_TOPK)
+    s64 = tables.users[ids].double() @ tables.items.double().T
+    v64, top64 = torch.topk(s64, RET_TOPK + 1)
+    gap = torch.diff(-v64, dim=1)                       # >= 0, k columns
+    tie = RET_TIE * s64.abs().amax(dim=1, keepdim=True)
+    # position j is decided when the gaps on both of its sides are clear
+    clear = torch.ones_like(gap[:, :RET_TOPK], dtype=torch.bool)
+    clear &= gap[:, :RET_TOPK] > tie
+    clear[:, 1:] &= gap[:, :RET_TOPK - 1] > tie
+    same = (top == top64[:, :RET_TOPK]) | ~clear
+    excused = int((~clear).sum())
+    q_sets = top_q.cpu().numpy()
+    f_sets = top64[:, :RET_TOPK].cpu().numpy()
+    overlap = np.array([len(set(a) & set(b)) for a, b in zip(q_sets, f_sets)])
+    out = dict(users=len(ids), k=RET_TOPK, ids_equal_f64=bool(same.all()),
+               positions_excused_as_ties=excused,
+               max_rel_score_err=float((vals.double() - v64[:, :RET_TOPK])
+                                       .abs().max() / s64.abs().max()),
+               quantized_overlap_min=int(overlap.min()),
+               quantized_overlap_mean=float(overlap.mean()),
+               quantized_ms=cuda_ms(lambda: retrieval.top_k_items_quantized(
+                   qt, ids, RET_TOPK), 10),
+               f32_ms=cuda_ms(lambda: retrieval.top_k_items(
+                   tables, ids, RET_TOPK), 10))
+    check(out["ids_equal_f64"], f"top_k_items vs f64 {out}")
+    check(out["quantized_overlap_min"] >= RET_OVERLAP,
+          f"top_k_items_quantized overlap {out}")
+    return out
+
+
+def phase_sparse(timer):
+    """Sparse rSVD, retrieval and RandomizedSVD at MovieLens-20M's shape."""
+    out = {}
+    users, items, nnz = ML20M
+    with timer.phase("sparse_build"):
+        a_sp = ml20m_operand()
+        st = driver.sparse_operand(a_sp)
+        torch.cuda.synchronize()
+    csr_bytes = sum(t.numel() * t.element_size() for c in (st.fwd, st.bwd)
+                    for t in (c.values(), c.col_indices(), c.crow_indices()))
+    out["operand"] = dict(shape=[users, items], nnz=int(a_sp._nnz()),
+                          rating_mean=float(st.values().mean()),
+                          csr_pair_bytes=csr_bytes,
+                          coo_bytes=int(a_sp._nnz()) * (2 * 8 + 4))
+    l = K + P
+    kw = dict(k=K, p=P, q=Q)
+    with timer.phase("sparse_rsvd"):
+        (u, s, v), t = timed(lambda: rsvd(st, **kw))
+    out["rsvd_s"] = t
+    _, s2, _ = rsvd(st, **kw)
+    # cuSPARSE's SpMM is not bitwise from run to run: measured, not held
+    out["rsvd_twice_max_rel_dsigma"] = float((s - s2).abs().max() / s[0])
+    with timer.phase("dense_rsvd"):
+        dense = a_sp.to_dense()
+        (_, s_d, _), t = timed(lambda: rsvd(dense, **kw))
+        del dense
+        torch.cuda.empty_cache()
+    out["dense_rsvd_s"] = t
+    out["max_rel_dsigma_vs_dense"] = float((s - s_d).abs().max() / s_d[0])
+    check(finite(u, s, v) and out["max_rel_dsigma_vs_dense"] <= SP_SIGMA_TOL
+          and out["rsvd_twice_max_rel_dsigma"] <= SP_SIGMA_TOL,
+          f"sparse rsvd vs dense {out}")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    omega = torch.randn(items, l, device="cuda", generator=gen)
+    qy = torch.linalg.qr(torch.randn(users, l, device="cuda",
+                                     generator=gen))[0]
+    omega_cm = omega.T.contiguous().T                  # column-major
+    flops = 2.0 * nnz * l
+    with timer.phase("spmm_timings"):
+        out["spmm"] = dict(
+            l=l, forward_ms=cuda_ms(lambda: driver._mm(st, omega), 20),
+            forward_bound_ms=bound(flops, spmm_bytes(users, items, nnz,
+                                                     l))[0],
+            at_csr_ms=cuda_ms(lambda: driver._mm(qy.T, st), 20),
+            at_csr_bound_ms=bound(flops, spmm_bytes(items, users, nnz,
+                                                    l))[0],
+            # the alternatives the driver does not take, measured only
+            forward_column_major_operand_ms=cuda_ms(
+                lambda: st.fwd @ omega_cm, 5),
+            at_through_a_csr_transposed_ms=cuda_ms(
+                lambda: st.fwd.t() @ qy, 5),
+            coo_forward_ms=cuda_ms(lambda: torch.sparse.mm(a_sp, omega), 5),
+            bitwise_twice=bool(torch.equal(driver._mm(st, omega),
+                                           driver._mm(st, omega))))
+    # one call: its Jacobi tail's many small kernels make the trace's
+    # event walk take seconds a call
+    with timer.phase("sparse_profile"):
+        out["profile_rsvd"] = profile_call(lambda: rsvd(st, **kw), reps=1)
+    log("  sparse rsvd: " + json.dumps(out))
+    with timer.phase("factorize_interactions"):
+        tables, t = timed(lambda: retrieval.factorize_interactions(
+            a_sp, k=K))
+    ids = torch.randperm(users, device="cuda", generator=gen)[:RET_USERS]
+    out["factorize_s"] = t
+    with timer.phase("retrieval"):
+        out["retrieval"] = retrieval_checks(tables, ids)
+    log("  retrieval: " + json.dumps(out["retrieval"]))
+    est = estimators.RandomizedSVD(n_components=K)
+    with timer.phase("randomized_svd"):
+        scores, t = timed(lambda: est.fit_transform(a_sp))
+    with timer.phase("randomized_svd_f64_check"):
+        out["randomized_svd"] = dict(s=t, **estimator_ratio_check(
+            est, scores, st))
+    log("  RandomizedSVD: " + json.dumps(out["randomized_svd"]))
+    del a_sp, st, tables, omega, qy
+    torch.cuda.empty_cache()
+    return out
+
+
+def estimator_ratio_check(est, scores, st):
+    """RandomizedSVD's explained_variance_ratio_ against f64 on the host:
+    the f64 variance of its scores over scipy.sparse's f64 total column
+    variance of the same matrix."""
+    import scipy.sparse as sps
+
+    csr = sps.csr_matrix(
+        (to_numpy(st.fwd.values()).astype(np.float64),
+         to_numpy(st.fwd.col_indices()), to_numpy(st.fwd.crow_indices())),
+        shape=st.shape)
+    m = csr.shape[0]
+    mean = np.asarray(csr.mean(axis=0)).ravel()
+    sq = np.asarray(csr.multiply(csr).mean(axis=0)).ravel()
+    total = float(np.sum(sq - mean ** 2))
+    ratio64 = np.var(scores.astype(np.float64), axis=0) / total
+    # the estimator takes the scores' variance in f32 (the JAX
+    # estimator's numpy arithmetic); the first score column's mean is
+    # most of it, so that variance carries ~1e-4 of itself
+    err = float(np.abs(est.explained_variance_ratio_ - ratio64).max())
+    out = dict(ratio_top3=est.explained_variance_ratio_[:3].tolist(),
+               ratio_sum=float(est.explained_variance_ratio_.sum()),
+               max_abs_err_vs_f64=err, max_rel_err_vs_f64=float(np.abs(
+                   est.explained_variance_ratio_ - ratio64).max()
+                   / ratio64[0]), total_variance_f64=total)
+    check(err <= EST_RATIO_TOL, f"RandomizedSVD ratio vs f64 {out}")
+    return out
+
+
+def kpca_points(n, gen):
+    """n points in KPCA_D dimensions with per-axis scales 4 KPCA_DECAY^j:
+    an RBF kernel (gamma 1/d) with a decaying, distinct spectrum."""
+    scale = 4.0 * KPCA_DECAY ** torch.arange(KPCA_D, device="cuda",
+                                              dtype=torch.float32)
+    return torch.randn(n, KPCA_D, device="cuda", generator=gen) * scale
+
+
+def centred_eigvalsh64(x, k):
+    """The top k eigenvalues of x's centred RBF kernel, in f64."""
+    km = kpca.kernel_matrix(x, x).double()
+    km -= km.mean(dim=0)[None, :]
+    km -= km.mean(dim=1, keepdim=True)
+    return torch.linalg.eigvalsh(km).flip(0)[:k]
+
+
+def phase_kpca(timer):
+    """KernelPCA 'randomized' and 'nystrom' at n = 16384, transform of
+    4096 new rows, 'exact' at n = 1024, against f64."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = kpca_points(KPCA_N, gen)
+    with timer.phase("kpca_f64_eigvalsh"):
+        lam, t = timed(lambda: centred_eigvalsh64(x, KPCA_K))
+    out = dict(n=KPCA_N, d=KPCA_D, k=KPCA_K, f64_eigvalsh_s=t,
+               kernel_bytes=4 * KPCA_N * KPCA_N)
+    lam1 = float(lam[0])
+    for solver, p, tol in (("randomized", 10, KPCA_RAND_TOL),
+                           ("nystrom", KPCA_NYS_P, KPCA_NYS_TOL)):
+        with timer.phase(f"kpca_{solver}"):
+            kp, t = timed(lambda: kpca.KernelPCA(
+                KPCA_K, solver=solver, p=p).fit(x))
+        d = (kp.eigenvalues_.double() - lam) / lam1
+        out[solver] = dict(p=p, s=t, max_abs_dlam_over_lam1=float(
+            d.abs().max()), max_over_truth=float(d.max()))
+        check(finite(kp.eigenvalues_, kp.alphas_)
+              and out[solver]["max_abs_dlam_over_lam1"] <= tol,
+              f"KernelPCA {solver} {out[solver]}")
+        if solver == "randomized":
+            y = kpca_points(KPCA_NEW, gen)
+            with timer.phase("kpca_transform"):
+                z, t = timed(lambda: kp.transform(y))
+            z64 = kpca._transform_impl(
+                y.double(), x.double(), "rbf", 1.0 / KPCA_D, 3, 1.0,
+                kp._col_means.double(), kp._tot.double(),
+                kp.alphas_.double(), kp._inv_sqrt.double())
+            out["transform"] = dict(rows=KPCA_NEW, s=t, max_err_over_max=float(
+                (z.double() - z64).abs().max() / z64.abs().max()))
+            check(out["transform"]["max_err_over_max"] <= KPCA_TRANSFORM_TOL,
+                  f"KernelPCA transform {out['transform']}")
+    xs = kpca_points(KPCA_EXACT_N, gen)
+    lam_s = centred_eigvalsh64(xs, KPCA_K)
+    kp, t = timed(lambda: kpca.KernelPCA(KPCA_K, solver="exact").fit(xs))
+    out["exact"] = dict(n=KPCA_EXACT_N, s=t, max_abs_dlam_over_lam1=float(
+        (kp.eigenvalues_.double() - lam_s).abs().max() / lam_s[0]))
+    check(out["exact"]["max_abs_dlam_over_lam1"] <= KPCA_EXACT_TOL,
+          f"KernelPCA exact {out['exact']}")
+    log("  KernelPCA: " + json.dumps(out))
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def labels_match(labels, truth, k):
+    """Labels equal the truth up to a permutation: the contingency table
+    has one nonzero entry in each row and column."""
+    c = torch.zeros(k, k, dtype=torch.long, device=labels.device)
+    c.index_put_((labels.long(), truth.long()),
+                 torch.ones_like(truth, dtype=torch.long), accumulate=True)
+    nz = c > 0
+    return bool((nz.sum(0) == 1).all() and (nz.sum(1) == 1).all())
+
+
+def half_moons(n, noise, gen):
+    """sklearn's make_moons on the card: two interleaved half circles."""
+    h = n // 2
+    t1 = math.pi * torch.rand(h, device="cuda", generator=gen)
+    t2 = math.pi * torch.rand(n - h, device="cuda", generator=gen)
+    x = torch.cat([torch.stack([torch.cos(t1), torch.sin(t1)], 1),
+                   torch.stack([1 - torch.cos(t2),
+                                1 - torch.sin(t2) - 0.5], 1)])
+    x += noise * torch.randn(n, 2, device="cuda", generator=gen)
+    truth = torch.cat([torch.zeros(h, device="cuda", dtype=torch.long),
+                       torch.ones(n - h, device="cuda", dtype=torch.long)])
+    return x, truth
+
+
+def phase_cluster(timer):
+    """spectral_cluster: 8 planted blobs at n = 16384 through 'auto'
+    (reigh) and k-NN half moons at n = 2048 through 'exact'."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    centers = CL_SCALE * torch.randn(CL_K, CL_D, device="cuda",
+                                     generator=gen)
+    truth = torch.arange(CL_N, device="cuda") % CL_K
+    x = centers[truth] + torch.randn(CL_N, CL_D, device="cuda",
+                                     generator=gen)
+    with timer.phase("cluster_blobs"):
+        res, t = timed(lambda: cluster.spectral_cluster(
+            x, CL_K, gamma=CL_GAMMA))
+    out = dict(blobs=dict(n=CL_N, k=CL_K, d=CL_D, gamma=CL_GAMMA, s=t,
+                          eig_solver="auto (randomized)",
+                          inertia=float(res.inertia),
+                          exact_up_to_permutation=labels_match(
+                              res.labels, truth, CL_K),
+                          kmeans_peak_bytes=4 * CL_N * CL_K * CL_K))
+    check(out["blobs"]["exact_up_to_permutation"], f"blobs {out['blobs']}")
+    xm, tm = half_moons(MOONS_N, MOONS_NOISE, gen)
+    with timer.phase("cluster_moons"):
+        res, t = timed(lambda: cluster.spectral_cluster(
+            xm, 2, affinity="knn", eig_solver="exact"))
+    acc = float((res.labels.long() == tm).float().mean())
+    out["moons"] = dict(n=MOONS_N, s=t, accuracy=max(acc, 1.0 - acc))
+    check(out["moons"]["accuracy"] >= MOONS_ACC, f"moons {out['moons']}")
+    log("  spectral_cluster: " + json.dumps(out))
+    return out
+
+
+def phase_estimator_pca(timer):
+    """RandomizedPCA(n_components=64) on phase 7's factor model against
+    the centred Gram's f64 eigenvalues."""
+    x = pca_operand()
+    sig_true, _ = f64_spectrum(x)
+    out = {}
+    for label, kw in (("defaults", {}),
+                      ("checked", dict(p=EST_PCA_P, q=EST_PCA_Q))):
+        with timer.phase(f"randomized_pca_{label}"):
+            est, t = timed(lambda: estimators.RandomizedPCA(
+                n_components=PCA_RANK, **kw).fit(x))
+        err = float(np.abs(est.singular_values_ - sig_true[:PCA_RANK]).max()
+                    / sig_true[0])
+        out[label] = dict(s=t, max_rel_dsigma=err, **kw)
+    check(out["checked"]["max_rel_dsigma"] <= EST_PCA_TOL,
+          f"RandomizedPCA {out}")
+    log("  RandomizedPCA: " + json.dumps(out))
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def planted_stream(m, n, rank, gen, seed, edge=None):
+    """(SynthesizedMatrix, noise_fn, U diag(s), V): A = U diag(s) V^T + N
+    made panel by panel on the card, s = logspace(0, -1, rank), N
+    Gaussian at TENSOR_NOISE of the signal's norm or, given ``edge``,
+    with its spectral edge c (sqrt(m) + sqrt(n)) at ``edge`` s_1; each
+    panel's noise drawn from a generator seeded by its first row (every
+    pass sees the same A)."""
+    u = orthonormal(m, rank, gen)
+    v = orthonormal(n, rank, gen)
+    s = torch.logspace(0, -1, rank, device="cuda")
+    us = u * s
+    if edge is None:
+        c = TENSOR_NOISE * float(torch.linalg.vector_norm(s)) \
+            / math.sqrt(m * n)
+    else:
+        c = edge / (math.sqrt(m) + math.sqrt(n))
+
+    def noise(start, rows):
+        g = torch.Generator(device="cuda").manual_seed(seed * 7919 + start)
+        return c * torch.randn(rows, n, device="cuda", generator=g)
+
+    def panel(start, rows):
+        return device.matmul_at(us[start:start + rows], v.T) + noise(
+            start, rows)
+
+    return streaming.SynthesizedMatrix((m, n), panel), noise, us, v
+
+
+def streamed_k1_vs_plain(y, args, kwargs, out):
+    """One recorded K1 call of the streamed run against its plain version
+    on the same panel: R to ``R_TOL`` of max |R|, and Q's orthogonality
+    (||Q^T Q - I||_F in f64) beside the plain Q's; max |dQ| reported (the
+    panel's oversampled columns lie at the noise floor, where the two
+    summation orders' Q columns differ by the panel's condition number
+    squared times the rounding); K1's Q no further from orthonormal than
+    twice the plain Q's (or ``ORTH_TOL``)."""
+    q, r = out
+    q0, r0 = kernels.fused_cholqr1_reference(y, *args, **kwargs)
+    res = dict(shape=list(y.shape), max_dq=float((q - q0).abs().max()),
+               max_dr_over_r=float((r - r0).abs().max() / r0.abs().max()),
+               orth=fro_orth64(q), orth_plain=fro_orth64(q0))
+    check(finite(q, r) and finite(q0, r0) and res["max_dr_over_r"] <= R_TOL
+          and res["orth"] <= max(2.0 * res["orth_plain"], ORTH_TOL),
+          f"streamed K1 vs plain {res}")
+    return res
+
+
+def stream_error(a, noise, u, s, v, panel_rows):
+    """(||A - U diag(s) V^T||_F, ||N||_F) in one more streamed pass."""
+    err_sq = noise_sq = 0.0
+    us = u * s
+    for start, rows in streaming._panels(a.shape[0], panel_rows):
+        e = a.panel(start, rows) - device.matmul_at(us[start:start + rows],
+                                                    v.T)
+        err_sq += float(torch.sum(e.double() ** 2))
+        noise_sq += float(torch.sum(noise(start, rows).double() ** 2))
+    return math.sqrt(err_sq), math.sqrt(noise_sq)
+
+
+def phase_stream_north(timer):
+    """rsvd_streaming of a 100000^2 SynthesizedMatrix through K1 and K3,
+    counted; each launch held to its plain version.  K1 is CholeskyQR1
+    with no fallback (the JAX kernel too): its operand keeps the
+    panels' condition number near s_1 / edge = 100 (noise with its
+    spectral edge at ``NS_EDGE`` s_1).  With noise at 1e-3 of the
+    signal's norm the co-range panels reach ~5e4, where K1 and its plain
+    version both return Q ~1 from orthonormal; that operand runs through
+    the default 'robust' QR and the cuSOLVER tail, error checked, no
+    kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    l = NS_K + NS_P
+    rows = streaming._default_panel_rows(NS_N, NS_N, torch.float32)
+    a, noise, _, _ = planted_stream(NS_N, NS_N, NS_RANK, gen, seed=25)
+    with timer.phase("stream_north_star_robust"):
+        (u, s, v), t = timed(lambda: streaming.rsvd_streaming(
+            a, k=NS_K, p=NS_P, q=Q, method="eigh"))
+    err, nn = stream_error(a, noise, u, s, v, rows)
+    robust = dict(noise_over_signal=TENSOR_NOISE, s=t,
+                  err_over_noise=err / nn, u_orth=orth_err(u))
+    check(finite(u, s, v) and robust["err_over_noise"] <= NOISE_SLACK,
+          f"streaming north star, robust QR {robust}")
+    check(counts() == NONE, f"robust streaming run launched {counts()}")
+    a, noise, _, _ = planted_stream(NS_N, NS_N, NS_RANK, gen, seed=23,
+                                    edge=NS_EDGE)
+    times = {}
+    rec1 = Recorder(kernels.fused_cholqr1)
+    rec3 = Recorder(kernels.eigh_small)
+    with mock.patch.object(kernels, "fused_cholqr1", rec1), \
+            mock.patch.object(kernels, "eigh_small", rec3):
+        with timer.phase("stream_north_star"):
+            (u, s, v), t = timed(lambda: streaming.rsvd_streaming(
+                a, k=NS_K, p=NS_P, q=Q, qr_method="cholqr1_fused",
+                method="eigh_pallas", phase_times=times))
+        launches = counts()
+    k1 = recorded_vs_plain(rec1, streamed_k1_vs_plain)
+    k3 = recorded_vs_plain(rec3, eigh_vs_plain)
+    # the kernels timed at the shapes this path hands them (after the
+    # counts are read: these launches compare, they are not the path's)
+    y = rec1.calls[-1][0]
+    m1, l1 = y.shape
+    g = rec3.calls[0][0]
+    n3 = g.shape[0]
+    timings = dict(
+        k1=dict(shape=[m1, l1],
+                ms=cuda_ms(lambda: kernels.fused_cholqr1(y), 10),
+                plain_ms=cuda_ms(lambda: kernels.fused_cholqr1_reference(
+                    y), 3),
+                library_ms=cuda_ms(lambda: torch.linalg.qr(y), 5),
+                bound_ms=bound(2 * m1 * l1 * (l1 + 1) + 2 * l1 ** 3 / 3,
+                               4 * (2 * m1 * l1 + l1 * l1))[0]),
+        k3=dict(n=n3, ms=cuda_ms(lambda: kernels.eigh_small(g), 5),
+                plain_ms=cuda_ms(lambda: kernels.eigh_small_reference(g),
+                                 1),
+                library_ms=cuda_ms(lambda: torch.linalg.eigh(g), 5)))
+    with timer.phase("stream_north_star_error_pass"):
+        (err, nn), t_err = timed(lambda: stream_error(a, noise, u, s, v,
+                                                      rows))
+    passes = 2 * Q + 2
+    pass_s = (times.get("sketch", 0.0) + times.get("power_zt", 0.0)
+              + times.get("power_y", 0.0) + times.get("project", 0.0))
+    gemm = bound(2.0 * NS_N * NS_N * l, 4.0 * NS_N * NS_N)[0]
+    synth = bound(2.0 * NS_N * NS_N * NS_RANK, 4.0 * NS_N * NS_N)[0]
+    out = dict(shape=[NS_N, NS_N], rank=NS_RANK, k=NS_K, p=NS_P, q=Q,
+               noise_edge_over_s1=NS_EDGE, noise_over_signal=nn / float(
+                   torch.linalg.vector_norm(torch.logspace(
+                       0, -1, NS_RANK, dtype=torch.float64))),
+               panel_rows=rows, s=t, phase_s=times,
+               ms_per_pass=1e3 * pass_s / passes,
+               gemm_bound_ms_per_pass=gemm,
+               synthesis_bound_ms_per_pass=synth,
+               err_over_noise=err / nn, error_pass_s=t_err,
+               launches_k1_to_k5b=list(launches), k1_calls_vs_plain=k1,
+               k3_calls_vs_plain=k3, kernels_at_path_shapes=timings,
+               u_orth=orth_err(u), robust_qr_at_1e3_noise=robust)
+    check(finite(u, s, v) and out["err_over_noise"] <= NOISE_SLACK,
+          f"streaming north star {out}")
+    log("  rsvd_streaming 100000^2: " + json.dumps(out))
+    return out
+
+
+def free_memory():
+    """The host's ``free -g`` table, and its available GiB."""
+    text = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=30, check=True).stdout
+    avail = int(text.splitlines()[1].split()[-1])
+    return text, avail
+
+
+def stream_pass_times(a_host, a_dev, omega, rows, panel_dtype):
+    """(copy-only, compute-only, full) seconds of one streamed Y = A Omega
+    pass: the panels' host work and copies alone, the products on
+    panels already on the card, and both."""
+    def copy_only():
+        for _ in streaming._stream_panels(a_host, rows, torch.float32,
+                                          panel_dtype=panel_dtype):
+            pass
+
+    on_card = streaming.SynthesizedMatrix(
+        a_dev.shape, lambda start, n: a_dev[start:start + n])
+    _, t_copy = timed(copy_only)
+    _, t_compute = timed(lambda: streaming._stream_right_multiply(
+        on_card, omega, rows, torch.float32))
+    _, t_full = timed(lambda: streaming._stream_right_multiply(
+        a_host, omega, rows, torch.float32, panel_dtype=panel_dtype))
+    return t_copy, t_compute, t_full
+
+
+def phase_stream_host(timer, tmp):
+    """rsvd_streaming of a 65536 x 16384 f32 A held in pinned host memory:
+    each wire encoding against the in-core rsvd on the same Omega, the
+    copies' rate and overlap, the one-pass driver, and a checkpointed
+    run stopped after its second pass and resumed."""
+    mem, avail = free_memory()
+    log("  free -g:\n" + "\n".join("    " + x for x in mem.splitlines()))
+    need = 3 * 4 * HOST_M * HOST_N / 2 ** 30
+    check(avail >= need, f"host memory: {avail} GiB available, {need:.1f} "
+          f"needed for the host-streamed run")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    signal = device.matmul_at(orthonormal(HOST_M, HOST_RANK, gen)
+                              * torch.logspace(0, -1, HOST_RANK,
+                                               device="cuda"),
+                              orthonormal(HOST_N, HOST_RANK, gen).T)
+    a_dev, _ = planted(signal, gen)
+    del signal
+    with timer.phase("stream_host_pin"):
+        a_host = torch.empty(a_dev.shape, dtype=torch.float32,
+                             pin_memory=True)
+        a_host.copy_(a_dev)
+    l = HOST_K + P
+    rows = streaming._default_panel_rows(HOST_M, HOST_N, torch.float32)
+    kw = dict(k=HOST_K, p=P, q=HOST_Q, method="eigh")
+    omega = generate_omega(0, HOST_N, l, device="cuda")
+    _, s_ref, _ = rsvd_with_omega(a_dev, omega, q=HOST_Q, k=HOST_K,
+                                  method="eigh")
+    out = dict(shape=[HOST_M, HOST_N], host_bytes=4 * HOST_M * HOST_N,
+               panel_rows=rows, available_gib=avail, runs={})
+    wire = {None: 4.0, "bfloat16": 2.0, "int8": 1.0 + 4.0 / HOST_N}
+    for pdt in (None, "bfloat16", "int8"):
+        times = {}
+        name = pdt or "none"
+        with timer.phase(f"stream_host_{name}"):
+            (u, s, v), t = timed(lambda: streaming.rsvd_streaming(
+                a_host, panel_dtype=pdt, phase_times=times, **kw))
+        t_copy, t_compute, t_full = stream_pass_times(a_host, a_dev, omega,
+                                                      rows, pdt)
+        bytes_ = wire[pdt] * HOST_M * HOST_N
+        run = dict(s=t, phase_s=times, max_rel_dsigma_vs_in_core=float(
+            (s - s_ref).abs().max() / s_ref[0]),
+            wire_bytes_per_pass=bytes_, copy_only_pass_s=t_copy,
+            compute_only_pass_s=t_compute, full_pass_s=t_full,
+            wire_gb_per_s=bytes_ / t_copy / 1e9,
+            hidden_s=t_copy + t_compute - t_full,
+            hidden_share_of_copy=min(1.0, max(0.0, (
+                t_copy + t_compute - t_full) / t_copy)),
+            hidden_share_of_compute=min(1.0, max(0.0, (
+                t_copy + t_compute - t_full) / t_compute)))
+        out["runs"][name] = run
+        check(finite(u, s, v) and run["max_rel_dsigma_vs_in_core"]
+              <= STREAM_TOL, f"host stream {name} {run}")
+        log(f"  rsvd_streaming host [{name}]: " + json.dumps(run))
+    out["profile_pass"] = profile_call(
+        lambda: streaming._stream_right_multiply(a_host, omega, rows,
+                                                 torch.float32), reps=1)
+    with timer.phase("stream_host_onepass"):
+        (u, s, v), t = timed(lambda: streaming.rsvd_streaming_onepass(
+            a_host, k=HOST_K, p=P, method="eigh"))
+    _, s1, _ = rsvd_onepass(a_dev, k=HOST_K, p=P, method="eigh")
+    out["onepass"] = dict(s=t, max_rel_dsigma_vs_in_core=float(
+        (s - s1).abs().max() / s1[0]))
+    check(out["onepass"]["max_rel_dsigma_vs_in_core"] <= STREAM_TOL,
+          f"onepass {out['onepass']}")
+    # a checkpointed run stopped after its second pass, then resumed
+    ckdir = os.path.join(tmp, "stream_ckpt")
+    done = {"passes": 0}
+    real = {name: getattr(streaming, name) for name in
+            ("_stream_right_multiply", "_stream_left_t_multiply")}
+
+    def stop_after_two(fn):
+        def wrapped(*args, **kwargs):
+            if done["passes"] == 2:
+                raise Interrupted
+            done["passes"] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with timer.phase("stream_host_checkpoint"):
+        with mock.patch.multiple(streaming, **{
+                n: stop_after_two(f) for n, f in real.items()}):
+            try:
+                streaming.rsvd_streaming(a_host, checkpoint_dir=ckdir, **kw)
+            except Interrupted:
+                pass
+        saved = sorted(os.listdir(ckdir))
+        resumed = streaming.rsvd_streaming(a_host, checkpoint_dir=ckdir,
+                                           **kw)
+        whole = streaming.rsvd_streaming(a_host, **kw)
+        torch.cuda.synchronize()
+    out["checkpoint"] = dict(passes_before_stop=done["passes"],
+                             saved_at_stop=saved,
+                             resumed_bitwise=all(torch.equal(x, y) for x, y
+                                                 in zip(resumed, whole)))
+    check(done["passes"] == 2 and "q0.npy" in saved
+          and out["checkpoint"]["resumed_bitwise"],
+          f"checkpoint resume {out['checkpoint']}")
+    log("  rsvd_streaming host: " + json.dumps(
+        {k: out[k] for k in ("onepass", "checkpoint")}))
+    del a_host, a_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_apps_streaming():
+    """Phase 11: sparse operands and retrieval, kernel PCA, spectral
+    clustering, the estimators and out-of-core streaming.  Returns
+    ((K1, K2, K3, K4, K5a, K5b) launches of its counted runs, summary):
+    only the north-star streaming run launches kernels (K1 2q + 1 times,
+    K3 once), which is checked for every part."""
+    t0 = time.perf_counter()
+    timer = PhaseTimer()
+    out = {}
+    launches = list(NONE)
+    tmp = tempfile.mkdtemp()
+    try:
+        for name, fn, want in (
+                ("sparse_retrieval", lambda: phase_sparse(timer), NONE),
+                ("kernel_pca", lambda: phase_kpca(timer), NONE),
+                ("spectral_cluster", lambda: phase_cluster(timer), NONE),
+                ("randomized_pca", lambda: phase_estimator_pca(timer),
+                 NONE),
+                ("stream_north_star", lambda: phase_stream_north(timer),
+                 launches_of(k1=2 * Q + 1, k3=1)),
+                ("stream_host", lambda: phase_stream_host(timer, tmp),
+                 NONE)):
+            phase(f"phase 11: {name}")
+            reset_counts()
+            res = fn()
+            torch.cuda.synchronize()
+            # a part that times its kernels after its driven call reads
+            # the counts right after that call
+            got = tuple(res.get("launches_k1_to_k5b", counts()))
+            check(got == want, f"phase 11 {name}: (K1, K2, K3, K4, K5a, "
+                  f"K5b) launches {got}, not {want}")
+            launches = [t + c for t, c in zip(launches, got)]
+            out[name] = res
+            torch.cuda.empty_cache()
+        csv_path = os.path.join(tmp, "phase11.csv")
+        timer.write_csv(csv_path)
+        with open(csv_path) as f:
+            log("  PhaseTimer CSV:\n" + "\n".join(
+                "    " + line for line in f.read().strip().splitlines()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["stage_ms"] = {name: timer.total_ms(name) for name in timer.phases}
+    out["s"] = time.perf_counter() - t0
+    return launches, out
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
     path, timings.  ``want`` = (K1, K2, K3, K4, K5a, K5b) launches per
@@ -3259,6 +3978,92 @@ def phase_main_path(label, forward, a, a64, err_np, prec, want):
     check(dsigma <= SIGMA_TOL[prec], f"sigma vs plain {out}")
     check(orth <= 1e-3, f"U orthogonality {out}")
     return launches, out
+
+
+def gram_of(b):
+    """The tail's Gram of B (l x n, l <= n), as ``_gram_eigh_svd``
+    forms it."""
+    return device.matmul_at(b, b.T, "highest")
+
+
+def fro_orth64(x):
+    """||X^T X - I||_F in f64."""
+    x = x.double()
+    return float(torch.linalg.norm(
+        x.T @ x - torch.eye(x.shape[1], dtype=x.dtype, device=x.device)))
+
+
+def tail_orthogonality(q_mat, b, eighs):
+    """Fault C: where U = Q U~ of a Gram-eigh tail loses orthogonality.
+    For each ``eighs`` entry (name -> the (lam, U~) the tail would take
+    from B's Gram, ascending), ||U~^T U~ - I||_F, ||U^T U - I||_F with
+    U = Q U~ formed as the driver forms it, and the eigenvalues against
+    an f64 eigh of the same Gram; beside them ||Q^T Q - I||_F of Q alone
+    and both norms from the f64 eigenvectors."""
+    g = gram_of(b)
+    lam64, u64 = torch.linalg.eigh(g.double())
+    top = float(lam64[-1])
+    out = {"q": fro_orth64(q_mat), "l": int(g.shape[0]),
+           "f64": dict(tail=fro_orth64(u64),
+                       u=fro_orth64(q_mat.double() @ u64))}
+    for name, (lam, ut) in eighs.items():
+        u = device.matmul_at(q_mat, ut, "highest")
+        out[name] = dict(
+            tail=fro_orth64(ut), u=fro_orth64(u),
+            max_rel_dlam=float((lam.double() - lam64).abs().max()) / top)
+    return out
+
+
+def tail_capture(module_names):
+    """Patches that record the basis and the projected B of one call:
+    ``subspace_iteration`` / ``krylov_basis`` return Q, ``small_svd``
+    takes B."""
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            res = fn(*args, **kwargs)
+            seen[name] = args[0] if name == "b" else res
+            return res
+        return wrapped
+    stack = contextlib.ExitStack()
+    for mod, attr, key in module_names:
+        stack.enter_context(mock.patch.object(
+            mod, attr, spy(key, getattr(mod, attr))))
+    return stack, seen
+
+
+def fault_c_main_path(a, forward):
+    """Fault C on one main-path call: its Q and B, the tail with
+    ``eigh_nan`` (torch's eigh as it comes) and with ``core/device.py::
+    eigh`` (one Newton-Schulz step), each against f64."""
+    stack, seen = tail_capture(((driver, "subspace_iteration", "q"),
+                                (driver, "small_svd", "b")))
+    with stack:
+        forward(a)
+    torch.cuda.synchronize()
+    return tail_orthogonality(seen["q"], seen["b"], {
+        "eigh_nan": device.eigh_nan(gram_of(seen["b"])),
+        "eigh": device.eigh(gram_of(seen["b"]))})
+
+
+def fault_c_krylov(a, qr_method, method):
+    """Fault C on one block-Krylov call (l(q+1) = 240): as
+    :func:`fault_c_main_path`, plus the eigenvectors the call's tail took
+    where it ran K3 (recorded, not launched again)."""
+    krylov = importlib.import_module(
+        "rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.krylov")
+    stack, seen = tail_capture(((krylov, "krylov_basis", "q"),
+                                (krylov, "small_svd", "b")))
+    rec3 = Recorder(kernels.eigh_small)
+    with stack, mock.patch.object(kernels, "eigh_small", rec3):
+        rsvd_krylov(a, k=K, p=P, q=Q, qr_method=qr_method, method=method)
+    torch.cuda.synchronize()
+    g = gram_of(seen["b"])
+    eighs = {"eigh_nan": device.eigh_nan(g), "eigh": device.eigh(g)}
+    if rec3.calls:
+        eighs["k3_as_run"] = rec3.calls[0][3]
+    return tail_orthogonality(seen["q"], seen["b"], eighs)
 
 
 def serving_run(label, operand, a64, err_np, interior):
@@ -3465,6 +4270,10 @@ def main(argv):
         launches_total = [t + c for t, c in zip(launches_total, launches)]
         summary[label] = out
         log(f"  main path [{label}]: " + json.dumps(out))
+    summary["fault_c"] = {label: fault_c_main_path(a, fwd)
+                          for label, fwd in (("highest", fwd_hi),
+                                             ("default", fwd_def))}
+    log("  fault C [main path tail]: " + json.dumps(summary["fault_c"]))
     summary["profile_default"] = profile_call(lambda: fwd_def(a))
     log("  profile [main path, default]: "
         + json.dumps(summary["profile_default"]))
@@ -3589,6 +4398,11 @@ def main(argv):
     fmt_launches, fmt_summary = phase_formats()
     launches_total = [t + c for t, c in zip(launches_total, fmt_launches)]
 
+    phase("phase 11: sparse operands and retrieval, kernel PCA, spectral "
+          "clustering, the estimators, out-of-core streaming")
+    app_launches, app_summary = phase_apps_streaming()
+    launches_total = [t + c for t, c in zip(launches_total, app_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3627,7 +4441,8 @@ def main(argv):
              launches=launches_total[5], **k5["K5b"]),
     ], "main_path": summary, "serving": serving, "image": image_summary,
         "driver_modes": modes, "pca": pca_summary, "pod": pod_summary,
-        "extensions": ext_summary, "formats": fmt_summary}
+        "extensions": ext_summary, "formats": fmt_summary,
+        "apps_streaming": app_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

@@ -1,6 +1,9 @@
-"""Applications built on the rSVD core: PCA, image compression and
-POD/ROM (the advection-diffusion FOM ``advdiff``, the POD algorithms
-``pod``, the Galerkin and DEIM ROMs and their drivers ``rom``)."""
+"""Applications built on the rSVD core: PCA, image compression, kernel
+PCA, POD/ROM (the advection-diffusion FOM ``advdiff``, the POD
+algorithms ``pod``, the Galerkin and DEIM ROMs and their drivers
+``rom``) and embedding retrieval (``retrieval``); spectral clustering
+(``apps.cluster``) and the sklearn estimators (``apps.estimators``) are
+imported from their modules, as in the JAX package."""
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pca import (  # noqa: F401
     PCA,
@@ -10,6 +13,10 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pca import (  # noqa: F401
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.image import (  # noqa: F401
     Image,
     TileFactors,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.kpca import (  # noqa: F401
+    KernelPCA,
+    kernel_matrix,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pod import (  # noqa: F401
     POD,
@@ -21,4 +28,8 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pod import (  # noqa: F401
     standard_pod,
     weight_pod,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import advdiff, rom  # noqa: F401
+from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import (  # noqa: F401
+    advdiff,
+    retrieval,
+    rom,
+)

@@ -1,0 +1,244 @@
+"""Kernel PCA with randomized eigensolvers (the JAX package's
+``apps/kpca.py``).
+
+Kernel PCA generalizes the reference's linear PCA to nonlinear feature
+spaces through the kernel trick.  Its core is an n x n centred kernel
+Gram -- symmetric PSD, with fast spectral decay for smooth kernels --
+of which only the top-k eigenpairs are needed.  The 'auto' solver takes
+the exact eigh up to n = 1024 and the power-iterated Rayleigh-Ritz
+sketch (``rsvd/nystrom.py::_reigh_impl``) above; 'nystrom' is the
+one-pass sketch (``_nystrom_impl``).
+
+Every kernel here is one GEMM plus rank-1 corrections (the RBF distance
+matrix is ||x||^2 + ||y||^2 - 2 x y^T), at 'highest' precision as the
+JAX module's ``DOT_PRECISION``.  The exact eighs (the 'exact' solver and
+the Nystrom feature map's landmark eigh) go through ``core/device.py::
+eigh``: the JAX module's ``jnp.linalg.eigh`` returns eigenvectors
+orthogonal to working precision, torch's f32 eigh on the card only to
+about 1e-5.  The data and the fit live on the fit's device: a tensor
+stays on its own, any other array goes to ``device`` (the card unless
+the caller names another).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
+    eigh,
+    matmul_at,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import key_from_seed
+from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
+    DOT_PRECISION,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.nystrom import (
+    _nystrom_impl,
+    _reigh_impl,
+)
+
+_KERNELS = ("rbf", "poly", "linear")
+
+
+def _mm(a, b):
+    return matmul_at(a, b, DOT_PRECISION)
+
+
+def _kernel(x, y, kernel: str, gamma, degree: int, coef0):
+    """The kernel block k(x_i, y_j)."""
+    if kernel == "linear":
+        return _mm(x, y.T)
+    if kernel == "poly":
+        return (gamma * _mm(x, y.T) + coef0) ** degree
+    # rbf: ||x_i - y_j||^2 = ||x_i||^2 + ||y_j||^2 - 2 <x_i, y_j>
+    xx = torch.sum(x * x, dim=1)[:, None]
+    yy = torch.sum(y * y, dim=1)[None, :]
+    d2 = torch.clamp(xx + yy - 2.0 * _mm(x, y.T), min=0.0)
+    return torch.exp(-gamma * d2)
+
+
+def _check_kernel(kernel):
+    if kernel not in _KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def kernel_matrix(x, y, kernel: str = "rbf", gamma: Optional[float] = None,
+                  degree: int = 3, coef0: float = 1.0, device=None):
+    """K[i, j] = k(x_i, y_j) for the rows of x (n x d) and y (m x d), on
+    x's device (``device`` for a non-tensor x; the card unless named)."""
+    _check_kernel(kernel)
+    x = as_tensor(x, device)
+    y = as_tensor(y, x.device, x.dtype)
+    if gamma is None:
+        gamma = 1.0 / x.shape[1]
+    return _kernel(x, y, kernel, gamma, degree, coef0)
+
+
+def _finish(w, v, kc):
+    """Shared fit tail: clamp the spectrum, zero the rank-deficient
+    components, build the scores.  A component whose eigenvalue is
+    negligible against the leading one gets a ZERO projection scale:
+    dividing by sqrt(~0) would emit huge garbage in transform (the
+    centred kernel's rank is at most the data's intrinsic rank)."""
+    w = torch.clamp(w, min=0.0)
+    floor = (torch.finfo(kc.dtype).eps * kc.shape[0]
+             * torch.clamp(w[0], min=0.0))
+    ok = w > floor
+    inv_sqrt = torch.where(ok, 1.0 / torch.sqrt(torch.where(
+        ok, w, torch.ones_like(w))), torch.zeros_like(w))
+    scores = v * torch.sqrt(w)[None, :] * ok
+    return w * ok, v, inv_sqrt, scores
+
+
+def _fit_impl(x, kernel: str, gamma, degree: int, coef0, k: int,
+              solver: str, p: int, seed):
+    kmat = _kernel(x, x, kernel, gamma, degree, coef0)
+    col_means = torch.mean(kmat, dim=0)
+    tot = torch.mean(kmat)
+    row = torch.mean(kmat, dim=1, keepdim=True)
+    kc = kmat - row - col_means[None, :] + tot       # feature-space centre
+    del kmat
+    kc = 0.5 * (kc + kc.T)
+    if solver == "exact":
+        w, v = eigh(kc)
+        w, v = w.flip(0)[:k], v.flip(1)[:, :k]
+    elif solver == "randomized":
+        w, v = _reigh_impl(kc, k=k, p=p, q=2, seed=seed,
+                           precision="highest")
+    else:                                            # nystrom (one pass)
+        v, w = _nystrom_impl(kc, k=k, p=p, seed=seed, precision="highest")
+    return (col_means, tot) + _finish(w, v, kc)
+
+
+def _transform_impl(y, x, kernel: str, gamma, degree: int, coef0,
+                    col_means, tot, alphas, inv_sqrt):
+    k_new = _kernel(y, x, kernel, gamma, degree, coef0)
+    row = torch.mean(k_new, dim=1, keepdim=True)
+    kc = k_new - row - col_means[None, :] + tot
+    return _mm(kc, alphas) * inv_sqrt[None, :]
+
+
+class KernelPCA:
+    """Nonlinear PCA through the kernel trick, a randomized eigensolver
+    inside.
+
+    >>> kp = KernelPCA(n_components=8, kernel="rbf", gamma=0.5).fit(x)
+    >>> z = kp.transform(x_new)          # (m, 8) kernel principal scores
+
+    ``solver``: 'exact' (eigh of the centred kernel), 'randomized'
+    (power-iterated Rayleigh-Ritz, ``rsvd/nystrom.py::reigh``), 'nystrom'
+    (ONE pass over K, fastest, biased low on slowly decaying spectra
+    unless p is generous), or 'auto' (exact up to n = 1024, randomized
+    above).  Attributes after fit: ``eigenvalues_`` (k, zeroed past the
+    kernel's numerical rank), ``alphas_`` (n x k kernel-space
+    eigenvectors), ``scores_`` (n x k, alphas * sqrt(eigenvalues), the
+    training projections).  Components beyond the centred kernel's
+    numerical rank transform to exactly zero.  ``device`` places a
+    non-tensor x (the card unless named); a tensor stays on its own.
+    """
+
+    def __init__(self, n_components: int, kernel: str = "rbf",
+                 gamma: Optional[float] = None, degree: int = 3,
+                 coef0: float = 1.0, solver: str = "auto", p: int = 10,
+                 seed: int = 0, device=None):
+        self.k = int(n_components)
+        self.kernel = kernel
+        self.gamma = gamma
+        self.degree = degree
+        self.coef0 = coef0
+        self.solver = solver
+        self.p = p
+        self.seed = seed
+        self.device = device
+
+    def _params(self):
+        gamma = self.gamma if self.gamma is not None else 1.0 / self._d
+        return gamma, self.degree, self.coef0
+
+    def fit(self, x) -> "KernelPCA":
+        _check_kernel(self.kernel)
+        x = as_tensor(x, self.device)
+        self._x = x
+        self._d = x.shape[1]
+        solver = self.solver
+        if solver == "auto":
+            solver = "exact" if x.shape[0] <= 1024 else "randomized"
+        if solver not in ("exact", "randomized", "nystrom"):
+            raise ValueError(f"unknown solver {solver!r}")
+        gamma, degree, coef0 = self._params()
+        (self._col_means, self._tot, self.eigenvalues_, self.alphas_,
+         self._inv_sqrt, self.scores_) = _fit_impl(
+            x, self.kernel, gamma, degree, coef0, self.k, solver, self.p,
+            self.seed)
+        return self
+
+    def transform(self, y) -> torch.Tensor:
+        """Project new rows onto the kernel principal axes:
+        z = K_c(new, train) alphas / sqrt(eigenvalues), with the
+        rank-deficient components pinned to zero."""
+        gamma, degree, coef0 = self._params()
+        return _transform_impl(
+            as_tensor(y, self._x.device, self._x.dtype), self._x,
+            self.kernel, gamma, degree, coef0, self._col_means, self._tot,
+            self.alphas_, self._inv_sqrt)
+
+    def fit_transform(self, x) -> torch.Tensor:
+        return self.fit(x).scores_
+
+
+def nystrom_features(x, landmarks, kernel: str = "rbf",
+                     gamma: Optional[float] = None, degree: int = 3,
+                     coef0: float = 1.0, device=None) -> torch.Tensor:
+    """Data-dependent kernel feature map (Williams-Seeger Nystrom):
+    z(x) = K(x, L) K(L, L)^{-1/2} for a landmark set L (rows), so
+    z(x) z(y)^T ~ k(x, y), with an error set by how well the landmarks
+    cover the data.  Directions of K(L, L) below a spectrum-relative
+    floor are dropped (the pseudo-inverse square root).  Two kernel
+    GEMMs and one landmark eigh (``core/device.py::eigh``)."""
+    _check_kernel(kernel)
+    x = as_tensor(x, device)
+    landmarks = as_tensor(landmarks, x.device, x.dtype)
+    if gamma is None:
+        gamma = 1.0 / x.shape[1]
+    k_ll = _kernel(landmarks, landmarks, kernel, gamma, degree, coef0)
+    k_ll = 0.5 * (k_ll + k_ll.T)
+    w, u = eigh(k_ll)
+    floor = (torch.finfo(x.dtype).eps * k_ll.shape[0]
+             * torch.clamp(w[-1], min=0.0))
+    keep = w > floor
+    inv_sqrt = torch.where(keep, 1.0 / torch.sqrt(torch.where(
+        keep, w, torch.ones_like(w))), torch.zeros_like(w))
+    k_xl = _kernel(x, landmarks, kernel, gamma, degree, coef0)
+    # the JAX module multiplies by diag(inv_sqrt): the same products
+    return _mm(k_xl, u) * inv_sqrt[None, :]
+
+
+def _rff_draws(seed, d: int, n_features: int, dtype, device):
+    """(W0, b): a d x n_features standard-normal matrix and n_features
+    phases uniform on [0, 2 pi), both from one generator seeded with
+    ``seed`` on ``device``."""
+    key = key_from_seed(seed, device)
+    w0 = torch.randn((d, n_features), generator=key, device=key.device,
+                     dtype=dtype)
+    b = torch.rand((n_features,), generator=key, device=key.device,
+                   dtype=dtype) * (2.0 * math.pi)
+    return w0, b
+
+
+def rff_features(x, n_features: int = 256, gamma: float = 1.0, seed=0,
+                 device=None) -> torch.Tensor:
+    """Random Fourier features for the RBF kernel (Rahimi-Recht 2007):
+    z(x) (n x D) with E[z(x) z(y)^T] = exp(-gamma ||x - y||^2), error
+    O(1/sqrt(D)) uniformly.  The kernel exp(-gamma d^2) is the Gaussian
+    kernel of variance 1/(2 gamma), whose spectral measure is
+    N(0, 2 gamma I).  One GEMM and a cosine, deterministic in the seed
+    (:func:`_rff_draws`)."""
+    x = as_tensor(x, device)
+    w0, b = _rff_draws(seed, x.shape[1], n_features, x.dtype, x.device)
+    w = w0 * math.sqrt(2.0 * gamma)
+    proj = _mm(x, w) + b[None, :]
+    return math.sqrt(2.0 / n_features) * torch.cos(proj)

@@ -6,12 +6,14 @@ Omega.  Tests and ``chip_smoke.py`` make both with numpy and pass the
 same arrays to the JAX package and to this one.  A JAX array converts
 through its ``__array__``; jax itself is never imported here.  Fitted
 state (a ``POD`` of modes and singular values, a DEIM model, randomized
-LU factors, a CCA fit, a HODLR matrix, tensor-format factors) crosses
-over field by field (:func:`pod_from_jax`, :func:`deim_from_jax`,
-:func:`rlu_from_jax`, :func:`cca_from_jax`, :func:`hodlr_from_jax`,
-:func:`tucker_from_numpy`, :func:`tt_from_numpy`,
-:func:`cp_from_numpy`), so a downstream stage can be compared apart
-from the random draws that made the state.
+LU factors, a CCA fit, a HODLR matrix, tensor-format factors, embedding
+tables, a kernel PCA fit) crosses over field by field
+(:func:`pod_from_jax`, :func:`deim_from_jax`, :func:`rlu_from_jax`,
+:func:`cca_from_jax`, :func:`hodlr_from_jax`, :func:`tucker_from_numpy`,
+:func:`tt_from_numpy`, :func:`cp_from_numpy`, :func:`tables_from_jax`,
+:func:`kpca_from_jax`), so a downstream stage can be compared apart from
+the random draws that made the state.  A JAX BCOO sparse matrix crosses
+as its (indices, data, shape) (:func:`bcoo_from_jax`).
 """
 
 from __future__ import annotations
@@ -121,3 +123,46 @@ def cp_from_numpy(weights, factors, device=None):
     """(weights, factors) of a CP decomposition as tensors."""
     return from_numpy(weights, device), tuple(from_numpy(f, device)
                                               for f in factors)
+
+
+def bcoo_from_jax(indices, data, shape, device=None):
+    """A torch sparse COO tensor holding a JAX BCOO matrix's entries: its
+    ``indices`` (nnz x 2), ``data`` (nnz,) and ``shape``, read as numpy.
+    Duplicate entries stay as they are (the driver sums them, as
+    BCOO's ``sum_duplicates`` does)."""
+    idx = torch.from_numpy(np.array(indices, dtype=np.int64).T)
+    t = torch.sparse_coo_tensor(idx, from_numpy(data, "cpu"),
+                                tuple(int(d) for d in shape),
+                                check_invariants=False)
+    return t.to(device or "cuda")
+
+
+def tables_from_jax(tables, device=None):
+    """The port's ``apps.retrieval.EmbeddingTables`` or
+    ``QuantizedTables`` holding a JAX fit's tables, read as numpy."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import retrieval
+
+    cls = (retrieval.QuantizedTables if hasattr(tables, "users_q")
+           else retrieval.EmbeddingTables)
+    return cls(*(from_numpy(x, device) for x in tables))
+
+
+def kpca_from_jax(kp, device=None):
+    """The port's ``apps.kpca.KernelPCA`` holding a fitted JAX
+    ``KernelPCA``'s parameters and state (training rows, centring means,
+    eigenvalues, alphas, projection scales, scores), read as numpy: its
+    ``transform`` then runs on the JAX fit."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.kpca import KernelPCA
+
+    out = KernelPCA(kp.k, kernel=kp.kernel, gamma=kp.gamma,
+                    degree=kp.degree, coef0=kp.coef0, solver=kp.solver,
+                    p=kp.p, seed=kp.seed, device=device)
+    out._x = from_numpy(kp._x, device)
+    out._d = int(kp._d)
+    out._col_means = from_numpy(kp._col_means, device)
+    out._tot = from_numpy(kp._tot, device)
+    out.eigenvalues_ = from_numpy(kp.eigenvalues_, device)
+    out.alphas_ = from_numpy(kp.alphas_, device)
+    out._inv_sqrt = from_numpy(kp._inv_sqrt, device)
+    out.scores_ = from_numpy(kp.scores_, device)
+    return out

@@ -11,9 +11,12 @@ Engines, as in JAX:
 - ``'power'``           -- power iteration with deflation
                            (``linalg/power.py``);
 - ``'eigh'``            -- one eigendecomposition of the small-side Gram
-                           matrix, ``torch.linalg.eigh`` (NaN out for a
-                           non-finite Gram, as XLA's, where torch's
-                           raises: ``core/device.py::eigh_nan``);
+                           matrix: torch's eigh (NaN out for a non-finite
+                           Gram, as XLA's, where torch's raises:
+                           ``core/device.py::eigh_nan``), in f32 with one
+                           Newton--Schulz step (``core/device.py::eigh``)
+                           so that the eigenvectors are orthogonal to
+                           working precision, as ``jnp.linalg.eigh``'s are;
 - ``'eigh_pallas'``     -- the same Gram route with the eigh by kernel K3
                            (``linalg/kernels.py::eigh_small``);
 - ``'xla'``             -- ``torch.linalg.svd`` (NaN out for a
@@ -32,6 +35,7 @@ import enum
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
+    eigh,
     eigh_nan,
     matmul_at,
     svd_nan,
@@ -57,12 +61,23 @@ class SVDMethod(enum.Enum):
         return cls(str(value).lower())
 
 
-def _gram_eigh_svd(a, eigh_fn=eigh_nan):
+def _gram_eigh_svd(a, eigh_fn=None):
     """SVD via the eigendecomposition of the small-side Gram matrix: one
     eigh and one GEMM.  ``eigh_fn`` follows the ``torch.linalg.eigh``
-    contract (ascending eigenvalues, eigenvectors in columns)."""
+    contract (ascending eigenvalues, eigenvectors in columns).  By
+    default an f32 Gram goes to ``core/device.py::eigh``: cuSOLVER's f32
+    eigenvectors left ||U^T U - I||_F at 1.5e-4 on the main path's
+    80 x 80 Gram, and its Newton--Schulz step brings them to 1.4e-6, the
+    level of Q itself (H100, PERF.md), as ``jnp.linalg.eigh``'s are.  A
+    wider Gram's eigenvectors already are orthogonal to working
+    precision, and it goes to ``eigh_nan`` as it comes: there the step
+    would only re-round the eigenvectors of the eigenvalues at roundoff,
+    which V = A^T U / s then amplifies."""
     m, n = a.shape
     dtype = a.dtype
+    if eigh_fn is None:
+        eigh_fn = eigh if dtype in (torch.float32, torch.bfloat16,
+                                    torch.float16) else eigh_nan
     if dtype in (torch.bfloat16, torch.float16):
         # no low-precision eigh: factor in f32, return the input dtype
         u, s, v = _gram_eigh_svd(a.to(torch.float32), eigh_fn)

@@ -3,7 +3,8 @@ certificates, UTV, Frequent Directions, interpolative/CUR
 decompositions, DEIM, and the randomized-NLA extensions: block Krylov,
 sketched least squares, Nystrom and randomized eigh, trace and SLQ
 estimators, randomized LU, CCA, DMD, robust PCA and completion, the
-tensor formats (Tucker, TT, CP) and HODLR."""
+tensor formats (Tucker, TT, CP) and HODLR, and the out-of-core
+streaming drivers."""
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cca import (  # noqa: F401
     CcaResult,
@@ -50,6 +51,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.dmd import (  # noqa: F401
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
     Int8Stored,
+    SparseStored,
     generate_omega,
     quantize_int8_rows,
     power_refine,
@@ -108,6 +110,11 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.slq import (  # noqa: F401
     lanczos_tridiag,
     logdet_psd,
     slq_trace,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.streaming import (  # noqa: F401
+    SynthesizedMatrix,
+    rsvd_streaming,
+    rsvd_streaming_onepass,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.trace import (  # noqa: F401
     diag_estimate,

@@ -21,12 +21,16 @@ The other modes: ``rsvd_batched`` (a stack, one sketch per element),
 sketch, one pass over A), ``rsvd_adaptive`` (rank for an accuracy
 target) and the image preset ``rsvd_image_preset``.
 
-Not ported yet (ROADMAP.md): sparse operands, which raise
-``NotImplementedError``.
+Sparse operands (a torch sparse tensor of any layout, the counterpart of
+the JAX package's BCOO) are held as :class:`SparseStored`: A and A^T as
+two CSR tensors built once, so every stage-A product is a forward CSR
+product (cuSPARSE SpMM on the card).  Precision flags do not apply to
+them, and the storage modes neither cast nor quantize them.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -124,11 +128,84 @@ class Int8Stored:
         return self.q8.device
 
 
-def _as_operand(a):
-    """A tensor or :class:`Int8Stored` stays where it is; anything else
-    (a numpy array, a list) becomes a tensor on the card."""
-    if isinstance(a, (torch.Tensor, Int8Stored)):
+class SparseStored:
+    """A sparse stage-A operand: A and A^T, each a CSR tensor with its
+    duplicate entries summed, built once by :func:`sparse_operand`.
+
+    A^T Q through A's CSR is a transposed product, 4.8x the time of a
+    forward one on an H100 at MovieLens-20M's shape (PERF.md); holding
+    A^T as its own CSR makes every product of the driver a forward CSR x
+    dense product.  It costs a second copy of the values and column
+    indices: nnz (itemsize + 4) + 4 (m + n + 2) bytes for the two, with
+    int32 indices (used where nnz and both sides are below 2^31).  CSR
+    rather than COO: COO products convert to CSR on every call.  On the
+    card neither layout's product (cuSPARSE SpMM) is bitwise from run to
+    run.  ``.T`` swaps the two and copies nothing, as
+    :class:`Int8Stored`'s does; ``_mm`` dispatches on it."""
+
+    def __init__(self, fwd, bwd):
+        self.fwd, self.bwd = fwd, bwd
+
+    @property
+    def T(self):
+        return SparseStored(self.bwd, self.fwd)
+
+    @property
+    def shape(self):
+        return tuple(self.fwd.shape)
+
+    @property
+    def dtype(self):
+        return self.fwd.dtype
+
+    @property
+    def device(self):
+        return self.fwd.device
+
+    def values(self):
+        """The stored entries of A (duplicates summed)."""
+        return self.fwd.values()
+
+
+def _csr(coo):
+    """CSR of a coalesced COO tensor, int32 indices where they fit."""
+    with warnings.catch_warnings():      # torch's "CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = coo.to_sparse_csr()
+    if coo._nnz() < 2 ** 31 and max(coo.shape) < 2 ** 31:
+        csr = torch.sparse_csr_tensor(
+            csr.crow_indices().to(torch.int32),
+            csr.col_indices().to(torch.int32), csr.values(), csr.shape,
+            check_invariants=False)
+    return csr
+
+
+def is_sparse(x) -> bool:
+    """A :class:`SparseStored` or a torch sparse tensor of any layout."""
+    return isinstance(x, SparseStored) or (
+        isinstance(x, torch.Tensor) and x.layout != torch.strided)
+
+
+def sparse_operand(a) -> SparseStored:
+    """:class:`SparseStored` of a sparse tensor (COO, CSR, CSC, BSR or
+    BSC): duplicates summed (JAX's ``sum_duplicates``), then the CSR of A
+    and of A^T.  A :class:`SparseStored` is returned as it is."""
+    if isinstance(a, SparseStored):
         return a
+    coo = a if a.layout == torch.sparse_coo else a.to_sparse_coo()
+    coo = coo.coalesce()
+    return SparseStored(_csr(coo), _csr(coo.t().coalesce()))
+
+
+def _as_operand(a):
+    """An :class:`Int8Stored` or :class:`SparseStored` stays as it is, a
+    sparse tensor becomes a :class:`SparseStored` on its device, a dense
+    tensor stays where it is; anything else (a numpy array, a list)
+    becomes a tensor on the card."""
+    if isinstance(a, (Int8Stored, SparseStored)):
+        return a
+    if isinstance(a, torch.Tensor):
+        return sparse_operand(a) if is_sparse(a) else a
     return torch.as_tensor(a, device="cuda")
 
 
@@ -159,18 +236,23 @@ def _int8_width(d: int) -> int:
     return max(32, -(-d // 16) * 16)
 
 
-def _int8_layouts(q8):
-    """(Q8, Q8^T), each row-major and zero-padded to ``_int8_width`` in
-    both dimensions, so that either is a left operand cuBLASLt's int8
-    product takes as it is.  Zero rows and columns leave every product
-    exact.  An aligned, contiguous Q8 is used as it is."""
+def _int8_padded(q8):
+    """Q8 row-major and zero-padded to ``_int8_width`` in both
+    dimensions: a left operand cuBLASLt's int8 product takes as it is.
+    Zero rows and columns leave every product exact.  An aligned,
+    contiguous Q8 is used as it is."""
     m, n = q8.shape
     shape = (_int8_width(m), _int8_width(n))
     if shape == (m, n) and q8.is_contiguous() and q8.data_ptr() % 16 == 0:
-        fwd = q8
-    else:
-        fwd = q8.new_zeros(shape)
-        fwd[:m, :n] = q8
+        return q8
+    fwd = q8.new_zeros(shape)
+    fwd[:m, :n] = q8
+    return fwd
+
+
+def _int8_layouts(q8):
+    """(Q8, Q8^T), each laid out by :func:`_int8_padded`."""
+    fwd = _int8_padded(q8)
     return fwd, fwd.T.contiguous()
 
 
@@ -221,27 +303,27 @@ def _int8_mm(a: Int8Stored, b):
             * t.to(out_dtype))
 
 
-def _check_dense(x):
-    if x.layout != torch.strided:
-        raise NotImplementedError(
-            "sparse operands are not ported to the PyTorch package yet "
-            "(ROADMAP.md, queue 1)")
-
-
 def _mm(a, b, precision=DOT_PRECISION):
     """A @ B with the JAX driver's dtype rules: an :class:`Int8Stored`
-    operand takes the int8 path (precision does not apply); same dtype ->
-    product in that dtype; a bf16 operand mixed with a wider one -> the
-    SMALL side is rounded to bf16 and the product accumulates and returns
-    in the wide dtype (never widening the big operand); any other mix
-    promotes."""
+    operand takes the int8 path (precision does not apply); a sparse one
+    a sparse x dense product (precision does not apply either, JAX
+    driver.py:174-177); same dtype -> product in that dtype; a bf16
+    operand mixed with a wider one -> the SMALL side is rounded to bf16
+    and the product accumulates and returns in the wide dtype (never
+    widening the big operand); any other mix promotes."""
     if isinstance(a, Int8Stored):
         return _int8_mm(a, b)
     if isinstance(b, Int8Stored):
         # X @ A = (A^T @ X^T)^T: one transposed int8 product
         return _int8_mm(b.T, a.T).T
-    _check_dense(a)
-    _check_dense(b)
+    if isinstance(a, SparseStored):
+        # a column-major dense operand costs cuSPARSE ~11x (PERF.md)
+        return a.fwd @ b.contiguous()
+    if isinstance(b, SparseStored):
+        # X @ A = (A^T @ X^T)^T: a forward product of A^T's CSR
+        return (b.bwd @ a.T.contiguous()).T
+    if is_sparse(a) or is_sparse(b):
+        return a @ b
     if a.dtype != b.dtype:
         lo, out = ((a.dtype, b.dtype) if a.dtype.itemsize < b.dtype.itemsize
                    else (b.dtype, a.dtype))
@@ -318,9 +400,13 @@ def _check_options(method, precision, finish):
 def _stage_operand(a, precision):
     """The operand stage A reads: A cast once to bf16 for the 'bf16'
     storage mode, quantized to :class:`Int8Stored` for 'int8', else A.
-    An :class:`Int8Stored` is read as it is under any precision."""
+    An :class:`Int8Stored` is read as it is under any precision; a
+    sparse operand becomes a :class:`SparseStored`, neither cast nor
+    quantized (JAX driver.py:333-343)."""
     if isinstance(a, Int8Stored):
         return a
+    if is_sparse(a):
+        return sparse_operand(a)
     if precision in STORAGE_BF16 and a.dtype.itemsize > 2:
         return a.to(torch.bfloat16)
     if precision in STORAGE_INT8:
@@ -420,6 +506,9 @@ def rsvd_core(a, seed, *, k, p, q, method, sketch, qr_method, precision,
             raise ValueError("sketch='fused' (a documented negative-"
                              "result experiment) only supports "
                              "finish='project'")
+        if is_sparse(a):
+            raise TypeError("sketch='fused' reads a dense operand (kernel "
+                            "K4); use sketch='gaussian' for a sparse one")
         _check_options(method, precision, finish)
         y = kernels.fused_sketch_matmul(a, l, seed)
         inner = qr_method if interior_qr is None or q == 0 else interior_qr
@@ -451,7 +540,7 @@ def rsvd(
     interior_qr: Optional[str] = None,
     finish: str = "project",
 ):
-    """Randomized truncated SVD of a dense real tensor or an
+    """Randomized truncated SVD of a real tensor (dense or sparse) or an
     :class:`Int8Stored` operand: (U, s, V).
 
     k: target rank (0 = all l = p components); p: oversampling; q: power
@@ -461,11 +550,11 @@ def rsvd(
     bf16) or 'int8' (row-scaled int8 storage; pre-quantize with
     :func:`quantize_int8_rows` when factoring the same A repeatedly);
     sketch: 'gaussian', 'rademacher' or 'fused' (kernel K4, see
-    :func:`rsvd_core`).  A tensor stays on its device; any other array
-    goes to the card."""
+    :func:`rsvd_core`).  A tensor stays on its device (a sparse one as
+    :class:`SparseStored`); any other array goes to the card."""
     method = SVDMethod.parse(method)
     a = _as_operand(a)
-    if not isinstance(a, Int8Stored) and a.is_complex():
+    if a.dtype.is_complex:
         raise TypeError("rsvd supports real dtypes only (the Gram/"
                         "projection chain uses plain transposes)")
     return rsvd_core(a, seed, k=k, p=p, q=q, method=method.value,
@@ -571,13 +660,14 @@ def rsvd_adaptive(a, tol: float, k0: int = 16, k_max: Optional[int] = None,
     sketch block from ``seed + 7919 * round``, power-iterates it against
     the deflated operator (:func:`_grow_basis_block`) and appends its
     columns to Q and its rows to B = Q^T A; the block size comes from
-    :func:`_predict_rank`.  Dense operands only (sparse ones are not
-    ported, ROADMAP.md queue 1)."""
+    :func:`_predict_rank`.  A sparse A stays sparse throughout: its
+    duplicate entries are summed first (:func:`sparse_operand`), so
+    ||A||_F^2 is the sum of its stored values' squares."""
     a = _as_operand(a)
     if isinstance(a, Int8Stored):
-        raise TypeError("rsvd_adaptive takes a dense tensor")
-    _check_dense(a)
-    a_norm_sq = float(torch.sum(torch.square(a)))
+        raise TypeError("rsvd_adaptive takes a dense or sparse tensor")
+    vals = a.values() if isinstance(a, SparseStored) else a
+    a_norm_sq = float(torch.sum(torch.square(vals)))
     m, n = a.shape
     min_dim = min(m, n)
     k_cap = min(k_max or min_dim, min_dim)
@@ -638,7 +728,8 @@ def rsvd_onepass(a, k: int, p: int = 16, s_factor: int = 2,
     l = min(k + p, min(m, n))
     s_cols = min(s_factor * l + 1, m)
     a_stage = a
-    if precision in STORAGE_INT8 and not isinstance(a, Int8Stored):
+    if precision in STORAGE_INT8 and not isinstance(
+            a, (Int8Stored, SparseStored)):
         a_stage = quantize_int8_rows(a)
     key = key_from_seed(seed, a.device)
     omega = gaussian(key, (n, l), dtype)

@@ -329,3 +329,52 @@ def test_svd_auto_above_512_does_not_reach_the_block_engine():
     np.testing.assert_allclose(s.numpy(),
                                np.linalg.svd(a.numpy(), compute_uv=False),
                                rtol=1e-12)
+
+
+def _fro_orth(x):
+    x = x.double()
+    return float(torch.linalg.norm(
+        x.T @ x - torch.eye(x.shape[1], dtype=x.dtype)))
+
+
+@pytest.mark.parametrize("shape", [(24, 60), (60, 24)])
+def test_gram_eigh_tail_restores_orthogonality(monkeypatch, shape):
+    """The f32 'eigh' tail's default eigh is ``core/device.py::eigh``:
+    fed eigenvectors 1e-4 from orthogonal (as cuSOLVER's f32 eigh gives
+    on the card), it returns U and V orthogonal to f32 working
+    precision, where the raw eigenvectors' error stays; singular values
+    unchanged to 1e-6 relative."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import device
+
+    a = from_numpy(np.random.default_rng(11).standard_normal(shape),
+                   dtype=torch.float32)
+    real = device.eigh_nan
+    noise = 1e-4 * torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (min(shape), min(shape)))).to(torch.float32)
+
+    def sloppy(g):
+        lam, q = real(g)
+        return lam, q + noise / np.sqrt(q.shape[0])
+
+    monkeypatch.setattr(device, "eigh_nan", sloppy)
+    _, s_raw, _ = tsvd._gram_eigh_svd(a, sloppy)
+    u, s, v = tsvd.svd(a, "eigh")
+    small = u if shape[0] <= shape[1] else v     # the eigenvector side
+    g = a @ a.T if shape[0] <= shape[1] else a.T @ a
+    assert _fro_orth(sloppy(g)[1]) > 2e-5
+    assert _fro_orth(small) <= 2e-6
+    np.testing.assert_allclose(to_numpy(s), to_numpy(s_raw), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_gram_eigh_tail_keeps_nan_contract(dtype):
+    """A non-finite Gram gives NaN U and s (in f32 through the
+    Newton-Schulz step) and V zeroed where s is not positive, as the JAX
+    tail gives, and raises nothing."""
+    x = np.random.default_rng(13).standard_normal((8, 20)).astype(dtype)
+    x[2, 3] = np.nan
+    u, s, v = tsvd.svd(from_numpy(x), "eigh")
+    uj, sj, vj = (np.asarray(t) for t in jsvd.svd(jnp.asarray(x), "eigh"))
+    assert bool(torch.isnan(u).all()) and bool(torch.isnan(s).all())
+    assert np.isnan(uj).all() and np.isnan(sj).all()
+    np.testing.assert_array_equal(to_numpy(v), vj)
