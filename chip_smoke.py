@@ -5,8 +5,10 @@ the other driver modes, PCA, the rsvd/pca command lines, POD/ROM, the
 randomized-NLA extensions (block Krylov through K1/K2/K3 among them),
 the tensor and hierarchical formats, GP, checkpoints and autodiff,
 sparse operands and retrieval, kernel PCA, spectral clustering, the
-sklearn estimators and out-of-core streaming on one CUDA card, and hold
-every kernel of those paths to its plain PyTorch version.
+sklearn estimators, out-of-core streaming and the distributed half (a
+one-rank NCCL group, four ranks sharing the card over gloo) on one CUDA
+card, and hold every kernel of those paths to its plain PyTorch
+version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
 
@@ -198,7 +200,33 @@ Phases (any failure raises; nothing is caught):
    Omega, with the copies' rate and overlap, ``rsvd_streaming_onepass``
    and a checkpointed run stopped after two passes and resumed bitwise.
    No other part launches a kernel, which is checked.
-12. A ``kernels`` JSON line, the card's name and power limit, and as the
+12. The distributed half.  (a) A one-rank NCCL group in this process
+   (after checking that two NCCL ranks on this host's one card are
+   refused before any connection): the main path's 4096^2 operand
+   through ``rsvd_sharded`` in the production configuration (eigh,
+   'default', reorth 'half', 'robust1'), the serving configuration
+   ('rowspace_utv', 'cholqr1'; error within 0.1%) and the kernel
+   configuration (K1 interiors on the gathered panels, K3 tail: K1 3 and
+   K3 1 launches, counted, each held to its plain version), and a
+   pre-quantized 16384^2 int8 operand (k 128), each against the
+   single-card ``rsvd_with_omega`` on the same Omega (max |ds| / s_1 <=
+   1e-4, bitwise reported), with the collectives of each call and one
+   profiler pass splitting a sharded call into NCCL and compute; then
+   the single-card ``rsvd_streaming`` of phase 11's planted 100000^2
+   operand with 625-row panels (K1 5, K3 1, counted).  (b) Four spawned
+   ranks sharing the card over gloo (any rank's non-zero exit or the
+   time limit fails the script): ``dryrun_multichip(4)``; the main path
+   on a (4,) and a (2, 2) mesh, the serving and kernel configurations
+   (K1 3, K3 1 a rank), the ring at 4096^2, each against the
+   single-card call; a profiler split of one sharded call on rank 0
+   into device time and time in the collectives; ``top_k_items_sharded``
+   at MovieLens-20M's 26,744 items for 1024 users against
+   ``top_k_items``; ``rsvd_streaming_multihost`` of the planted 100000^2
+   operand, 25000 rows a rank, through K1 (2 a rank, on the replicated Z)
+   and K3 (1), each launch held to its plain version, sigma within 1e-4
+   of sigma_1 of the single-card call and the error over the noise
+   within 1.01.
+13. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -212,9 +240,12 @@ import importlib
 import io
 import json
 import math
+import multiprocessing
 import os
+import queue
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -225,6 +256,8 @@ from unittest import mock
 import numpy as np
 import scipy.linalg
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Shard
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch import (
     factor_health,
@@ -248,6 +281,16 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.apps import advdiff, pca, pod, rom
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.gp import GP
 from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.pod import make_pod
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import checkpoint
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    from_dtensor,
+    initialize,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.mesh import (
+    distribute,
+    make_mesh,
+    shard_rows,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import (
     PhaseTimer,
     trace,
@@ -262,7 +305,11 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.io import (
     write_matrix_market,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
-from rsvd_kamaneh_raganato_terrana_tpu_torch.entry import CONFIG, entry
+from rsvd_kamaneh_raganato_terrana_tpu_torch.entry import (
+    CONFIG,
+    dryrun_multichip,
+    entry,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (
     _build,
     jacobi,
@@ -322,9 +369,15 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     generate_omega,
+    quantize_int8_rows,
     reconstruction_error,
+    rsvd_sharded,
     rsvd_with_omega,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.multihost import (
+    rsvd_streaming_multihost,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.ring import rsvd_ring
 
 # the package's ``rsvd.cca`` and ``rsvd.tucker`` attributes are the
 # functions of those names
@@ -3949,6 +4002,419 @@ def phase_apps_streaming():
     return launches, out
 
 
+P12_RANKS = 4
+P12_TIMEOUT = 420.0       # s: the four ranks' whole run
+P12_SIGMA_TOL = 1e-4      # sharded vs single-card, max |ds| / s_1
+P12_SERVE_TOL = 1e-3      # serving: error within 0.1% of the single call's
+P12_PANEL = 625           # streamed rows a panel; divides a rank's 25000
+P12_EMB = 64              # retrieval: k_emb (phase 11's k)
+P12_PROD = dict(k=K, q=Q, method="eigh", precision="default",
+                reorth="half", interior_qr="robust1")
+P12_SERVE = dict(k=K, q=Q, precision="default", reorth="half",
+                 qr_method="cholqr1", interior_qr="cholqr1",
+                 finish="rowspace_utv")
+P12_KERNELS = dict(CONFIG, method="eigh_pallas")   # K1 x (q + 1), K3 x 1
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p12_dsigma(s, s0):
+    return float((s - s0).abs().max() / s0[0])
+
+
+def p12_operand():
+    """The main path's 4096^2 f32 operand (entry()'s, seed 0) and its
+    Omega (``rsvd``'s draw from seed 0)."""
+    _, (a,) = entry(device="cuda", m=M, n=N)
+    return a, generate_omega(0, N, K + P, device="cuda")
+
+
+def p12_whole_u(u):
+    """A row-sharded U as the whole tensor on every rank, gathered through
+    the port's counted collectives (DTensor's own ``full_tensor`` of a
+    CUDA tensor over gloo crashes with torch 2.11)."""
+    return from_dtensor(u).gather()
+
+
+def p12_perturbed(omega):
+    """Omega times (1 + 1e-7 xi), xi Gaussian: a roundoff-level change of
+    the sketch, the yardstick of a call's own sensitivity."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    return omega * (1.0 + 1e-7 * torch.randn(omega.shape, device="cuda",
+                                             generator=gen))
+
+
+def p12_compare(label, sharded, single, a=None, say=log, perturbed=None):
+    """One sharded call against the single-card call on the same Omega:
+    max |ds| / s_1 (and whether bitwise), the sharded call's collectives,
+    both calls' ms; ``perturbed``, the single call on
+    ``p12_perturbed(Omega)``, gives the single call's own shift beside
+    it.  With ``a``, the serving check: the reconstruction error within
+    ``P12_SERVE_TOL`` of the single call's (the weights reported);
+    otherwise max |ds| / s_1 <= ``P12_SIGMA_TOL``."""
+    collectives.reset()
+    u, s, v = sharded()
+    torch.cuda.synchronize()
+    tally = collectives.tally()
+    u0, s0, v0 = single()
+    out = dict(max_rel_dsigma=p12_dsigma(s, s0),
+               bitwise=bool(torch.equal(s, s0)), collectives=tally)
+    if perturbed is not None:
+        out["single_vs_perturbed_omega"] = p12_dsigma(perturbed()[1], s0)
+    check(finite(s, v) and (a is not None
+                            or out["max_rel_dsigma"] <= P12_SIGMA_TOL),
+          f"phase 12 {label}: {out}")
+    if a is not None:
+        err = float(reconstruction_error(a, p12_whole_u(u), s, v))
+        err0 = float(reconstruction_error(a, u0, s0, v0))
+        out["err_over_single"] = err / err0
+        check(abs(err / err0 - 1.0) <= P12_SERVE_TOL,
+              f"phase 12 {label}: serving error {err} vs {err0}")
+    out["ms"] = cuda_ms(sharded, 3)
+    out["single_ms"] = cuda_ms(single, 3)
+    say(f"  {label}: " + json.dumps(out))
+    return out
+
+
+def p12_kernel_path(label, sharded, single, say=log):
+    """The main path's kernel configuration (K1 interiors, K3 tail) on a
+    sharded operand, counted; each launch held to its plain version."""
+    rec1 = Recorder(kernels.fused_cholqr1)
+    rec3 = Recorder(kernels.eigh_small)
+    reset_counts()
+    with mock.patch.object(kernels, "fused_cholqr1", rec1), \
+            mock.patch.object(kernels, "eigh_small", rec3):
+        _, s, _ = sharded()
+        torch.cuda.synchronize()
+        launches = counts()
+    check(launches == launches_of(k1=Q + 1, k3=1),
+          f"phase 12 {label}: launches {launches}")
+    _, s0, _ = single()
+    out = dict(launches_k1_to_k5b=list(launches),
+               max_rel_dsigma=p12_dsigma(s, s0),
+               k1_calls_vs_plain=recorded_vs_plain(rec1, cholqr1_vs_plain),
+               k3_calls_vs_plain=recorded_vs_plain(rec3, eigh_vs_plain))
+    check(out["max_rel_dsigma"] <= P12_SIGMA_TOL, f"phase 12 {label} {out}")
+    say(f"  {label}: " + json.dumps(out))
+    return out
+
+
+def p12_one_rank_nccl():
+    """Phase 12a: a one-rank NCCL group in this process.  The main-path
+    operand through ``rsvd_sharded`` in the production, serving and
+    kernel configurations and a pre-quantized 16384^2 int8 operand, each
+    against the single-card call; one profiler pass splits a sharded call
+    into NCCL and compute.  Two NCCL ranks on this host's one card must
+    be refused before any connection."""
+    with mock.patch.dict(os.environ, {"LOCAL_WORLD_SIZE": "2"}):
+        try:
+            initialize("127.0.0.1:1", 2, 0, backend="nccl")
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+    check("one card a rank" in refused and not dist.is_initialized(),
+          f"two NCCL ranks on one card were not refused: {refused!r}")
+    log(f"  two NCCL ranks on one card refused: {refused}")
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl", dist.get_backend())
+        mesh = make_mesh(device="cuda")
+        a, omega = p12_operand()
+        out = {}
+        out["production"] = p12_compare(
+            "nccl x1, production (eigh/default/half/robust1)",
+            lambda: rsvd_sharded(a, mesh, p=P, seed=0, **P12_PROD),
+            lambda: rsvd_with_omega(a, omega, **P12_PROD))
+        serve = {k: v for k, v in P12_SERVE.items() if k != "k"}
+        out["serving"] = p12_compare(
+            "nccl x1, serving (rowspace_utv/cholqr1)",
+            lambda: rsvd_sharded(a, mesh, k=K, p=P, seed=0, **serve),
+            lambda: rsvd_with_omega(a, omega, k=K, **serve), a=a)
+        kern = {k: v for k, v in P12_KERNELS.items() if k != "k"}
+        out["kernels"] = p12_kernel_path(
+            "nccl x1, K1 interiors + K3 tail",
+            lambda: rsvd_sharded(a, mesh, k=K, p=P, seed=0,
+                                 precision="default", **kern),
+            lambda: rsvd_with_omega(a, omega, k=K, precision="default",
+                                    **kern))
+        out["profile_production"] = profile_call(
+            lambda: rsvd_sharded(a, mesh, p=P, seed=0, **P12_PROD), reps=5,
+            keep_top=8)
+        log("  profile [nccl x1, production]: "
+            + json.dumps(out["profile_production"]))
+        del a
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        a8 = quantize_int8_rows(torch.randn(BIG, BIG, device="cuda",
+                                            generator=gen))
+        omega8 = generate_omega(0, BIG, BIG_K + P, device="cuda")
+        out["int8_16384"] = p12_compare(
+            f"nccl x1, int8 {BIG}^2 k={BIG_K}",
+            lambda: rsvd_sharded(a8, mesh, k=BIG_K, p=P, q=Q, seed=0,
+                                 method="eigh"),
+            lambda: rsvd_with_omega(a8, omega8, k=BIG_K, q=Q,
+                                    method="eigh", precision="int8"))
+        del a8
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out["kernels"]["launches_k1_to_k5b"], out
+
+
+def p12_planted(start=0, rows=NS_N):
+    """Rows [start, start + rows) of phase 11's 100000^2 planted operand
+    (rank 128, noise edge at 1e-2 sigma_1), made from seed 29 on every
+    process alike: (SynthesizedMatrix, its noise)."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    a, noise, _, _ = planted_stream(NS_N, NS_N, NS_RANK, gen, seed=29,
+                                    edge=NS_EDGE)
+    return (streaming.SynthesizedMatrix(
+                (rows, NS_N), lambda s0, r: a.panel(start + s0, r)),
+            lambda s0, r: noise(start + s0, r))
+
+
+P12_STREAM = dict(k=NS_K, p=NS_P, q=Q, qr_method="cholqr1_fused",
+                  method="eigh_pallas", panel_rows=P12_PANEL)
+
+
+def p12_stream_reference():
+    """The single-card ``rsvd_streaming`` of the planted operand with
+    phase 12's panels, counted (K1 2q + 1, K3 1): the reference the
+    four ranks' multi-host run is held to."""
+    a, noise = p12_planted()
+    reset_counts()
+    (u, s, v), t = timed(lambda: streaming.rsvd_streaming(a, **P12_STREAM))
+    launches = counts()
+    check(launches == launches_of(k1=2 * Q + 1, k3=1),
+          f"phase 12 streaming reference launches {launches}")
+    err, nn = stream_error(a, noise, u, s, v, P12_PANEL)
+    out = dict(s=t, err_over_noise=err / nn,
+               launches_k1_to_k5b=list(launches))
+    check(finite(u, s, v) and out["err_over_noise"] <= NOISE_SLACK,
+          f"phase 12 streaming reference {out}")
+    log("  single-card rsvd_streaming 100000^2: " + json.dumps(out))
+    return launches, out, to_numpy(s)
+
+
+def p12_split(call, rank, reps=3):
+    """Rank 0's profiler pass over ``reps`` sharded calls (every rank runs
+    them): device busy and wall ms a call, and the ms a call spent in
+    the collectives (host clock, ``core/collectives.py``)."""
+    collectives.reset()
+    if rank == 0:
+        prof = profile_call(call, reps=reps)
+    else:
+        for _ in range(reps + 1):
+            call()
+        torch.cuda.synchronize()
+    comm = sum(t["seconds"] for t in collectives.tally().values())
+    if rank:
+        return None
+    return dict(wall_ms_per_call=prof["wall_ms_per_call"],
+                device_busy_ms_per_call=prof["device_busy_ms_per_call"],
+                collectives_ms_per_call=1e3 * comm / (reps + 1),
+                collectives=collectives.tally())
+
+
+def p12_top_k(mesh, rank, say):
+    """``top_k_items_sharded`` at MovieLens-20M's item count against
+    ``top_k_items``: scores to 1e-5 of the row's max, ids equal but at
+    near-ties (``RET_TIE``)."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    items = torch.randn(ML20M[1], P12_EMB, device="cuda", generator=gen)
+    users = torch.randn(RET_USERS, P12_EMB, device="cuda", generator=gen)
+    tables = retrieval.EmbeddingTables(users, items, None)
+    ids_all = torch.arange(RET_USERS, device="cuda")
+    collectives.reset()
+    vals, ids = retrieval.top_k_items_sharded(mesh, tables, users, RET_TOPK)
+    torch.cuda.synchronize()
+    tally = collectives.tally()
+    # one more than k: a near-tie at the k-th place excuses it too
+    vals0, ids0 = retrieval.top_k_items(tables, ids_all, RET_TOPK + 1)
+    scale = vals0.abs().max(dim=1, keepdim=True).values
+    close = (vals0[:, :-1] - vals0[:, 1:]) < RET_TIE * scale
+    vals0, ids0 = vals0[:, :-1], ids0[:, :-1]
+    tie = close | torch.roll(close, 1, 1) & (torch.arange(
+        RET_TOPK, device="cuda") > 0)
+    dval = float(((vals - vals0).abs() / scale).max())
+    wrong = int(((ids != ids0) & ~tie).sum())
+    out = dict(items=ML20M[1], users=RET_USERS, k=RET_TOPK,
+               max_rel_dscore=dval, ids_differing_at_ties=int(
+                   ((ids != ids0) & tie).sum()), collectives=tally,
+               ms=cuda_ms(lambda: retrieval.top_k_items_sharded(
+                   mesh, tables, users, RET_TOPK), 5),
+               single_ms=cuda_ms(lambda: retrieval.top_k_items(
+                   tables, ids_all, RET_TOPK), 5))
+    check(dval <= 1e-5 and wrong == 0, f"phase 12 top-k {out}")
+    say("  top_k_items_sharded: " + json.dumps(out))
+    return out
+
+
+def p12_multihost(rank, world, ref_s, say):
+    """This rank's 25000 rows of the planted 100000^2 operand through
+    ``rsvd_streaming_multihost`` (K1 on the replicated Z, K3 on the
+    tail), counted and each launch held to its plain version; sigma and
+    the error summed over the ranks against the single-card reference."""
+    rows = NS_N // world
+    a, noise = p12_planted(rank * rows, rows)
+    rec1 = Recorder(kernels.fused_cholqr1)
+    rec3 = Recorder(kernels.eigh_small)
+    reset_counts()
+    collectives.reset()
+    with mock.patch.object(kernels, "fused_cholqr1", rec1), \
+            mock.patch.object(kernels, "eigh_small", rec3):
+        (u, s, v), t = timed(lambda: rsvd_streaming_multihost(
+            a, **P12_STREAM))
+        launches = counts()
+    tally = collectives.tally()
+    check(launches == launches_of(k1=Q, k3=1),
+          f"phase 12 multihost launches {launches}")
+    k1 = recorded_vs_plain(rec1, streamed_k1_vs_plain)
+    k3 = recorded_vs_plain(rec3, eigh_vs_plain)
+    err, nn = stream_error(a, noise, u, s, v, P12_PANEL)
+    sq = collectives.all_reduce(torch.tensor([err * err, nn * nn],
+                                             dtype=torch.float64,
+                                             device="cuda"))
+    s_ref = torch.from_numpy(ref_s).to(s.device)
+    out = dict(rows_a_rank=rows, s=t, collectives=tally,
+               max_rel_dsigma=p12_dsigma(s, s_ref),
+               err_over_noise=math.sqrt(float(sq[0]) / float(sq[1])),
+               launches_k1_to_k5b=list(launches), k1_calls_vs_plain=k1,
+               k3_calls_vs_plain=k3)
+    check(out["max_rel_dsigma"] <= STREAM_TOL
+          and out["err_over_noise"] <= NOISE_SLACK,
+          f"phase 12 multihost streaming {out}")
+    say("  rsvd_streaming_multihost 100000^2 (rank 0): " + json.dumps(out))
+    return launches, out
+
+
+def p12_rank(rank, world, port, ref_s, results):
+    """One of phase 12b's four ranks sharing the card over gloo (a
+    spawned process; the kernels phase 1 built are loaded, not built)."""
+    torch.cuda.set_device(0)
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    say = log if rank == 0 else (lambda msg: None)
+    out, launches = {}, [0] * len(NONE)
+    reset_counts()
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(world, device="cuda")
+    out["dryrun_s"] = time.perf_counter() - t0
+    check(counts() == NONE, f"dryrun launched {counts()}")
+
+    a, omega = p12_operand()
+    mesh1 = make_mesh(device="cuda")
+    mesh2 = make_mesh((2, 2), ("rows", "cols"), device="cuda")
+    a1 = shard_rows(a, mesh1)
+    a2 = distribute(a, mesh2, (Shard(0), Shard(1)))
+
+    omega_p = p12_perturbed(omega)
+
+    def single():
+        return rsvd_with_omega(a, omega, **P12_PROD)
+
+    def perturbed():
+        return rsvd_with_omega(a, omega_p, **P12_PROD)
+    out["production_1d"] = p12_compare(
+        "gloo x4 (4,) production", lambda: rsvd_with_omega(
+            a1, omega, **P12_PROD), single, say=say, perturbed=perturbed)
+    out["production_2d"] = p12_compare(
+        "gloo x4 (2, 2) production", lambda: rsvd_with_omega(
+            a2, omega, **P12_PROD), single, say=say, perturbed=perturbed)
+    out["serving_1d"] = p12_compare(
+        "gloo x4 (4,) serving", lambda: rsvd_with_omega(
+            a1, omega, **P12_SERVE), lambda: rsvd_with_omega(
+            a, omega, **P12_SERVE), a=a, say=say,
+        perturbed=lambda: rsvd_with_omega(a, omega_p, **P12_SERVE))
+    out["kernels_1d"] = p12_kernel_path(
+        "gloo x4 (4,) K1 interiors + K3 tail", lambda: rsvd_with_omega(
+            a1, omega, precision="default", **P12_KERNELS),
+        lambda: rsvd_with_omega(a, omega, precision="default",
+                                **P12_KERNELS), say=say)
+    launches = [x + y for x, y in zip(
+        launches, out["kernels_1d"]["launches_k1_to_k5b"])]
+    collectives.reset()
+    u_r, s_r, v_r = rsvd_ring(mesh1, a, k=K, p=P, q=Q, method="eigh")
+    torch.cuda.synchronize()
+    ring_tally = collectives.tally()
+    _, s0, _ = rsvd_with_omega(a, omega, k=K, q=Q, method="eigh")
+    out["ring"] = dict(max_rel_dsigma=p12_dsigma(s_r, s0),
+                       collectives=ring_tally,
+                       ms=cuda_ms(lambda: rsvd_ring(
+                           mesh1, a, k=K, p=P, q=Q, method="eigh"), 3))
+    check(out["ring"]["max_rel_dsigma"] <= P12_SIGMA_TOL
+          and set(ring_tally) == {"all_reduce", "send_recv"},
+          f"phase 12 ring {out['ring']}")
+    say("  gloo x4 ring 4096^2: " + json.dumps(out["ring"]))
+    out["split_production_1d"] = p12_split(
+        lambda: rsvd_with_omega(a1, omega, **P12_PROD), rank)
+    say("  profile split [gloo x4 (4,) production, rank 0]: "
+        + json.dumps(out["split_production_1d"]))
+    del a, a1, a2
+    torch.cuda.empty_cache()
+    out["top_k"] = p12_top_k(mesh1, rank, say)
+    mh_launches, out["multihost"] = p12_multihost(rank, world, ref_s, say)
+    launches = [x + y for x, y in zip(launches, mh_launches)]
+    results.put((rank, out, launches))
+    dist.destroy_process_group()
+
+
+def p12_four_ranks(ref_s):
+    """Phase 12b: four spawned ranks sharing the card over gloo; any
+    rank's non-zero exit or the time limit fails the phase, and every
+    rank is stopped at its end."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=p12_rank,
+                         args=(r, P12_RANKS, port, ref_s, results))
+             for r in range(P12_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + P12_TIMEOUT
+    try:
+        while len(got) < P12_RANKS:
+            check(time.monotonic() < deadline,
+                  f"phase 12 ranks gave {len(got)} results in {P12_TIMEOUT} s")
+            failed = [p.exitcode for p in procs if p.exitcode]
+            check(not failed, f"phase 12 rank exit codes {failed}")
+            try:
+                rank, out, launches = results.get(timeout=2.0)
+            except queue.Empty:
+                continue
+            got[rank] = (out, launches)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 12 rank exit codes {[p.exitcode for p in procs]}")
+    launches = [sum(got[r][1][i] for r in got) for i in range(len(NONE))]
+    return launches, dict(rank0=got[0][0], ranks=P12_RANKS,
+                          launches_all_ranks=launches)
+
+
+def phase_distributed():
+    """Phase 12: the distributed half on the card.  Returns ((K1, K2,
+    K3, K4, K5a, K5b) launches of its counted runs, summary)."""
+    t0 = time.perf_counter()
+    out = {}
+    la, out["nccl_one_rank"] = p12_one_rank_nccl()
+    lr, out["stream_reference"], ref_s = p12_stream_reference()
+    torch.cuda.empty_cache()
+    lb, out["gloo_four_ranks"] = p12_four_ranks(ref_s)
+    out["s"] = time.perf_counter() - t0
+    launches = [x + y + z for x, y, z in zip(la, lr, lb)]
+    log(f"  phase 12: {out['s']:.1f} s, launches {launches}")
+    return launches, out
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
     path, timings.  ``want`` = (K1, K2, K3, K4, K5a, K5b) launches per
@@ -4137,6 +4603,7 @@ def phase_drawn_point(rows, cols, k, seed):
 
 # device kernels by name: (substrings, group), first match wins
 KERNEL_GROUPS = (
+    (("nccl",), "NCCL collectives"),
     (("jacobi_eigh",), "K3 jacobi_eigh"),
     (("sketch_cluster", "sum_splits"), "K4 sketch_cluster / sum_splits"),
     (("ns_cluster", "ns_iterate"), "K2 ns_cluster / ns_iterate"),
@@ -4403,6 +4870,11 @@ def main(argv):
     app_launches, app_summary = phase_apps_streaming()
     launches_total = [t + c for t, c in zip(launches_total, app_launches)]
 
+    phase("phase 12: the distributed half (one-rank NCCL group; four ranks "
+          "sharing the card over gloo)")
+    dist_launches, dist_summary = phase_distributed()
+    launches_total = [t + c for t, c in zip(launches_total, dist_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -4442,7 +4914,7 @@ def main(argv):
     ], "main_path": summary, "serving": serving, "image": image_summary,
         "driver_modes": modes, "pca": pca_summary, "pod": pod_summary,
         "extensions": ext_summary, "formats": fmt_summary,
-        "apps_streaming": app_summary}
+        "apps_streaming": app_summary, "distributed": dist_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

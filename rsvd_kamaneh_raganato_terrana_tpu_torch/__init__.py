@@ -8,13 +8,16 @@ It imports ``torch`` and never ``jax``.
 
 Layer map (the ported part so far):
 
-- ``core``   -- precision map and storage modes (``device``), seeded
+- ``core``   -- precision map and storage modes (``device``), device
+               meshes (``mesh``), the process group and the sharded
+               operand (``distributed``), the counted collectives
+               (``collectives``), seeded
                sketch RNG on the card (``rng``), numpy <-> tensor
                hand-over (``convert``), MatrixMarket and dataset I/O on
                the host library of ``native/`` (``io``), the
                configuration dataclasses and parsers (``config``), FLOP
                counts (``profiling``).
-- ``ops``    -- the primitive single-device operations.
+- ``ops``    -- the primitive operations, single-device and sharded.
 - ``linalg`` -- CholeskyQR family and ``qr_reduced``, Newton--Schulz
                polar (``polar``), the SVD engines (tournament Jacobi
                ``jacobi`` with its block engine, power iteration
@@ -43,6 +46,7 @@ Layer map (the ported part so far):
 __version__ = "0.1.0"
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import (  # noqa: F401
+    make_mesh,
     read_matrix_market,
     write_matrix_market,
 )

@@ -1,5 +1,5 @@
 """Embedding factorization and top-k inner-product retrieval (the JAX
-package's ``apps/retrieval.py``, its single-card part).
+package's ``apps/retrieval.py``).
 
 Factor a user x item interaction matrix (dense, or sparse: a torch
 sparse tensor goes through the driver's :class:`SparseStored` path) into
@@ -11,9 +11,8 @@ int8 x int8 -> int32 product is the driver's (``torch._int_mm`` on the
 card, operands padded to 16, contractions chunked past ~133,000 terms).
 
 ``torch.topk`` and ``jax.lax.top_k`` may order tied scores differently;
-values agree, and ids wherever no tie exists.  The sharded retrieval
-(``top_k_items_sharded``) waits for the distributed slice (ROADMAP.md
-queue 1 item 10).
+values agree, and ids wherever no tie exists.  :func:`top_k_items_sharded`
+serves the items split over a device mesh.
 """
 
 from __future__ import annotations
@@ -23,9 +22,14 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import matmul_at
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    mesh_axis,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
+    local_block,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     _int8_padded,
@@ -118,10 +122,30 @@ def top_k_items_quantized(qt: QuantizedTables, user_ids, k: int):
 
 
 def top_k_items_sharded(mesh, tables: EmbeddingTables, user_batch, k: int,
-                        axis: str = "rows"):
-    """Distributed retrieval over a mesh of cards (items sharded over
-    ``axis``, JAX ``core/mesh.py``'s ROWS_AXIS): not ported yet."""
-    raise NotImplementedError(
-        "top_k_items_sharded (items sharded over several cards) is not "
-        "ported to the PyTorch package yet (ROADMAP.md, queue 1 item 10); "
-        "use top_k_items on one card")
+                        axis="rows") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed retrieval: the items split over ``axis`` (the item
+    table a row-sharded DTensor, or the whole table on every rank, whose
+    block each rank takes); each rank scores its items, takes a local
+    top-k with GLOBAL item ids, the (value, id) pairs are all-gathered
+    (ranks x k a user instead of n_items) and a final top-k runs on every
+    rank.  ``user_batch`` is the (batch, k_emb) slice of user embeddings,
+    replicated (the query side of serving).  Returns (scores, item ids),
+    (batch, k) each, the same on every rank."""
+    ax = mesh_axis(mesh, axis)
+    n_items = tables.items.shape[0]
+    if n_items % ax.size:
+        raise ValueError(f"n_items={n_items} must divide over {ax.size} "
+                         "ranks (pad the item table)")
+    items = local_block(tables.items, ax)
+    blk = items.shape[0]
+    scores = matmul_at(user_batch, items.T, DOT_PRECISION)
+    vals, ids = torch.topk(scores, min(k, blk))
+    ids = ids + ax.index * blk
+    # (ranks, batch, k') -> (batch, ranks k'), rank-major as JAX's tiled
+    # all_gather along axis 1
+    all_vals = collectives.all_gather(vals[None], ax.group)
+    all_ids = collectives.all_gather(ids[None], ax.group)
+    all_vals = all_vals.permute(1, 0, 2).reshape(vals.shape[0], -1)
+    all_ids = all_ids.permute(1, 0, 2).reshape(ids.shape[0], -1)
+    final_vals, pos = torch.topk(all_vals, k)
+    return final_vals, torch.gather(all_ids, 1, pos)

@@ -166,3 +166,20 @@ def kpca_from_jax(kp, device=None):
     out._inv_sqrt = from_numpy(kp._inv_sqrt, device)
     out.scores_ = from_numpy(kp.scores_, device)
     return out
+
+
+def shard_block(x, index: int, parts: int, dim: int = 0) -> np.ndarray:
+    """Block ``index`` of ``x`` cut into ``parts`` equal blocks along
+    ``dim`` (a JAX sharded result read as numpy): what rank ``index`` of
+    a split over ``parts`` ranks holds."""
+    arr = np.asarray(x)
+    step = arr.shape[dim] // parts
+    return np.take(arr, np.arange(index * step, (index + 1) * step),
+                   axis=dim)
+
+
+def unshard_blocks(blocks, dim: int = 0) -> np.ndarray:
+    """The whole array from the ranks' blocks (numpy or tensors), in
+    rank order: the reverse of :func:`shard_block`."""
+    return np.concatenate([to_numpy(b) if isinstance(b, torch.Tensor)
+                           else np.asarray(b) for b in blocks], axis=dim)

@@ -19,12 +19,22 @@ Two differences from JAX are forced by PyTorch:
   transform (``vmap``, ``grad``, ``jvp``) both branches are computed and
   selected with ``torch.where``, which is what ``jax.vmap`` makes of the
   ``lax.cond``: a batched flag cannot be read on the host.
+
+A row-split panel (``core/distributed.py::Sharded``) is factored as
+XLA's partitioner factors a row-sharded one: the CholeskyQR family by
+local Gram -> all-reduce -> replicated Cholesky -> local triangular
+apply, R replicated, and the 'robust' fallback flag read from the
+replicated Gram, so every rank takes the same branch; Householder, polar
+and the fused kernels K1/K2, which do not split by rows, gather the
+whole panel (counted by ``core/collectives.py``), factor it on every
+rank and keep each rank's rows.
 """
 
 from __future__ import annotations
 
 import torch
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
@@ -33,8 +43,12 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
 )
 
 
+# the methods that factor a row-split panel without gathering it
+_ROW_SPLIT = ("robust", "robust1", "cholqr1", "cholqr2", "cholqr3")
+
+
 def _gram(a):
-    return gram(a)
+    return a.gram() if isinstance(a, Sharded) else gram(a)
 
 
 def _chol_maybe_shifted(g, n_rows: int):
@@ -68,6 +82,8 @@ def _solve_right_upper(a, r):
     l = r.shape[-1]
     eye = torch.eye(l, dtype=r.dtype, device=r.device)
     r_inv = torch.linalg.solve_triangular(r, eye, upper=True)
+    if isinstance(a, Sharded):
+        return a.with_local(matmul(a.local, r_inv))
     return matmul(a, r_inv)
 
 
@@ -118,6 +134,9 @@ def cholesky_qr3(a):
 
 
 def _householder(a):
+    if isinstance(a, Sharded):
+        q, r = _householder(a.gather())
+        return a.keep_rows(q), r
     q, r = torch.linalg.qr(a, mode="reduced")
     return q, r
 
@@ -161,6 +180,9 @@ def qr_reduced(a, method: str = "robust"):
         # input dtype
         q, r = qr_reduced(a.to(torch.float32), method)
         return q.to(a.dtype), r.to(a.dtype)
+    if isinstance(a, Sharded) and method not in _ROW_SPLIT:
+        q, r = qr_reduced(a.gather(), method)
+        return a.keep_rows(q), r
     if method == "robust":
         return _householder_where(a, *robust_cholesky_qr2(a))
     if method == "robust1":

@@ -40,6 +40,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     matmul_at,
     svd_nan,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi import jacobi_svd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power import power_svd
@@ -83,15 +84,17 @@ def _gram_eigh_svd(a, eigh_fn=None):
         u, s, v = _gram_eigh_svd(a.to(torch.float32), eigh_fn)
         return u.to(dtype), s.to(dtype), v.to(dtype)
     if m <= n:
-        g = matmul_at(a, a.T, "highest")
+        split = isinstance(a, Sharded)         # a = C^T, C's rows split
+        at = a.T.local if split else a.T
+        g = a.T.gram() if split else matmul_at(a, a.T, "highest")
         lam, u = eigh_fn(g)                    # ascending
         lam = torch.clamp(lam.flip(0), min=0.0)
         u = u.flip(1)
         s = torch.sqrt(lam)
         safe = torch.clamp(s, min=torch.finfo(dtype).tiny)
-        v = matmul_at(a.T, u, "highest") / safe[None, :]
+        v = matmul_at(at, u, "highest") / safe[None, :]
         v = torch.where(s[None, :] > 0, v, torch.zeros_like(v))
-        return u, s, v
+        return u, s, (a.T.with_local(v) if split else v)
     v, s, u = _gram_eigh_svd(a.T, eigh_fn)
     return u, s, v
 
@@ -100,8 +103,16 @@ def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
     """A = U diag(s) V^T, truncated to rank ``r`` if r > 0 (r = 0: the
     full min(m, n) decomposition).  Engine keyword arguments go to the
     Jacobi and Power engines, and are dropped for 'xla' (and so for
-    'auto' above its threshold)."""
+    'auto' above its threshold).
+
+    ``a`` may be the transpose of a row-split panel (``.T`` of a
+    ``core/distributed.py::Sharded``, the rowspace finish's C^T): the
+    Gram engines run on its all-reduced Gram, V stays row-split; every
+    other engine runs on the gathered panel, each rank keeping its rows
+    of V."""
     method = SVDMethod.parse(method)
+    if isinstance(a, Sharded):
+        return _svd_split(a, method, r, **kwargs)
     if a.is_complex() and method is not SVDMethod.XLA:
         raise TypeError("the Jacobi/Power/Gram engines are real-only "
                         "(plain transposes throughout); use method='xla' "
@@ -125,6 +136,19 @@ def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
         u, s, v = _gram_eigh_svd(a, kernels.eigh_small)
     if r > 0:
         u, s, v = u[:, :r], s[:r], v[:, :r]
+    return u, s, v
+
+
+def _svd_split(a, method: SVDMethod, r: int, **kwargs):
+    if method is SVDMethod.GramEigh:
+        u, s, v = _gram_eigh_svd(a)
+    elif method is SVDMethod.GramEighPallas:
+        u, s, v = _gram_eigh_svd(a, kernels.eigh_small)
+    else:
+        u, s, v = svd(a.T.gather().T, method, **kwargs)
+        v = a.T.keep_rows(v)
+    if r > 0:
+        u, s, v = u[:, :r], s[:r], v.with_local(v.local[:, :r])
     return u, s, v
 
 

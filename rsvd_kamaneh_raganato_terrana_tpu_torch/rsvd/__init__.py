@@ -3,8 +3,9 @@ certificates, UTV, Frequent Directions, interpolative/CUR
 decompositions, DEIM, and the randomized-NLA extensions: block Krylov,
 sketched least squares, Nystrom and randomized eigh, trace and SLQ
 estimators, randomized LU, CCA, DMD, robust PCA and completion, the
-tensor formats (Tucker, TT, CP) and HODLR, and the out-of-core
-streaming drivers."""
+tensor formats (Tucker, TT, CP) and HODLR, the out-of-core streaming
+drivers, and the distributed ones: ``rsvd_sharded``, the ring driver
+``rsvd_ring`` and ``rsvd.multihost.rsvd_streaming_multihost``."""
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.cca import (  # noqa: F401
     CcaResult,
@@ -64,9 +65,13 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (  # noqa: F401
     rsvd_core,
     rsvd_image_preset,
     rsvd_onepass,
+    rsvd_sharded,
     rsvd_warm,
     rsvd_with_omega,
     subspace_iteration,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.ring import (  # noqa: F401
+    rsvd_ring,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.fd import (  # noqa: F401
     FrequentDirections,

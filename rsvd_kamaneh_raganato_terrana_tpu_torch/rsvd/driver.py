@@ -21,6 +21,18 @@ The other modes: ``rsvd_batched`` (a stack, one sketch per element),
 sketch, one pass over A), ``rsvd_adaptive`` (rank for an accuracy
 target) and the image preset ``rsvd_image_preset``.
 
+Sharded operands: a DTensor whose rows (and optionally columns) are
+sharded over a ``DeviceMesh``, or an :class:`Int8Stored` of row-sharded
+DTensors, goes through ``rsvd``/``rsvd_core``/``rsvd_with_omega`` with
+the numerics XLA's partitioner gives the JAX package: Y = A Omega and
+every m-sized panel stay row-sharded, Z = A^T Q and B = Q^T A are local
+products all-reduced over the rows (and gathered over a column split),
+the l x l work is replicated on every rank (``linalg/qr.py`` and
+``linalg/svd.py`` say how a row-split panel is factored).  U comes back
+as a row-sharded DTensor, s and V as replicated tensors.  Every
+collective is counted by ``core/collectives.py``.  :func:`rsvd_sharded`
+pads ragged rows and crops them.
+
 Sparse operands (a torch sparse tensor of any layout, the counterpart of
 the JAX package's BCOO) are held as :class:`SparseStored`: A and A^T as
 two CSR tensors built once, so every stage-A product is a forward CSR
@@ -36,11 +48,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     STORAGE_BF16,
     STORAGE_INT8,
     matmul_at,
     resolve_precision,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    from_dtensor,
+    is_dtensor,
+    mesh_axis,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.mesh import (
+    pad_rows_for_mesh,
+    shard_rows,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import rsvd_flops
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
@@ -98,10 +121,18 @@ class Int8Stored:
     reads one.  ``q8`` is the unpadded m x n view of the first layout.
     A plain holder (no autograd: quantization is not differentiable);
     ``.T`` flips a flag and copies nothing, and ``_mm`` dispatches on
-    it."""
+    it.  Q8 and the scales may be DTensors sharded by rows (the
+    multi-card serving layout); the driver then reads each rank's
+    block."""
 
     def __init__(self, q8, row_scale, transposed: bool = False,
                  layouts=None):
+        if is_dtensor(q8):
+            # row-sharded: the driver reads each rank's block
+            # (_sharded_view), which builds its own layouts
+            self.q8, self.row_scale = q8, row_scale
+            self.transposed, self.layouts = transposed, None
+            return
         if layouts is None:
             layouts = _int8_layouts(q8)
         self.layouts = layouts
@@ -197,12 +228,37 @@ def sparse_operand(a) -> SparseStored:
     return SparseStored(_csr(coo), _csr(coo.t().coalesce()))
 
 
+def _sharded_view(a):
+    """A DTensor operand, or an :class:`Int8Stored` of row-sharded
+    DTensors, as :class:`Sharded` (``core/distributed.py``); anything else
+    as it is."""
+    if is_dtensor(a):
+        return from_dtensor(a)
+    if isinstance(a, Int8Stored) and is_dtensor(a.q8):
+        if a.transposed:
+            raise ValueError("a sharded Int8Stored is read by rows: pass "
+                             "the untransposed operand")
+        view = from_dtensor(a.q8, Int8Stored(a.q8.to_local(),
+                                             a.row_scale.to_local()))
+        if view.cols is not None:
+            raise ValueError("int8 storage takes a row-sharded operand")
+        return view
+    return a
+
+
+def _cols(u, idx):
+    """Columns ``idx`` of a tensor or a row-split panel."""
+    if isinstance(u, Sharded):
+        return u.with_local(u.local[:, idx])
+    return u[:, idx]
+
+
 def _as_operand(a):
     """An :class:`Int8Stored` or :class:`SparseStored` stays as it is, a
     sparse tensor becomes a :class:`SparseStored` on its device, a dense
     tensor stays where it is; anything else (a numpy array, a list)
     becomes a tensor on the card."""
-    if isinstance(a, (Int8Stored, SparseStored)):
+    if isinstance(a, (Int8Stored, SparseStored, Sharded)):
         return a
     if isinstance(a, torch.Tensor):
         return sparse_operand(a) if is_sparse(a) else a
@@ -223,10 +279,13 @@ def quantize_int8_rows(a) -> Int8Stored:
     return Int8Stored(q8, scale[:, 0].to(out_dtype))
 
 
-def _quant_cols(b):
-    """(B8, t): per-column int8 quantization of a small dense operand."""
-    t = torch.clamp(torch.amax(torch.abs(b), dim=0, keepdim=True),
-                    min=torch.finfo(b.dtype).tiny) / 127.0
+def _quant_cols(b, amax=None):
+    """(B8, t): per-column int8 quantization of a small dense operand;
+    ``amax`` (1 x columns) stands in for its column absmax (a row-split
+    operand's, all-reduced)."""
+    if amax is None:
+        amax = torch.amax(torch.abs(b), dim=0, keepdim=True)
+    t = torch.clamp(amax, min=torch.finfo(b.dtype).tiny) / 127.0
     return torch.round(b / t).to(torch.int8), t
 
 
@@ -303,6 +362,60 @@ def _int8_mm(a: Int8Stored, b):
             * t.to(out_dtype))
 
 
+def _int8_t_mm_split(x: Sharded, q):
+    """A^T Q for a row-split :class:`Int8Stored` A and Q's local rows:
+    ``_int8_mm``'s transposed product with the column scales taken from
+    the all-reduced column absmax and the int32 partial products summed
+    over the rows, so the integers equal the single-card ones."""
+    a8 = x.local
+    bs = q * a8.row_scale[:, None].to(q.dtype)
+    amax = collectives.all_reduce(
+        torch.amax(torch.abs(bs), dim=0, keepdim=True), x.rows.group, "max")
+    b8, t = _quant_cols(bs, amax)
+    z = collectives.all_reduce(
+        _int8_product(a8.layouts[1], b8)[:a8.q8.shape[1]], x.rows.group)
+    out_dtype = torch.promote_types(q.dtype, torch.float32)
+    return z.to(out_dtype) * t.to(out_dtype)
+
+
+def _t_mm_split(x: Sharded, y: Sharded, precision):
+    """X^T Y for X and Y split by the same rows: the local products
+    summed over the rows, then gathered over a column split (A^T Q's rows
+    lie over A's columns, Q^T A's columns do); replicated."""
+    if isinstance(y.local, Int8Stored):
+        return _t_mm_split(y, x, precision).T          # Q^T A = (A^T Q)^T
+    if isinstance(x.local, Int8Stored):
+        z = _int8_t_mm_split(x, y.local)
+    else:
+        z = collectives.all_reduce(_mm(x.local.T, y.local, precision),
+                                   x.rows.group)
+    if x.cols is not None:
+        z = collectives.all_gather(z, x.cols.group)
+    if y.cols is not None:
+        z = collectives.all_gather(z.T, y.cols.group).T
+    return z
+
+
+def _sharded_mm(a, b, precision):
+    """A product with a row-split operand (:class:`Sharded`), with the
+    collectives XLA's partitioner inserts for it: A B (B replicated) is
+    the local rows' product, its partial sums all-reduced where A's
+    columns are split, and stays row-split; X^T Y of two row-split
+    operands is :func:`_t_mm_split`."""
+    if isinstance(a, Sharded) and isinstance(b, Sharded) \
+            and a.transposed and not b.transposed:
+        return _t_mm_split(a.T, b, precision)
+    if not isinstance(a, Sharded) or a.transposed or isinstance(b, Sharded):
+        raise TypeError("a sharded product is A B with B replicated or "
+                        "X^T Y with both split by rows")
+    if a.cols is not None:
+        b = b[a.col_start:a.col_start + a.local.shape[1]]
+    y = _mm(a.local, b, precision)
+    if a.cols is not None:
+        y = collectives.all_reduce(y, a.cols.group)
+    return Sharded(y, (a.shape[0], y.shape[1]), a.mesh, a.rows)
+
+
 def _mm(a, b, precision=DOT_PRECISION):
     """A @ B with the JAX driver's dtype rules: an :class:`Int8Stored`
     operand takes the int8 path (precision does not apply); a sparse one
@@ -311,6 +424,8 @@ def _mm(a, b, precision=DOT_PRECISION):
     operand mixed with a wider one -> the SMALL side is rounded to bf16
     and the product accumulates and returns in the wide dtype (never
     widening the big operand); any other mix promotes."""
+    if isinstance(a, Sharded) or isinstance(b, Sharded):
+        return _sharded_mm(a, b, precision)
     if isinstance(a, Int8Stored):
         return _int8_mm(a, b)
     if isinstance(b, Int8Stored):
@@ -337,6 +452,10 @@ def _mm(a, b, precision=DOT_PRECISION):
 def _colnormalize(y):
     """Diagonal column scaling to unit norms (``interior_qr='none'``)."""
     acc = torch.promote_types(y.dtype, torch.float32)
+    if isinstance(y, Sharded):
+        scale = 1.0 / torch.clamp(torch.sqrt(y.col_sumsq()),
+                                  min=torch.finfo(acc).tiny)
+        return y.with_local(y.local * scale.to(y.dtype)[None, :])
     norms = torch.sqrt(torch.sum(torch.square(y.to(acc)), dim=0))
     scale = 1.0 / torch.clamp(norms, min=torch.finfo(acc).tiny)
     return y * scale.to(y.dtype)[None, :]
@@ -402,8 +521,18 @@ def _stage_operand(a, precision):
     storage mode, quantized to :class:`Int8Stored` for 'int8', else A.
     An :class:`Int8Stored` is read as it is under any precision; a
     sparse operand becomes a :class:`SparseStored`, neither cast nor
-    quantized (JAX driver.py:333-343)."""
-    if isinstance(a, Int8Stored):
+    quantized (JAX driver.py:333-343).  A row-split operand is cast or
+    quantized block by block (the scales are per row)."""
+    if isinstance(a, Sharded) and not isinstance(a.local, Int8Stored):
+        if precision in STORAGE_INT8:
+            if a.cols is not None:
+                raise ValueError("int8 storage takes a row-sharded operand")
+            return Sharded(quantize_int8_rows(a.local), a.shape, a.mesh,
+                           a.rows)
+        if precision in STORAGE_BF16 and a.dtype.itemsize > 2:
+            return a.to(torch.bfloat16)
+        return a
+    if isinstance(a, (Int8Stored, Sharded)):
         return a
     if is_sparse(a):
         return sparse_operand(a)
@@ -416,7 +545,7 @@ def _stage_operand(a, precision):
 
 def _sorted_by_weight(u, s, v):
     order = torch.argsort(-s, stable=True)    # weights are near-sorted
-    return u[:, order], s[order], v[:, order]
+    return _cols(u, order), s[order], v[:, order]
 
 
 def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
@@ -448,8 +577,13 @@ def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
       thin QR of C; the same weight / unit-column contract as 'utv'.
 
     ``method`` is the small-SVD engine of the tail (``linalg/svd.py``);
-    the default 'jacobi' is the JAX signature's."""
+    the default 'jacobi' is the JAX signature's.
+
+    ``a`` may be sharded (the module docstring), Omega the same tensor on
+    every rank: U is then a row-sharded DTensor, s and V replicated
+    tensors."""
     _check_options(method, precision, finish)
+    a = _sharded_view(a)
     a_stage = _stage_operand(a, precision)
     if finish in ("rowspace", "rowspace_utv"):
         if q < 1:
@@ -484,7 +618,9 @@ def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
             u_t, s, v = small_svd(b, method)
             u = _mm(q_mat, u_t)
     if k > 0:
-        u, s, v = u[:, :k], s[:k], v[:, :k]
+        u, s, v = _cols(u, slice(None, k)), s[:k], v[:, :k]
+    if isinstance(u, Sharded):
+        u = u.to_dtensor()
     return u, s, v
 
 
@@ -498,7 +634,9 @@ def rsvd_core(a, seed, *, k, p, q, method, sketch, qr_method, precision,
     runs the stage-A refinement on A as it is: as in the JAX package, the
     storage modes 'bf16' and 'int8' then neither cast nor quantize A
     (their products keep 'default' numerics), and an
-    :class:`Int8Stored` operand raises ``TypeError``."""
+    :class:`Int8Stored` operand raises ``TypeError``; so does a sharded
+    one."""
+    a = _sharded_view(a)
     m, n = a.shape
     l = min(k + p if k > 0 else p, min(m, n))
     if sketch == "fused":
@@ -506,9 +644,9 @@ def rsvd_core(a, seed, *, k, p, q, method, sketch, qr_method, precision,
             raise ValueError("sketch='fused' (a documented negative-"
                              "result experiment) only supports "
                              "finish='project'")
-        if is_sparse(a):
-            raise TypeError("sketch='fused' reads a dense operand (kernel "
-                            "K4); use sketch='gaussian' for a sparse one")
+        if is_sparse(a) or isinstance(a, Sharded):
+            raise TypeError("sketch='fused' reads a dense single-card "
+                            "operand (kernel K4); use sketch='gaussian'")
         _check_options(method, precision, finish)
         y = kernels.fused_sketch_matmul(a, l, seed)
         inner = qr_method if interior_qr is None or q == 0 else interior_qr
@@ -551,9 +689,10 @@ def rsvd(
     :func:`quantize_int8_rows` when factoring the same A repeatedly);
     sketch: 'gaussian', 'rademacher' or 'fused' (kernel K4, see
     :func:`rsvd_core`).  A tensor stays on its device (a sparse one as
-    :class:`SparseStored`); any other array goes to the card."""
+    :class:`SparseStored`), a sharded one (a DTensor) where it lies;
+    any other array goes to the card."""
     method = SVDMethod.parse(method)
-    a = _as_operand(a)
+    a = _sharded_view(_as_operand(a))
     if a.dtype.is_complex:
         raise TypeError("rsvd supports real dtypes only (the Gram/"
                         "projection chain uses plain transposes)")
@@ -570,6 +709,43 @@ def reconstruct(u, s, v):
 def reconstruction_error(a, u, s, v):
     """||A - U diag(s) V^T||_F."""
     return torch.linalg.norm(a - reconstruct(u, s, v))
+
+
+def rsvd_sharded(a, mesh, k: int = 0, row_axis="rows", **kwargs):
+    """``rsvd`` on a device mesh with ragged rows held for the caller.
+
+    The reference balanced non-dividing row counts with its
+    rows_per_proc/rows_remainder idiom (src/PM.cpp:31-35).  Here zero rows
+    are appended once so that dim 0 divides the ``row_axis`` ranks, the
+    padded matrix is row-sharded, and the zero rows' factor rows are
+    cropped from U: exact, because rsvd([A; 0]) = ([U; 0], s, V).  ``a``
+    is the full matrix on every rank (a tensor, or an array, which goes
+    to the card), or a pre-quantized :class:`Int8Stored`, whose int8
+    values pad with zero rows and row scales with ones (both exact).
+
+    Accepts every ``rsvd`` keyword.  Returns (U, s, V): U a DTensor
+    row-sharded over ``row_axis`` whose ``full_tensor()`` is the m x k U
+    of the single-card call; its ragged rows are held as DTensor holds an
+    uneven split (``torch.chunk``'s: ceil(m / P) rows a rank, the last
+    ranks fewer, or none).  s and V are replicated tensors."""
+    if isinstance(a, Int8Stored):
+        if a.transposed:
+            raise ValueError("rsvd_sharded shards ROWS: pass the "
+                             "untransposed Int8Stored")
+        q_pad, rows = pad_rows_for_mesh(a.q8, mesh, row_axis)
+        scale = torch.cat([a.row_scale, a.row_scale.new_ones(
+            q_pad.shape[0] - rows)])
+        ax = mesh_axis(mesh, row_axis)
+        step = q_pad.shape[0] // ax.size
+        part = slice(ax.index * step, (ax.index + 1) * step)
+        a_sh = Sharded(Int8Stored(q_pad[part], scale[part]), q_pad.shape,
+                       mesh, ax)
+        kwargs.setdefault("precision", "int8")
+    else:
+        a_pad, rows = pad_rows_for_mesh(_as_operand(a), mesh, row_axis)
+        a_sh = shard_rows(a_pad, mesh, row_axis)
+    u, s, v = rsvd(a_sh, k=k, **kwargs)
+    return from_dtensor(u).to_dtensor(rows), s, v
 
 
 def rsvd_image_preset(a, k: int = -1, seed: int = 0):

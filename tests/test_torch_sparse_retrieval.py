@@ -238,7 +238,25 @@ def test_quantized_retrieval(rng):
     np.testing.assert_array_equal(to_numpy(items_q), np.asarray(ij))
 
 
-def test_top_k_items_sharded_waits_for_the_distributed_slice(rng):
-    tables = tret.factorize_interactions(from_numpy(_interactions(rng)), k=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tret.top_k_items_sharded(None, tables, tables.users[:2], k=3)
+def test_top_k_items_sharded_waits_for_the_distributed_slice(rng, mesh8):
+    """Ported with the distributed slice: ``top_k_items_sharded`` on a
+    one-rank group (this process) against JAX's on mesh8, on JAX's
+    tables; the four-rank case is in tests/test_torch_distributed.py."""
+    from _torch_ranks import one_rank_group
+    from rsvd_kamaneh_raganato_terrana_tpu.core.mesh import (
+        shard_rows as jax_shard_rows,
+    )
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core.mesh import make_mesh
+
+    a = _interactions(rng)
+    tj = jret.factorize_interactions(jax_shard_rows(jnp.asarray(a), mesh8),
+                                     k=4)
+    users = tj.users[:2]
+    vals_j, ids_j = jret.top_k_items_sharded(mesh8, tj, users, k=3)
+    tables = convert.tables_from_jax(tj, device="cpu")
+    with one_rank_group():
+        vals, ids = tret.top_k_items_sharded(make_mesh(device="cpu"), tables,
+                                             tables.users[:2], k=3)
+    np.testing.assert_array_equal(to_numpy(ids), np.asarray(ids_j))
+    np.testing.assert_allclose(to_numpy(vals), np.asarray(vals_j),
+                               rtol=1e-12)
