@@ -225,8 +225,36 @@ Phases (any failure raises; nothing is caught):
    operand, 25000 rows a rank, through K1 (2 a rank, on the replicated Z)
    and K3 (1), each launch held to its plain version, sigma within 1e-4
    of sigma_1 of the single-card call and the error over the noise
-   within 1.01.
-13. A ``kernels`` JSON line, the card's name and power limit, and as the
+   within 1.01.  ``dryrun_multichip(4)`` includes the batched-vmap and
+   tiled-image stages.
+13. Sharded operands beyond the driver.  (a) A one-rank NCCL group in
+   this process, every call at its phase's full size on a sharded
+   operand against the single-card call, bitwise (the codecs, whose
+   sharded runs factor with Householder QR, within the JAX dry run's
+   1e-3 of sigma_1),
+   with its collectives and both calls' wall seconds:
+   ``rsvd_batched`` of 16 x 1024^2 (k 64, p 16) sharded on its batch
+   dim, 'scan' and 'vmap', each also with ``method='eigh_pallas'`` (K3
+   16 launches a call, each held to its plain version in 'scan');
+   ``compress_tiled(mesh=)`` of the 4096^2 photo (k 80, (2, 2)) and
+   ``compress_video(mesh=)`` of 8 x 1080 x 1920 (k 32); ``hutchinson``,
+   ``hutchpp`` and ``logdet_psd`` at 8192^2; ``sketch_lstsq`` at
+   262144 x 512; ``tucker`` of a planted 1024^3 (ranks 64) sharded on
+   mode 0; ``rutv(qr_method='cholqr1_fused')`` at 4096^2 (K1 6
+   launches on the gathered panels, each held to its plain version,
+   dR <= 1e-5 of max |R|); ``complete_lowrank`` and ``rpca`` at 4096^2;
+   ``rlu`` at 8192^2; ``nystrom_psd`` of the 16384-point RBF kernel;
+   FrequentDirections(1024, 128) over phase 7's 262144 x 1024 rows with
+   its buffer column-sharded; ``deim_fit`` of phase 9's 65536 x 401
+   snapshots.  (b) Four spawned ranks sharing the card over gloo, the
+   same calls (FD's stream and Tucker's side cut, P13B_*), each against
+   the single call on rank 0 within 1e-4 (the batched calls and the
+   codecs: the dry run's 1e-3; sigma-like quantities over
+   their largest, spans by their largest sine, trace estimates and
+   solutions relative, DEIM and rLU indices equal, FD's S^T S over its
+   largest), beside the single call's own shift when every draw is
+   multiplied by 1 + 1e-7 xi.
+14. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -332,6 +360,9 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import (
     complete_lowrank,
     complete_tucker,
     cp_decompose,
+    deim_fit,
+    rutv,
+    tucker,
     cp_reconstruct,
     hodlr_build,
     hodlr_compression_ratio,
@@ -4415,6 +4446,485 @@ def phase_distributed():
     return launches, out
 
 
+P13_RANKS = 4
+P13_TIMEOUT = 480.0       # s: the four ranks' whole run
+P13_TOL = 1e-4            # (b): sigma-like and span tolerances, of the max
+# the JAX dry run's bar of the batched and tiled-image stages
+# (__graft_entry__.py:272-273, :292): K3's tail moves sigma by ~1e-4 of
+# sigma_1 when Omega moves by 1e-7 (its rotations are not orthogonal)
+P13_BATCH_TOL = 1e-3
+P13_K1_DR = 1e-5          # K1 on the gathered panels: max |dR| / max |R|
+P13_PERTURB = 1e-7        # the single call's own shift: draws x (1 + 1e-7 xi)
+P13_DEIM_M = 16           # deim_fit's basis: the 16 modes of the snapshots
+# phase 13 (a) runs every size as phases 5, 7, 9 and 10 do; (b)'s four
+# ranks share the card and gloo's host hops, so the sizes below are its
+# cuts (PERF.md lists them): (rows a rank of FD's stream, Tucker's side)
+P13B_FD_ROWS, P13B_TUCKER_N = 32768, 512
+# every draw of the slice's modules, for the perturbed single call
+P13_DRAWS = (("rsvd.driver", "generate_omega"),
+             ("rsvd.trace", "sketch_matrix"), ("rsvd.slq", "rademacher"),
+             ("rsvd.lstsq", "sketch_matrix"),
+             ("rsvd.tucker", "generate_omega"),
+             ("rsvd.utv", "generate_omega"),
+             ("rsvd.completion", "sketch_matrix"),
+             ("rsvd.rpca", "sketch_matrix"), ("apps.image", "sketch_matrix"))
+
+
+@contextlib.contextmanager
+def p13_perturbed():
+    """Every draw of the slice's modules times (1 + 1e-7 xi), xi Gaussian:
+    the single call's own sensitivity to a roundoff-level change."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with contextlib.ExitStack() as stack:
+        for mod, name in P13_DRAWS:
+            module = importlib.import_module(
+                "rsvd_kamaneh_raganato_terrana_tpu_torch." + mod)
+
+            def draw(*args, _real=getattr(module, name), **kwargs):
+                x = _real(*args, **kwargs)
+                return x * (1.0 + P13_PERTURB * torch.randn(
+                    x.shape, device=x.device, dtype=x.dtype, generator=gen))
+            stack.enter_context(mock.patch.object(module, name, draw))
+        yield
+
+
+def p13_whole(x):
+    """A result with every DTensor gathered whole through the counted
+    collectives (rows or columns over the mesh's first axis), tuples and
+    NamedTuples walked, numpy arrays and numbers as they are."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+        is_dtensor,
+    )
+
+    if is_dtensor(x):
+        group = x.device_mesh.get_group(0)
+        if x.placements[0] == Shard(1):
+            return collectives.all_gather(x.to_local().T.contiguous(),
+                                          group).T
+        return collectives.all_gather(x.to_local(), group)
+    if isinstance(x, tuple):
+        return [p13_whole(v) for v in x]
+    return x
+
+
+def p13_tensors(x):
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in p13_tensors(v)]
+    return [torch.as_tensor(x)]
+
+
+def p13_bitwise(got, want):
+    return all(torch.equal(a.cpu(), b.cpu()) for a, b in
+               zip(p13_tensors(got), p13_tensors(want)))
+
+
+def p13_sines(x, y):
+    """Largest sine of the principal angles between two column spans."""
+    qx = torch.linalg.qr(x.double())[0]
+    qy = torch.linalg.qr(y.double())[0]
+    return float(torch.linalg.matrix_norm(qy - qx @ (qx.T @ qy), ord=2))
+
+
+def p13_compare(kinds, got, want):
+    """Each named quantity of one call against another's: 'sigma' max
+    |d| over max |ref| (per row of a stack: its own first); 'span' the
+    largest sine between the spans; 'index' equal; 'value' relative
+    norm; 'gram' of S: max |d (S^T S)| over max |S^T S|."""
+    out = {}
+    for name, kind in kinds.items():
+        a, b = (torch.as_tensor(x).double() for x in (got[name],
+                                                      want[name]))
+        if kind == "sigma":
+            ref = b[..., :1].abs() if b.ndim > 1 else b.abs().max()
+            out[name] = float(((a - b).abs() / ref).max())
+        elif kind == "span":
+            out[name] = max(p13_sines(x, y) for x, y in zip(
+                a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])))
+        elif kind == "index":
+            out[name] = bool(torch.equal(a, b))
+        elif kind == "value":
+            out[name] = float(torch.linalg.vector_norm(a - b)
+                              / torch.linalg.vector_norm(b))
+        else:
+            ga, gb = a.T @ a, b.T @ b
+            out[name] = float((ga - gb).abs().max() / gb.abs().max())
+    return out
+
+
+def p13_within(diffs, tol):
+    return all(v is True or (not isinstance(v, bool) and v <= tol)
+               for v in diffs.values())
+
+
+class P13Item:
+    """One call of the slice, on a sharded operand and on the whole one:
+    ``build()`` makes the operands (every rank alike, from seeds),
+    ``place(ops, meshes)`` lays them out on the meshes (with meshes
+    None: as the single call takes them), ``call`` runs the port on
+    what ``place`` gives; ``pick`` maps a result (DTensors gathered) to
+    the named quantities that ``kinds`` says how to compare; ``kernel``
+    names a wrapper whose launches in the sharded call are recorded and
+    held to its plain version; ``tol`` is the bar of the four-rank
+    comparison."""
+
+    def __init__(self, name, build, call, pick, kinds, place=None,
+                 kernel=None, launches=NONE, tol=P13_TOL):
+        self.name, self.build, self.call = name, build, call
+        self.place = place or (lambda ops, meshes: shard_rows(
+            ops, meshes["rows"]) if meshes else ops)
+        self.pick, self.kinds = pick, kinds
+        self.kernel, self.launches, self.tol = kernel, launches, tol
+
+
+def p13_run(item, meshes, rank, bitwise, say):
+    """One item: the sharded call (its collectives, launches and wall
+    seconds, one call on operands laid out before the clock starts), the
+    single call on rank 0 (one call, after it), and their comparison:
+    bitwise on one rank, within ``item.tol`` on four, beside the single
+    call's own shift under perturbed draws."""
+    ops = item.build()
+    placed = item.place(ops, meshes)
+    rec = None
+    with contextlib.ExitStack() as stack:
+        if item.kernel is not None:
+            rec = Recorder(getattr(kernels, item.kernel))
+            stack.enter_context(mock.patch.object(kernels, item.kernel, rec))
+        torch.cuda.synchronize()
+        reset_counts()
+        collectives.reset()
+        got, t_sh = timed(lambda: item.call(placed))
+        launches = counts()
+        tally = collectives.tally()
+    got = p13_whole(got)
+    out = dict(collectives=tally, sharded_s=t_sh,
+               launches_k1_to_k5b=list(launches))
+    check(launches == item.launches,
+          f"phase 13 {item.name}: launches {launches}")
+    if rec is not None and rank == 0:
+        compare = (cholqr1_vs_plain if item.kernel == "fused_cholqr1"
+                   else eigh_vs_plain)
+        out["kernel_calls_vs_plain"] = recorded_vs_plain(rec, compare)
+        if item.kernel == "fused_cholqr1":
+            check(all(c[2] <= P13_K1_DR for c in
+                      out["kernel_calls_vs_plain"]),
+                  f"phase 13 {item.name}: K1 {out['kernel_calls_vs_plain']}")
+    if rank == 0:
+        whole = item.place(ops, None)
+        want, out["single_s"] = timed(lambda: item.call(whole))
+        diffs = p13_compare(item.kinds, item.pick(got), item.pick(want))
+        out["vs_single"] = diffs
+        if bitwise:
+            out["bitwise"] = p13_bitwise(got, want)
+            check(out["bitwise"] or item.name in ("image_tiled", "video"),
+                  f"phase 13 {item.name}: not bitwise the single call")
+        else:
+            with p13_perturbed():
+                moved = item.call(whole)
+            out["single_vs_perturbed"] = p13_compare(
+                item.kinds, item.pick(moved), item.pick(want))
+        floats = [t for t in p13_tensors(list(item.pick(got).values()))
+                  if t.is_floating_point()]
+        check(finite(*floats) and p13_within(diffs, item.tol),
+              f"phase 13 {item.name}: {out}")
+    say(f"  {item.name}: " + json.dumps(out))
+    del ops, placed
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def p13_spd(n, seed):
+    """X X^T / n + I of a Gaussian X: SPD, eigenvalues in [1, ~5]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, n, device="cuda", generator=gen)
+    with device.ieee_fp32():
+        a = x @ x.T / n
+    a.diagonal().add_(1.0)
+    return 0.5 * (a + a.T)
+
+
+def p13_planted_tucker(n, seed):
+    """A rank-(64, 64, 64) n^3 tensor plus noise at 1e-3 of its norm."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = TUCKER_R
+    signal = tucker_reconstruct(
+        torch.randn(r, r, r, device="cuda", generator=gen),
+        tuple(orthonormal(n, r, gen) for _ in range(3)))
+    return planted(signal, gen)[0]
+
+
+def p13_low_rank(n, rank, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with device.ieee_fp32():
+        return torch.randn(n, rank, device="cuda", generator=gen) @ \
+            torch.randn(rank, n, device="cuda", generator=gen) \
+            / math.sqrt(rank)
+
+
+def p13_rpca_operand():
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    m = p13_low_rank(RPCA_N, RPCA_RANK, 21)
+    spikes = torch.rand(RPCA_N, RPCA_N, device="cuda", generator=gen)
+    return m + torch.where(spikes < RPCA_FRAC, 10.0 * torch.randn(
+        RPCA_N, RPCA_N, device="cuda", generator=gen), 0.0)
+
+
+def p13_completion_operand():
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    a = p13_low_rank(COMP_N, COMP_RANK, 23)
+    return a, torch.rand(COMP_N, COMP_N, device="cuda",
+                         generator=gen) < COMP_FRAC
+
+
+def p13_snapshots():
+    """Phase 9's DMD snapshot stack (65536 x 401, 16 modes), f32."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    theta = torch.linspace(0.1, 2.5, DMD_PAIRS, device="cuda",
+                           dtype=torch.float64)
+    radius = torch.linspace(0.996, 0.9995, DMD_PAIRS, device="cuda",
+                            dtype=torch.float64)
+    mu = torch.polar(radius, theta)
+    phi = torch.complex(*(torch.randn(DMD_N, DMD_PAIRS, device="cuda",
+                                      generator=gen, dtype=torch.float64)
+                          for _ in range(2)))
+    t = torch.arange(DMD_M, device="cuda", dtype=torch.float64)
+    return (2.0 * (phi @ (mu[:, None] ** t[None, :])).real).float()
+
+
+def p13_fd(ops, buf_placed, batch=STREAM_BATCH):
+    """FrequentDirections(1024, 128) over the host rows in ``ops``, its
+    buffer laid out by ``buf_placed``; (sketch, top eigenvalues)."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.fd import (
+        FrequentDirections,
+    )
+
+    fd = FrequentDirections(PCA_D, STREAM_L, device="cuda")
+    fd._buf = buf_placed(fd._buf)
+    for i in range(0, ops.shape[0], batch):
+        fd.update(ops[i:i + batch])
+    return fd.sketch(), fd.eigh_estimate(STREAM_K)[0]
+
+
+def p13_items(full, world=1):
+    """The slice's calls at phase 13's sizes: (a) ``full``, (b) cut where
+    P13B_* says; ``world`` ranks split the batch."""
+    def batch_stack():
+        return torch.randn(BATCH, BATCH_SIDE, BATCH_SIDE, device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(40))
+
+    def batched_item(name, method, mode, kernel=None):
+        return P13Item(
+            name, batch_stack,
+            lambda a: rsvd_batched(a, k=K, p=P, mode=mode, method=method),
+            lambda r: dict(sigma=r[1]), dict(sigma="sigma"),
+            place=lambda a, meshes: distribute(
+                a, meshes["batch"], (Shard(0),)) if meshes else a,
+            kernel=kernel, tol=P13_BATCH_TOL, launches=launches_of(
+                k3=BATCH // world if method == "eigh_pallas" else 0))
+
+    def with_mesh(data, meshes):            # the codecs take mesh=
+        return data, meshes and meshes["batch"]
+
+    def tiled(args):
+        im = image.Image(args[0]).compress_tiled(k=IMG_K, grid=IMG_GRID,
+                                                 mesh=args[1])
+        return (im.tile_factors.u, im.tile_factors.s, im.tile_factors.v,
+                im.reconstruct())
+
+    def video_frames():
+        t, h, w = VIDEO
+        pan = photo((h, w + 16 * t), seed=13)
+        return np.stack([pan[:, 16 * i:16 * i + w] for i in range(t)])
+
+    def fd_rows():
+        x = pca_operand()
+        return to_numpy(x if full else x[:P13B_FD_ROWS])
+
+    def fd_buffer(rows, meshes):            # the buffer column-sharded
+        if not meshes:
+            return rows, lambda buf: buf
+        return rows, lambda buf: distribute(buf, meshes["rows"],
+                                            (Shard(1),))
+
+    def rows_of(*sharded):                  # which operands are row-split
+        return lambda ops, meshes: tuple(
+            shard_rows(x, meshes["rows"]) if meshes and split else x
+            for x, split in zip(ops, sharded))
+
+    tucker_n = TUCKER_N if full else P13B_TUCKER_N
+    return [
+        batched_item("rsvd_batched_scan", "eigh", "scan"),
+        batched_item("rsvd_batched_vmap", "eigh", "vmap"),
+        batched_item("rsvd_batched_eigh_pallas", "eigh_pallas", "scan",
+                     kernel="eigh_small"),
+        batched_item("rsvd_batched_vmap_eigh_pallas", "eigh_pallas",
+                     "vmap"),
+        P13Item("image_tiled", lambda: photo((IMG_SIDE, IMG_SIDE), seed=1),
+                tiled, lambda r: dict(sigma=r[1], rec=r[3]),
+                dict(sigma="sigma", rec="value"), place=with_mesh,
+                tol=P13_BATCH_TOL),
+        P13Item("video", video_frames,
+                lambda args: image.compress_video(args[0], k=VIDEO_K,
+                                                  mesh=args[1]),
+                lambda r: dict(sigma=r[1]), dict(sigma="sigma"),
+                place=with_mesh, tol=P13_BATCH_TOL),
+        P13Item("hutchinson", lambda: p13_spd(TR_N, 16), hutchinson,
+                lambda r: dict(est=r[0], se=r[1]),
+                dict(est="value", se="value")),
+        P13Item("hutchpp", lambda: p13_spd(TR_N, 16), hutchpp,
+                lambda r: dict(est=r), dict(est="value")),
+        P13Item("logdet_psd", lambda: p13_spd(TR_N, 16), logdet_psd,
+                lambda r: dict(est=r), dict(est="value")),
+        P13Item("sketch_lstsq", lambda: ls_operand(18),
+                lambda ops: sketch_lstsq(*ops), lambda r: dict(x=r),
+                dict(x="value"), place=rows_of(True, False)),
+        P13Item("tucker", lambda: p13_planted_tucker(tucker_n, 30),
+                lambda a: tucker(a, (TUCKER_R,) * 3),
+                lambda r: dict(core=torch.linalg.svdvals(
+                    torch.as_tensor(r[0]).double().reshape(TUCKER_R, -1)),
+                    u0=r[1][0], u1=r[1][1], u2=r[1][2]),
+                dict(core="sigma", u0="span", u1="span", u2="span")),
+        P13Item("rutv_cholqr1_fused", lambda: p12_operand()[0],
+                lambda a: rutv(a, k=K, p=P, qr_method="cholqr1_fused"),
+                lambda r: dict(sigma=torch.diagonal(r[1])),
+                dict(sigma="sigma"), kernel="fused_cholqr1",
+                launches=launches_of(k1=2 * Q + 2)),
+        P13Item("complete_lowrank", p13_completion_operand,
+                lambda ops: complete_lowrank(*ops, k=COMP_RANK,
+                                             iters=COMP_ITERS),
+                lambda r: dict(sigma=r[1]), dict(sigma="sigma"),
+                place=rows_of(True, True)),
+        P13Item("rpca", p13_rpca_operand,
+                lambda a: rpca(a, k_max=2 * RPCA_RANK, iters=RPCA_ITERS),
+                lambda r: dict(low=r[0]), dict(low="value")),
+        # l = the planted rank: every pivot is set by the signal, none by
+        # the noise floor
+        P13Item("rlu", lambda: p13_low_rank(RLU_N, RLU_RANK, 17)
+                + RLU_NOISE * torch.randn(
+                    RLU_N, RLU_N, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        18)),
+                lambda a: rlu(a, k=RLU_RANK - P, p=P, q=Q),
+                lambda r: dict(perm_rows=r[0], perm_cols=r[1],
+                               l_factor=r[2], u_factor=r[3]),
+                dict(perm_rows="index", perm_cols="index",
+                     l_factor="value", u_factor="value")),
+        P13Item("nystrom_psd", lambda: rbf_kernel(NYS_POINTS, NYS_DIM,
+                                                  NYS_H, seed=11),
+                lambda a: nystrom_psd(a, k=NYS_K),
+                lambda r: dict(lam=r[1]), dict(lam="sigma")),
+        P13Item("frequent_directions_cols", fd_rows,
+                lambda args: p13_fd(*args),
+                lambda r: dict(sketch=r[0], lam=r[1]),
+                dict(sketch="gram", lam="sigma"), place=fd_buffer),
+        P13Item("deim_fit", p13_snapshots,
+                lambda a: deim_fit(a, m=P13_DEIM_M),
+                lambda r: dict(indices=r[1], proj=r[2]),
+                dict(indices="index", proj="value")),
+    ]
+
+
+def p13_meshes(device_type="cuda"):
+    """The 1-D meshes of phase 13, after small batched calls on a
+    batch-sharded stack that take the solver libraries' and DTensor's
+    first-use set-up out of the timings."""
+    meshes = dict(rows=make_mesh(device=device_type),
+                  batch=make_mesh(axis_names=("batch",), device=device_type))
+    small = torch.randn(2 * meshes["batch"].size(), 128, 128,
+                        device=device_type)
+    for mode in ("scan", "vmap"):
+        rsvd_batched(distribute(small, meshes["batch"], (Shard(0),)), k=8,
+                     mode=mode)
+    torch.cuda.synchronize()
+    return meshes
+
+
+def p13_one_rank_nccl():
+    """Phase 13a: a one-rank NCCL group in this process: every call of
+    the slice at full size on a sharded operand, bitwise the single call
+    (the codecs, whose sharded runs factor with Householder QR, within
+    P13_BATCH_TOL), K3 in the batched calls and K1 in rutv held to their
+    plain versions."""
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    out, launches = {}, list(NONE)
+    try:
+        meshes = p13_meshes()
+        for item in p13_items(full=True):
+            got, out[item.name] = p13_run(item, meshes, 0, True, log)
+            launches = [x + y for x, y in zip(launches, got)]
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def p13_rank(rank, world, port, results):
+    """One of phase 13b's four ranks sharing the card over gloo."""
+    torch.cuda.set_device(0)
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    say = log if rank == 0 else (lambda msg: None)
+    out, launches = {}, list(NONE)
+    meshes = p13_meshes()
+    for item in p13_items(full=False, world=world):
+        got, out[item.name] = p13_run(item, meshes, rank, False, say)
+        launches = [x + y for x, y in zip(launches, got)]
+    results.put((rank, out, launches))
+    dist.destroy_process_group()
+
+
+def p13_four_ranks():
+    """Phase 13b: four spawned ranks sharing the card over gloo; any
+    rank's non-zero exit or the time limit fails the phase."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=p13_rank, args=(r, P13_RANKS, port, results))
+             for r in range(P13_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + P13_TIMEOUT
+    try:
+        while len(got) < P13_RANKS:
+            check(time.monotonic() < deadline,
+                  f"phase 13 ranks gave {len(got)} results in {P13_TIMEOUT} s")
+            failed = [p.exitcode for p in procs if p.exitcode]
+            check(not failed, f"phase 13 rank exit codes {failed}")
+            try:
+                rank, out, launches = results.get(timeout=2.0)
+            except queue.Empty:
+                continue
+            got[rank] = (out, launches)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 13 rank exit codes {[p.exitcode for p in procs]}")
+    launches = [sum(got[r][1][i] for r in got) for i in range(len(NONE))]
+    return launches, dict(rank0=got[0][0], ranks=P13_RANKS,
+                          launches_all_ranks=launches,
+                          cuts=dict(fd_rows_a_rank_stream=P13B_FD_ROWS,
+                                    tucker_side=P13B_TUCKER_N))
+
+
+def phase_sharded_extensions():
+    """Phase 13: sharded operands beyond the driver.  Returns ((K1, K2,
+    K3, K4, K5a, K5b) launches of its counted runs, summary)."""
+    t0 = time.perf_counter()
+    out = {}
+    la, out["nccl_one_rank"] = p13_one_rank_nccl()
+    out["a_s"] = time.perf_counter() - t0
+    lb, out["gloo_four_ranks"] = p13_four_ranks()
+    out["s"] = time.perf_counter() - t0
+    launches = [x + y for x, y in zip(la, lb)]
+    log(f"  phase 13: {out['s']:.1f} s, launches {launches}")
+    return launches, out
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
     path, timings.  ``want`` = (K1, K2, K3, K4, K5a, K5b) launches per
@@ -4875,6 +5385,11 @@ def main(argv):
     dist_launches, dist_summary = phase_distributed()
     launches_total = [t + c for t, c in zip(launches_total, dist_launches)]
 
+    phase("phase 13: sharded operands beyond the driver (one-rank NCCL "
+          "group; four ranks sharing the card over gloo)")
+    ext_sh_launches, ext_sh_summary = phase_sharded_extensions()
+    launches_total = [t + c for t, c in zip(launches_total, ext_sh_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -4914,7 +5429,8 @@ def main(argv):
     ], "main_path": summary, "serving": serving, "image": image_summary,
         "driver_modes": modes, "pca": pca_summary, "pod": pod_summary,
         "extensions": ext_summary, "formats": fmt_summary,
-        "apps_streaming": app_summary, "distributed": dist_summary}
+        "apps_streaming": app_summary, "distributed": dist_summary,
+        "sharded_extensions": ext_sh_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

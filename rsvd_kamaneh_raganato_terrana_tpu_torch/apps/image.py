@@ -12,9 +12,15 @@ unless the caller names another).
 
 Where JAX maps one compiled program over channels, tiles or frames
 (``lax.map``), a Python loop runs :func:`rsvd_with_omega` per matrix.
-Sharding tiles or frames over a mesh (``mesh=``) waits for the
-distributed slice (ROADMAP.md queue 1 item 10).  The Tucker video codec
-runs the randomized Tucker of ``rsvd/tucker.py``.
+With ``mesh=`` (a ``DeviceMesh``) the tiles or frames are split over
+the mesh's first axis when their count divides (the tiles: every rank
+of the mesh; the frames: the first axis), each rank factoring its own
+with the Householder QR, as the JAX package's vmapped sharded run does,
+and with the sketch of the one-card call.  The factorizations
+communicate nothing; the factors come back whole on every rank, as the
+JAX package's host arrays do, by one counted all-gather a factor over
+the first axis.  Otherwise every rank runs the one-card path.
+The Tucker video codec runs the randomized Tucker of ``rsvd/tucker.py``.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import (
     from_numpy,
     to_numpy,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.mesh import row_sharding
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     fold_in_shard,
     key_from_seed,
@@ -50,17 +58,34 @@ def _device(device) -> torch.device:
     return torch.device(device or "cuda")
 
 
-def _check_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding tiles or frames over several cards) is not "
-            "ported to the PyTorch package yet (ROADMAP.md, queue 1 item "
-            "10); pass mesh=None")
+def _mesh_split(mesh, count: int, whole_mesh: bool):
+    """(first, last) of this rank's block of ``count`` tiles or frames on
+    ``mesh``'s first axis, or None (every rank runs all of them) when
+    there is no mesh or ``count`` does not divide the mesh's ranks
+    (``whole_mesh``) or its first axis' ranks."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh= takes a torch DeviceMesh, not "
+                        f"{type(mesh).__name__}")
+    if count % (mesh.size() if whole_mesh else mesh.size(0)):
+        return None
+    per = count // mesh.size(0)
+    first = mesh.get_local_rank(0) * per
+    return first, first + per
 
 
-def _stacked_numpy(factors):
-    """((U_i, s_i, V_i) per matrix) -> numpy (U, s, V) stacked on axis 0."""
-    return tuple(to_numpy(torch.stack(parts)) for parts in zip(*factors))
+def _stacked_numpy(factors, mesh=None):
+    """((U_i, s_i, V_i) per matrix) -> numpy (U, s, V) stacked on axis 0;
+    with ``mesh``, the factors of this rank's block, gathered in order
+    over the mesh's first axis."""
+    stacked = (torch.stack(parts) for parts in zip(*factors))
+    if mesh is None:
+        return tuple(to_numpy(t) for t in stacked)
+    group = mesh.get_group(0)
+    return tuple(to_numpy(collectives.all_gather(t, group)) for t in stacked)
 
 
 @dataclass
@@ -180,8 +205,12 @@ class Image:
         """Tile-parallel compression: split into ``grid`` tiles and run an
         independent rSVD per tile, tile i sketching with a stream of its
         own (``fold_in_shard(key, i)``).  Grids that do not divide the
-        image pad with edge replication, and reconstruction crops back."""
-        _check_mesh(mesh)
+        image pad with edge replication, and reconstruction crops back.
+
+        ``mesh`` (a ``DeviceMesh``) splits the tiles over its first axis
+        when their count divides the mesh's ranks (the module docstring);
+        ``last_tile_sharding`` then holds their placements on the mesh,
+        and stays None when every rank ran every tile."""
         if self.is_color:
             raise ValueError("tiled compression supports grayscale only; "
                              "use compress() for color images")
@@ -201,15 +230,20 @@ class Image:
         )
         l = min(k + p, min(th, tw))
         key = key_from_seed(seed, dev)
-        tiles_dev = from_numpy(tiles, device=dev, dtype=dtype)
+        split = _mesh_split(mesh, gy * gx, whole_mesh=True)
+        first, last = split or (0, gy * gx)
+        tiles_dev = from_numpy(tiles[first:last], device=dev, dtype=dtype)
+        # a split run factors with Householder QR, as the JAX package's
+        # vmapped one does (a lax.cond under vmap runs both branches)
+        qr = dict(qr_method="householder") if split else {}
         u, s, v = _stacked_numpy(
-            rsvd_with_omega(t, sketch_matrix(fold_in_shard(key, i), tw, l,
-                                             dtype), q=q, k=k)
-            for i, t in enumerate(tiles_dev))
+            (rsvd_with_omega(t, sketch_matrix(fold_in_shard(key, i), tw, l,
+                                              dtype), q=q, k=k, **qr)
+             for i, t in enumerate(tiles_dev, start=first)),
+            mesh if split else None)
         self.tile_factors = TileFactors(u, s, v, (gy, gx), (m, n))
-        # one card holds every tile: the layout stays None until mesh=
-        # shards the tiles over several cards
-        self.last_tile_sharding = None
+        self.last_tile_sharding = (
+            row_sharding(mesh, mesh.mesh_dim_names[0]) if split else None)
         self.U = self.S = self.V = None
         return self
 
@@ -402,15 +436,20 @@ def compress_video(frames, k: int, p: int = 10, q: int = 1, seed: int = 0,
                    dtype=torch.float32, mesh=None, device=None):
     """Low-rank compression of a frame stack (T, H, W): per-frame rSVD
     with one shared sketch drawn from ``seed``.  Returns k-truncated host
-    factors (U (T, H, k), S (T, k), V (T, W, k))."""
-    _check_mesh(mesh)
+    factors (U (T, H, k), S (T, k), V (T, W, k)).  ``mesh`` (a
+    ``DeviceMesh``) splits the frames over its first axis when T divides
+    that axis' ranks (the module docstring)."""
     dev = _device(device)
     frames = np.asarray(frames)
     t, h, w = frames.shape
     l = min(k + p, min(h, w))
     omega = sketch_matrix(key_from_seed(seed, dev), w, l, dtype)
-    stack = from_numpy(frames, device=dev, dtype=dtype)
-    return _stacked_numpy(rsvd_with_omega(f, omega, q=q, k=k) for f in stack)
+    split = _mesh_split(mesh, t, whole_mesh=False)
+    first, last = split or (0, t)
+    stack = from_numpy(frames[first:last], device=dev, dtype=dtype)
+    qr = dict(qr_method="householder") if split else {}
+    return _stacked_numpy((rsvd_with_omega(f, omega, q=q, k=k, **qr)
+                           for f in stack), mesh if split else None)
 
 
 def reconstruct_video(u, s, v) -> np.ndarray:

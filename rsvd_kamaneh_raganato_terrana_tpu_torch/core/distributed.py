@@ -157,8 +157,9 @@ def mesh_axis(mesh: DeviceMesh, axis) -> Axis:
 
 
 class Sharded:
-    """A matrix split over a mesh: ``local`` is this rank's block of the
-    ``shape`` matrix, its rows split over the ``rows`` :class:`Axis` and,
+    """A matrix (or a tensor, by its first dimension) split over a mesh:
+    ``local`` is this rank's block of the ``shape`` matrix, its rows
+    split over the ``rows`` :class:`Axis` and,
     for a 2-D split, its columns over ``cols`` (None: every rank holds
     all columns).  ``local`` is a tensor or an ``Int8Stored`` block.
     ``.T`` flips a flag and moves nothing, as ``Int8Stored.T`` does; the
@@ -178,8 +179,7 @@ class Sharded:
 
     @property
     def shape(self):
-        m, n = self._shape
-        return (n, m) if self.transposed else (m, n)
+        return self._shape[::-1] if self.transposed else self._shape
 
     @property
     def dtype(self):

@@ -69,9 +69,16 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
        serving tail (error within 1.1x of the int8 run's 'project').
     5. ``rsvd_ring`` of a (256 P) x 2048 operand (k 64, p 16, q 1,
        'eigh') against ``rsvd`` on one rank: max |ds| / s_1 < 1e-4.
+    6. ``rsvd_batched(mode='vmap')`` of a 2P x 256 x 256 stack sharded
+       on its batch dim over a ('batch',) mesh (k 16, q 1): no
+       collective, U, s and V sharded with two elements a rank, each
+       element's sigma within 1e-3 of sigma_1 of the one-rank 'scan'
+       call's.
+    7. ``Image.compress_tiled(mesh=)`` of a 512^2 image on a
+       (2, P / 2) grid (k 16): the tiles split over the mesh, sigma
+       within 1e-3 of sigma_1 of the one-rank call's, the
+       reconstructions within 1.0 (pixel scale 255) of each other.
 
-    The batched and tiled-image stages of the JAX dry run wait for the
-    port's ``rsvd_batched`` over cards and the image app's ``mesh=``.
     Returns what each stage measured; a failed check raises."""
     import math
 
@@ -89,7 +96,11 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
         make_mesh,
         pad_rows_for_mesh,
     )
-    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import rsvd
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.image import Image
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+        rsvd,
+        rsvd_batched,
+    )
     from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.multihost import (
         rsvd_streaming_multihost,
     )
@@ -187,6 +198,43 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
     ds = max_rel(s_r, s_plain)
     done("ring", ds < 1e-4, f"mesh ({n_ranks},) A {256 * n_ranks}x2048 "
          f"k {k}", max_rel_dsigma=ds)
+
+    batch_mesh = make_mesh((n_ranks,), ("batch",), device)
+    bsz, kb = 2 * n_ranks, 16
+    a_b = from_numpy(np.random.default_rng(2).standard_normal(
+        (bsz, 256, 256)), device=device, dtype=torch.float32)
+    collectives.reset()
+    u_b, s_b, _ = rsvd_batched(distribute(a_b, batch_mesh, (Shard(0),)),
+                               k=kb, q=1, mode="vmap")
+    tally = collectives.tally()
+    per = s_b.to_local().shape[0]
+    mine = slice(rank * per, (rank + 1) * per)
+    _, s_b1, _ = rsvd_batched(a_b[mine], k=kb, q=1, seed=rank * per,
+                              mode="scan")
+    ds = float(((s_b.to_local() - s_b1).abs() / s_b1[:, :1]).max())
+    ds = float(collectives.all_reduce(torch.tensor(ds, device=a_b.device),
+                                      op="max"))
+    done("batched_vmap", not tally and ds < 1e-3
+         and all(t.placements == (Shard(0),) for t in (u_b, s_b))
+         and per * n_ranks == bsz,
+         f"batch {bsz}x256x256 k {kb} sharded {per} a rank, no "
+         "collectives", max_rel_dsigma=ds, collectives=tally)
+
+    grid = (2, n_ranks // 2) if n_ranks % 2 == 0 else (1, n_ranks)
+    img_data = (np.random.default_rng(3).standard_normal((512, 512))
+                * 40.0 + 128.0)
+    collectives.reset()
+    img = Image(img_data).compress_tiled(k=16, grid=grid, mesh=batch_mesh,
+                                         device=device)
+    tally = collectives.tally()
+    img_1 = Image(img_data).compress_tiled(k=16, grid=grid, device=device)
+    s_t, s_t1 = img.tile_factors.s, img_1.tile_factors.s
+    ds = float(np.max(np.abs(s_t - s_t1) / s_t1[:, :1]))
+    gap = float(np.max(np.abs(img.reconstruct() - img_1.reconstruct())))
+    done("tiled_image", img.last_tile_sharding == (Shard(0),)
+         and set(tally) <= {"all_gather"} and ds < 1e-3 and gap < 1.0,
+         f"grid {grid} tiles split over the mesh, factors gathered",
+         max_rel_dsigma=ds, rec_gap=gap, collectives=tally)
     return out
 
 

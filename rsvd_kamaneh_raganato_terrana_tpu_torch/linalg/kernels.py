@@ -363,6 +363,8 @@ def eigh_small(g, sweeps: int = 8):
         return eigh_small_reference(g, sweeps)
     if g.device.type != "cuda":
         raise ValueError(f"eigh_small has no kernel for {g.device}")
+    if torch._C._are_functorch_transforms_active():
+        return _EighSmallBatched.apply(g, sweeps)
     if sweeps * (n + 1) >= 2 ** 31:
         raise ValueError(f"eigh_small: {sweeps} sweeps at n = {n} exceed "
                          "the kernel's 32-bit round count")
@@ -383,6 +385,28 @@ def eigh_small(g, sweeps: int = 8):
 
 
 eigh_small.launches = 0
+
+
+class _EighSmallBatched(torch.autograd.Function):
+    """:func:`eigh_small` under ``torch.func.vmap`` (``rsvd_batched``'s
+    'vmap' mode): a kernel reads raw pointers, which a batched tensor does
+    not have, so the vmap rule launches the kernel once an element of the
+    batch, each launch counted.  No backward: the kernel has none."""
+
+    @staticmethod
+    def forward(g, sweeps):
+        return eigh_small(g, sweeps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, g, sweeps):
+        if in_dims[0] is None:
+            return eigh_small(g, sweeps), (None, None)
+        outs = [eigh_small(gi, sweeps) for gi in g.movedim(in_dims[0], 0)]
+        return tuple(torch.stack(parts) for parts in zip(*outs)), (0, 0)
 
 
 _M32 = 0xFFFFFFFF

@@ -21,6 +21,11 @@ Index selection:
   package.
 
 Indices are int64 tensors on the basis' device.
+
+``deim_fit`` takes a DTensor whose rows are sharded: the rSVD basis
+comes back row-sharded, the n x m basis is gathered (one counted
+all-gather) and the indices selected on every rank as on one card, and
+the projector keeps each rank's rows.
 """
 
 from __future__ import annotations
@@ -30,7 +35,16 @@ from typing import NamedTuple
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm, rsvd
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _like,
+    _mm,
+    _row_block,
+    _row_split,
+    _sharded_view,
+    _to_api,
+    _whole,
+    rsvd,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.interp import _greedy_pivots
 
 
@@ -108,8 +122,12 @@ def deim_fit(
 ) -> Deim:
     """Fit a DEIM model from nonlinearity snapshots (n x n_snap): rank-m
     rSVD basis (the snapshot count never touches the online cost), then
-    index selection + projector."""
-    u, _, _ = rsvd(as_tensor(snapshots), k=m, p=p, q=q, seed=seed,
+    index selection + projector.  Row-sharded snapshots give a
+    row-sharded basis and projector (the module docstring)."""
+    u, _, _ = rsvd(_row_split(snapshots), k=m, p=p, q=q, seed=seed,
                    method="eigh")
-    idx = deim_indices(u, method)
-    return Deim(u, idx, deim_projector(u, idx))
+    view = _sharded_view(u)
+    whole = _whole(view)
+    idx = deim_indices(whole, method)
+    proj = deim_projector(whole, idx)
+    return Deim(u, idx, _to_api(_like(view, _row_block(view, proj))))

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     STORAGE_BF16,
     STORAGE_INT8,
@@ -60,6 +61,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
     from_dtensor,
     is_dtensor,
     mesh_axis,
+    row_dtensor,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.mesh import (
     pad_rows_for_mesh,
@@ -398,22 +400,108 @@ def _t_mm_split(x: Sharded, y: Sharded, precision):
 
 def _sharded_mm(a, b, precision):
     """A product with a row-split operand (:class:`Sharded`), with the
-    collectives XLA's partitioner inserts for it: A B (B replicated) is
-    the local rows' product, its partial sums all-reduced where A's
-    columns are split, and stays row-split; X^T Y of two row-split
-    operands is :func:`_t_mm_split`."""
+    collectives XLA's partitioner inserts for it:
+
+    - A B (B replicated) is the local rows' product, its partial sums
+      all-reduced where A's columns are split, and stays row-split;
+    - X^T Y of two row-split operands is :func:`_t_mm_split`
+      (replicated), and so is A^T B with B replicated: B's rows are cut
+      by A's split first;
+    - A B with B row-split too (B's rows are A's columns) gathers B;
+    - with a replicated left operand, X A is X's columns cut by A's row
+      split, the local products all-reduced (replicated), and X A^T is
+      this rank's columns of the product, a transposed row split.  Each
+      local product has the one-card product's orientation, so one rank
+      computes the one-card call's GEMMs; a column-split or int8 A takes
+      the transposes of the rules above."""
+    if isinstance(b, Sharded) and not isinstance(a, Sharded):
+        if b.cols is not None or isinstance(b.local, Int8Stored):
+            return _sharded_mm(b.T, a.T, precision).T
+        if b.transposed:
+            bt = b.T
+            return bt.with_local(_mm(a, bt.local.T, precision).T).T
+        cols = slice(b.row_start, b.row_start + b.local.shape[0])
+        return collectives.all_reduce(_mm(a[:, cols], b.local, precision),
+                                      b.rows.group)
+    if isinstance(a, Sharded) and a.transposed and not isinstance(b, Sharded):
+        at = a.T
+        b = at.with_local(_row_block(at, b))
     if isinstance(a, Sharded) and isinstance(b, Sharded) \
             and a.transposed and not b.transposed:
         return _t_mm_split(a.T, b, precision)
+    if isinstance(a, Sharded) and isinstance(b, Sharded) \
+            and not a.transposed and not b.transposed:
+        b = b.gather()
     if not isinstance(a, Sharded) or a.transposed or isinstance(b, Sharded):
-        raise TypeError("a sharded product is A B with B replicated or "
-                        "X^T Y with both split by rows")
+        raise TypeError("a sharded product is A B or A^T B with B "
+                        "replicated, X^T Y with both split by rows, or "
+                        "their transposes")
     if a.cols is not None:
         b = b[a.col_start:a.col_start + a.local.shape[1]]
     y = _mm(a.local, b, precision)
     if a.cols is not None:
         y = collectives.all_reduce(y, a.cols.group)
     return Sharded(y, (a.shape[0], y.shape[1]), a.mesh, a.rows)
+
+
+def _local(x):
+    """This rank's block of a row-split panel, or ``x`` itself."""
+    return x.local if isinstance(x, Sharded) else x
+
+
+def _like(x, local):
+    """``local``, a block of this rank's rows of ``x``, split as ``x`` is
+    (a :class:`Sharded` of its width), or ``local`` itself where ``x`` is
+    not split."""
+    return x.with_local(local) if isinstance(x, Sharded) else local
+
+
+def _row_block(x, full):
+    """The rows of ``full`` (a tensor every rank holds whole, with the
+    rows of ``x``) that this rank holds of the row-split ``x``; ``full``
+    itself where ``x`` is not split, its local block where ``full`` is a
+    row-split panel already."""
+    if isinstance(full, Sharded):
+        return full.local
+    if not isinstance(x, Sharded):
+        return full
+    return full[x.row_start:x.row_start + x.local.shape[0]]
+
+
+def _whole(x):
+    """A row-split panel gathered whole on every rank (a counted
+    all-gather: where XLA's partitioner gathers an operand of an op it
+    cannot split), or ``x`` itself."""
+    return x.gather() if isinstance(x, Sharded) else x
+
+
+def _reduce(t, x, op: str = "sum"):
+    """``t``, a reduction ('sum', 'max' or 'min') over this rank's rows of
+    ``x``, completed over x's row group by a counted all-reduce where x is
+    split: the partitioner's reduction of a row-sharded operand."""
+    if isinstance(x, Sharded):
+        return collectives.all_reduce(t, x.rows.group, op)
+    return t
+
+
+def _to_api(x):
+    """A row-split panel as its row-sharded DTensor (JAX's layout of an
+    m-row result), anything else as it is."""
+    return x.to_dtensor() if isinstance(x, Sharded) else x
+
+
+def _row_split(a):
+    """An extension's operand: a DTensor as its :class:`Sharded` view,
+    rows split and columns whole; any other operand as a tensor
+    (``as_tensor``: an array goes to the card)."""
+    if is_dtensor(a):
+        view = from_dtensor(a)
+        if view.cols is not None:
+            raise ValueError("this function takes an operand whose rows "
+                             f"are sharded, not its columns "
+                             f"(placements {a.placements})")
+        return view
+    return as_tensor(a)
 
 
 def _mm(a, b, precision=DOT_PRECISION):
@@ -943,35 +1031,71 @@ def rsvd_warm(a, q_prev, k: int = 0, q: int = 1, method: str = "eigh",
     return u, s, v
 
 
+def _batch_split(a_batch):
+    """(local stack, the ``Axis`` its batch dim is split over, index of
+    its first element) of a stack sharded on its batch dim over the
+    mesh's first axis (``Shard(0)`` there, replicated on any other
+    axis); (the stack, None, 0) for a tensor."""
+    if not is_dtensor(a_batch):
+        return _as_operand(a_batch), None, 0
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, placements = a_batch.device_mesh, tuple(a_batch.placements)
+    if not (placements[0] == Shard(0) and all(
+            isinstance(pl, Replicate) for pl in placements[1:])):
+        raise ValueError("a sharded stack is split on its batch dim over "
+                         f"the mesh's first axis, not {placements}")
+    axis = mesh_axis(mesh, mesh.mesh_dim_names[0])
+    if a_batch.shape[0] % axis.size:
+        raise ValueError(f"a batch of {a_batch.shape[0]} does not divide "
+                         f"over {axis.size} ranks")
+    local = a_batch.to_local()
+    return local, axis, axis.index * local.shape[0]
+
+
 def rsvd_batched(a_batch, k: int, p: int = 10, q: int = 2,
                  method: str = "eigh", seed: int = 0,
                  precision: str = "highest", reorth: str = "full",
                  finish: str = "project", mode: str = "scan"):
     """Batched rSVD of a stacked (b, m, n) operand: element i draws its own
-    sketch from ``seed + i`` and runs :func:`rsvd_with_omega`, one element
-    after the other on A's device.
+    sketch from ``seed + i`` and runs :func:`rsvd_with_omega`.
 
-    ``mode='scan'`` runs the exact single-matrix pipeline ('robust' QR);
-    ``mode='vmap'`` gives the numbers of the JAX package's vmapped mode,
-    whose QR is 'cholqr2' (a ``lax.cond`` under vmap would run both
-    branches).  Sharding the batch over several cards waits for the
-    distributed slice (ROADMAP.md queue 1).
+    ``mode='scan'`` runs the exact single-matrix pipeline ('robust' QR)
+    element after element; ``mode='vmap'`` is one ``torch.func.vmap``
+    program over the stack and the stacked Omegas, with the JAX package's
+    vmap-safe 'cholqr2' QR (a ``lax.cond`` under vmap would run both
+    branches).  ``method='eigh_pallas'`` launches kernel K3 once an
+    element in either mode.
+
+    A DTensor stack sharded on its batch dim over the mesh's first axis
+    (the image tile path's embarrassing parallelism) runs each rank's
+    elements with their global seeds, so every Omega is the one-card
+    call's, and issues no collective; U, s and V come back as DTensors
+    sharded the same way, as the JAX package's outputs stay partitioned.
 
     Returns (U, s, V) with shapes (b, m, k), (b, k), (b, n, k)."""
     if mode not in ("scan", "vmap"):
         raise ValueError(f"unknown mode {mode!r} (use 'scan' or 'vmap')")
-    a_batch = _as_operand(a_batch)
-    if a_batch.ndim != 3:
+    local, axis, first = _batch_split(a_batch)
+    if local.ndim != 3:
         raise ValueError(f"rsvd_batched takes a (b, m, n) stack, got "
-                         f"{tuple(a_batch.shape)}")
+                         f"{tuple(local.shape)}")
     if k <= 0:
         raise ValueError("rsvd_batched needs an explicit k > 0")
-    b, m, n = a_batch.shape
+    b, m, n = local.shape
     l = min(k + p, min(m, n))
-    qr_method = "robust" if mode == "scan" else "cholqr2"
-    outs = [rsvd_with_omega(a_batch[i], generate_omega(
-                seed + i, n, l, a_batch.dtype, device=a_batch.device),
-                q=q, k=k, method=method, qr_method=qr_method,
-                precision=precision, reorth=reorth, finish=finish)
-            for i in range(b)]
-    return tuple(torch.stack(parts) for parts in zip(*outs))
+    omegas = [generate_omega(seed + first + i, n, l, local.dtype,
+                             device=local.device) for i in range(b)]
+    opts = dict(q=q, k=k, method=method, precision=precision, reorth=reorth,
+                finish=finish)
+    if mode == "scan":
+        outs = [rsvd_with_omega(x, om, qr_method="robust", **opts)
+                for x, om in zip(local, omegas)]
+        out = tuple(torch.stack(parts) for parts in zip(*outs))
+    else:
+        out = torch.func.vmap(lambda x, om: rsvd_with_omega(
+            x, om, qr_method="cholqr2", **opts))(local, torch.stack(omegas))
+    if axis is None:
+        return out
+    return tuple(row_dtensor(t, a_batch.device_mesh, axis, a_batch.shape[0])
+                 for t in out)

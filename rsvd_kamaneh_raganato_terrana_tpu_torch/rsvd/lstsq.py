@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     key_from_seed,
     sketch_matrix,
@@ -34,19 +35,30 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.sketching import (
     countsketch_apply,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _like,
+    _local,
+    _mm,
+    _reduce,
+    _row_block,
+    _row_split,
+)
 
 _EPS = 1e-30
 
 
-def _col_norm(v):
-    return torch.sqrt(torch.sum(v * v, dim=0, keepdim=True))
+def _col_norm(v, rows=None):
+    """Column norms of v; of an m-row v split as the operand ``rows`` is,
+    its local sums all-reduced."""
+    return torch.sqrt(_reduce(torch.sum(v * v, dim=0, keepdim=True), rows))
 
 
 def _lsqr_scan(a, b, r_upper, iters: int):
     """LSQR (Paige-Saunders 1982) on the right-preconditioned operator
     A R^{-1}, ``iters`` bidiagonalization steps; b is (m, nrhs) and every
-    state carries the rhs axis."""
+    state carries the rhs axis.  For a row-split A, b and the m-sized
+    vectors u are this rank's rows: a step all-reduces A^T u (n x nrhs)
+    and the norms of u."""
     def solve_r(y):                                 # R^{-1} y
         return torch.linalg.solve_triangular(r_upper, y, upper=True)
 
@@ -54,12 +66,12 @@ def _lsqr_scan(a, b, r_upper, iters: int):
         return torch.linalg.solve_triangular(r_upper.T, y, upper=False)
 
     def ap(x):                                      # A R^{-1} x
-        return _mm(a, solve_r(x), _HI)
+        return _local(_mm(a, solve_r(x), _HI))
 
     def apt(y):                                     # R^{-T} A^T y
-        return solve_rt(_mm(a.T, y, _HI))
+        return solve_rt(_mm(a.T, _like(a, y), _HI))
 
-    beta = _col_norm(b)
+    beta = _col_norm(b, a)
     u = b / torch.clamp(beta, min=_EPS)
     v0 = apt(u)
     alpha = _col_norm(v0)
@@ -69,7 +81,7 @@ def _lsqr_scan(a, b, r_upper, iters: int):
     rho_bar, phi_bar = alpha, beta
     for _ in range(iters):
         u_next = ap(v) - alpha * u
-        beta = _col_norm(u_next)
+        beta = _col_norm(u_next, a)
         u = u_next / torch.clamp(beta, min=_EPS)
         v_next = apt(u) - beta * v
         alpha = _col_norm(v_next)
@@ -115,14 +127,23 @@ def sketch_lstsq(
     instead of the 4 m n^2 GEMM.  ``damp > 0`` solves the ridge problem
     min ||A x - b||^2 + damp ||x||^2 through the augmentation
     [A; sqrt(damp) I].  A tensor stays on its device; any other array
-    goes to the card."""
-    a = as_tensor(a)
+    goes to the card.
+
+    A may be a DTensor whose rows are sharded, with b whole on every
+    rank: each rank takes b's rows of its block, the sketch S A is the
+    local rows' product all-reduced (S drawn whole, as on one card), and
+    each LSQR step all-reduces A^T u and the norms of u.  The sparse
+    sketch and ``damp`` take a tensor operand."""
+    a = _row_split(a)
     b = as_tensor(b, device=a.device, dtype=a.dtype)
     m, n = a.shape
     if m < n:
         raise ValueError(f"need tall A (m >= n), got {tuple(a.shape)}")
     if damp < 0:
         raise ValueError(f"damp must be >= 0, got {damp}")
+    if isinstance(a, Sharded) and (damp > 0 or kind == "sparse"):
+        raise ValueError("a sharded operand takes a dense sketch and "
+                         "damp = 0")
     if damp > 0:
         eye = torch.eye(n, dtype=a.dtype, device=a.device)
         root = torch.sqrt(torch.tensor(damp, dtype=a.dtype))
@@ -136,7 +157,7 @@ def sketch_lstsq(
     if squeeze:
         b = b[:, None]
     _, r_upper = qr_reduced(_left_sketch(a, seed, s, kind), "robust")
-    x = _lsqr_scan(a, b, r_upper, iters)
+    x = _lsqr_scan(a, _row_block(a, b), r_upper, iters)
     return x[:, 0] if squeeze else x
 
 

@@ -14,6 +14,11 @@ Every Cholesky follows XLA's failure contract (``core/device.py::
 cholesky``: NaN where it fails, read from ``info`` on the device), and
 the small eighs go through ``core/device.py::eigh``.  Omega comes from
 the driver's ``generate_omega`` on A's device.
+
+``nystrom_psd`` takes a DTensor whose rows are sharded: Y = A Omega and
+B stay row-split, the l x l products are the driver's split products,
+all-reduced, and Omega is drawn whole, as on one card; U comes back
+row-sharded.
 """
 
 from __future__ import annotations
@@ -27,7 +32,14 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _cols,
+    _like,
+    _local,
     _mm,
+    _reduce,
+    _row_block,
+    _row_split,
+    _to_api,
     subspace_iteration,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.lstsq import _pcg_scan
@@ -40,7 +52,7 @@ def _eigh_descending(t):
 
 
 def _check_square(a, name):
-    if a.dim() != 2 or a.shape[0] != a.shape[1]:
+    if len(a.shape) != 2 or a.shape[0] != a.shape[1]:
         raise ValueError(f"{name} needs a square matrix, got "
                          f"{tuple(a.shape)}")
 
@@ -53,12 +65,15 @@ def _nystrom_impl(a, *, k, p, seed, precision):
     # Stabilizing shift: nu ~ eps ||Y||_F makes Omega^T (Y + nu Omega)
     # positive definite even for a numerically rank-deficient A; it is
     # taken off the eigenvalues at the end.
-    nu = torch.finfo(a.dtype).eps * torch.linalg.norm(y)
-    y_nu = y + nu * omega
+    y_local = _local(y)
+    nu = torch.finfo(a.dtype).eps * torch.sqrt(
+        _reduce(torch.sum(y_local * y_local), y))
+    y_nu = _like(y, y_local + nu * _row_block(y, omega))
     g = _mm(omega.T, y_nu, "highest")                    # l x l
     c = cholesky(0.5 * (g + g.T))                        # lower
-    # B = Y_nu C^{-T}:  A ~ B B^T - nu I on range(Y)
-    b = torch.linalg.solve_triangular(c.T, y_nu, upper=True, left=False)
+    # B = Y_nu C^{-T}:  A ~ B B^T - nu I on range(Y); row by row
+    b = _like(y, torch.linalg.solve_triangular(c.T, _local(y_nu),
+                                               upper=True, left=False))
     # B = U diag(s) W^T with s^2, W from the eigh of B^T B
     bg = _mm(b.T, b, "highest")
     s2, w = _eigh_descending(0.5 * (bg + bg.T))
@@ -67,7 +82,7 @@ def _nystrom_impl(a, *, k, p, seed, precision):
     safe = torch.where(s > 0, s, torch.ones_like(s))
     u = _mm(b, w / safe[None, :], "highest")
     lam = torch.clamp(s2 - nu, min=0.0)
-    return u[:, :k], lam[:k]
+    return _to_api(_cols(u, slice(None, k))), lam[:k]
 
 
 def nystrom_psd(a, k: int, p: int = 10, seed: int = 0,
@@ -75,8 +90,9 @@ def nystrom_psd(a, k: int, p: int = 10, seed: int = 0,
     """Rank-k eigendecomposition A ~ U diag(lam) U^T of a symmetric PSD A
     from one pass over A.  Returns (U: n x k, lam: k) with lam >= 0
     descending.  A tensor stays on its device; any other array goes to
-    the card."""
-    a = as_tensor(a)
+    the card; a DTensor whose rows are sharded is read block by block
+    (the module docstring)."""
+    a = _row_split(a)
     _check_square(a, "nystrom_psd")
     return _nystrom_impl(a, k=k, p=p, seed=seed, precision=precision)
 

@@ -13,6 +13,14 @@ to the identity on the device (l small index updates, no host sync).
 Permutations are int64, where the JAX package's are int32 (torch
 indexes with int64).  Every Cholesky follows XLA's failure contract
 (NaN, ``core/device.py::cholesky``).
+
+L_y^T (P A) is computed as (P^T L_y)^T A, L_y's rows put back in A's
+order, so that a DTensor whose rows are sharded never moves: its local
+rows' product is all-reduced.  The m x l range panel is gathered (one
+counted all-gather) and its pivoted LU runs on every rank, as on one
+card, so the row permutation does not depend on the split; L and L_y
+come back row-sharded (their rows in the permuted order), the rest
+replicated.
 """
 
 from __future__ import annotations
@@ -25,7 +33,12 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import cholesky
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _like,
     _mm,
+    _row_block,
+    _row_split,
+    _to_api,
+    _whole,
     subspace_iteration,
 )
 
@@ -81,11 +94,13 @@ def rlu(a, k: int, p: int = 10, q: int = 2, seed: int = 0,
     """Randomized rank-l (l = k + p) LU: ``A[P][:, Q] ~ L @ U``.  Its
     error matches the rSVD range finder's for the same (k, p, q).
     :func:`rlu_reconstruct` returns to the original row and column order.
-    A tensor stays on its device; any other array goes to the card."""
-    a = as_tensor(a)
-    if a.dim() != 2:
+    A tensor stays on its device; any other array goes to the card; a
+    DTensor whose rows are sharded is read block by block (the module
+    docstring)."""
+    a = _row_split(a)
+    if len(a.shape) != 2:
         raise ValueError(f"rlu needs a 2-D matrix, got {tuple(a.shape)}")
-    if a.is_complex():
+    if a.dtype.is_complex:
         raise ValueError("rlu supports real input only")
     if k <= 0:
         raise ValueError(f"k must be positive, got {k}")
@@ -93,19 +108,22 @@ def rlu(a, k: int, p: int = 10, q: int = 2, seed: int = 0,
     l = min(k + p, min(m, n))
     omega = driver.generate_omega(seed, n, l, a.dtype, device=a.device)
     q_mat = subspace_iteration(a, omega, q, precision=precision)  # m x l
-    lu_y, perm_rows = _pivoted_lu(q_mat)            # Q[perm] = L_y U_y
+    lu_y, perm_rows = _pivoted_lu(_whole(q_mat))    # Q[perm] = L_y U_y
     l_y = _unit_lower(lu_y, m, l)                   # m x l
-    pa = a[perm_rows, :]                            # P A
-    # B = L_y^+ (P A) by the l x l normal equations
+    # B = L_y^+ (P A) by the l x l normal equations; L_y^T (P A) as
+    # (P^T L_y)^T A
     g = _mm(l_y.T, l_y, "highest")
     c = cholesky(g)
-    b = torch.cholesky_solve(_mm(l_y.T, pa, precision), c)   # l x n
+    l_orig = torch.empty_like(l_y).index_copy_(0, perm_rows, l_y)
+    b = torch.cholesky_solve(_mm(l_orig.T, a, precision), c)  # l x n
     # B^T[perm_cols] = L2 U2  =>  B[:, perm_cols] = U2^T L2^T
     lu_b, perm_cols = _pivoted_lu(b.T)
     l2 = _unit_lower(lu_b, n, l)                    # n x l
     u2 = torch.triu(lu_b[:l, :])                    # l x l
-    l_factor = _mm(l_y, u2.T, "highest")            # m x l, lower
-    return RluResult(perm_rows, perm_cols, l_factor, l2.T, l_y, u2)
+    l_rows = _row_block(a, l_y)                     # this rank's rows
+    l_factor = _mm(l_rows, u2.T, "highest")         # m x l, lower
+    return RluResult(perm_rows, perm_cols, _to_api(_like(a, l_factor)),
+                     l2.T, _to_api(_like(a, l_rows)), u2)
 
 
 def rlu_reconstruct(res: RluResult):

@@ -15,6 +15,12 @@ no step branches on a tensor.  The host syncs of a call are those of
 the driver's 'robust' QR fallback flag.  Iteration i's sketch comes
 from the seed's generator folded with i, the sigma_1 estimate's from
 the fold with 0x51e17 (the JAX package's tags; torch Philox draws).
+
+A DTensor whose rows are sharded is read block by block: L, S and Y
+stay row-split, every norm and max over them is local and all-reduced,
+and the products and the SVT's range finder go through the driver's
+split products, the sketches drawn whole, as on one card.  L and S come
+back row-sharded.
 """
 
 from __future__ import annotations
@@ -23,14 +29,19 @@ from typing import NamedTuple
 
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     fold_in_shard,
     key_from_seed,
     sketch_matrix,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _like,
+    _local,
     _mm,
+    _reduce,
+    _row_split,
+    _sharded_view,
+    _to_api,
     rsvd_with_omega,
 )
 
@@ -47,13 +58,14 @@ class RpcaResult(NamedTuple):
 def _svt(x, tau, key, k_max: int, p: int, q: int, precision):
     """Randomized singular-value soft-thresholding D_tau(x), truncated to
     rank k_max: the driver's range finder and tail ('half' reorth) with a
-    soft-thresholded spectrum."""
+    soft-thresholded spectrum.  For a row-split x, this rank's rows of
+    the result."""
     l = min(k_max + p, min(x.shape))
     omega = sketch_matrix(key, x.shape[1], l, x.dtype)
     u, s, v = rsvd_with_omega(x, omega, q=q, k=k_max, method="eigh",
                               precision=precision, reorth="half")
     s_sh = torch.clamp(s - tau, min=0.0)
-    return _mm(u * s_sh[None, :], v.T), s_sh
+    return _mm(_local(_sharded_view(u)) * s_sh[None, :], v.T), s_sh
 
 
 def rpca(
@@ -74,11 +86,19 @@ def rpca(
     lam = 1/sqrt(max(m, n)), Y0 = M / J(M) with
     J(M) = max(sigma_1, ||M||_inf / lam), mu0 = 1.25/sigma_1,
     mu <- rho mu (rho = 1.6).  A tensor stays on its device; any other
-    array goes to the card."""
-    m_mat = as_tensor(m_mat)
-    mm, nn = m_mat.shape
-    dtype, dev = m_mat.dtype, m_mat.device
-    norm_f = torch.linalg.norm(m_mat)
+    array goes to the card; a DTensor whose rows are sharded is read
+    block by block (the module docstring)."""
+    view = _row_split(m_mat)
+    mm, nn = view.shape
+    dtype, dev = view.dtype, view.device
+    m_mat = _local(view)                     # this rank's rows
+
+    def norm(x):                             # Frobenius, over every rank
+        return torch.sqrt(_reduce(torch.sum(x * x), view))
+
+    def split(x):
+        return _like(view, x)
+    norm_f = norm(m_mat)
     lam_v = (1.0 / torch.sqrt(torch.tensor(float(max(mm, nn)),
                                            dtype=dtype, device=dev))
              if lam is None else torch.tensor(lam, dtype=dtype, device=dev))
@@ -86,28 +106,30 @@ def rpca(
     # sigma_1 estimate: a few power iterations
     v1 = sketch_matrix(fold_in_shard(key, _SIGMA_TAG), nn, 1, dtype)
     for _ in range(8):
-        v1 = _mm(m_mat.T, _mm(m_mat, v1))
+        v1 = _mm(view.T, _mm(view, v1))
         v1 = v1 / torch.clamp(torch.linalg.norm(v1), min=1e-30)
-    sigma1 = torch.linalg.norm(_mm(m_mat, v1))
+    sigma1 = norm(_local(_mm(view, v1)))
     mu_i = (1.25 / torch.clamp(sigma1, min=1e-30) if mu is None
             else torch.tensor(mu, dtype=dtype, device=dev))
 
     low = sp = torch.zeros_like(m_mat)
-    j_scale = torch.maximum(sigma1, torch.max(torch.abs(m_mat)) / lam_v)
+    m_inf = _reduce(torch.max(torch.abs(m_mat)), view, "max")
+    j_scale = torch.maximum(sigma1, m_inf / lam_v)
     y = m_mat / torch.clamp(j_scale, min=1e-30)
     resid = m_mat.new_zeros((iters,))
     for i in range(iters):
-        low, _ = _svt(m_mat - sp + y / mu_i, 1.0 / mu_i,
+        low, _ = _svt(split(m_mat - sp + y / mu_i), 1.0 / mu_i,
                       fold_in_shard(key, i), k_max, p, q, precision)
         g = m_mat - low + y / mu_i
         sp = torch.sign(g) * torch.clamp(torch.abs(g) - lam_v / mu_i,
                                          min=0.0)
         r = m_mat - low - sp
         y = y + mu_i * r
-        resid[i] = torch.linalg.norm(r) / norm_f
+        resid[i] = norm(r) / norm_f
         mu_i = mu_i * rho
     # numerical rank of the recovered L
-    _, s_fin = _svt(low, 0.0, fold_in_shard(key, iters), k_max, p, q,
-                    precision)
+    _, s_fin = _svt(split(low), 0.0, fold_in_shard(key, iters), k_max, p,
+                    q, precision)
     tol = torch.clamp(s_fin[0], min=1e-30) * 1e-6
-    return RpcaResult(low, sp, torch.sum(s_fin > tol), resid)
+    return RpcaResult(_to_api(split(low)), _to_api(split(sp)),
+                      torch.sum(s_fin > tol), resid)

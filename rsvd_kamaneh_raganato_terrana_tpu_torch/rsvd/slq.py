@@ -15,6 +15,12 @@ one batched ``torch.linalg.eigh`` (``core/device.py::eigh_nan``).  A matrix-free
 ``apply_a(v, *operands)`` on single vectors is batched the same way by
 ``torch.func.vmap``.  The probes come from ``rademacher`` on a generator
 seeded from ``seed`` (torch Philox draws, not JAX's values).
+
+A DTensor whose rows are sharded is read block by block: each step's
+A V is the local rows' product, gathered (one counted all-gather of the
+n x m block a step), and the Lanczos recurrence, its vectors and the
+quadrature run replicated on every rank, the probes drawn whole, as on
+one card.
 """
 
 from __future__ import annotations
@@ -32,6 +38,11 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     key_from_seed,
     rademacher,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _mm,
+    _row_split,
+    _whole,
 )
 
 _EPS = 1e-30
@@ -111,7 +122,8 @@ def slq_trace(a, fn: Callable, seed=0, num_probes: int = 16,
     ``a``: a square matrix or a matrix-free operator
     ``apply_a(v, *operands) -> A v`` on single vectors (pass ``n``; the
     probes are drawn on the device of the first tensor in ``operands``,
-    nested tuples included, the card when there is none).  ``fn`` is an elementwise torch
+    nested tuples included, the card when there is none); a matrix may
+    be a row-sharded DTensor (the module docstring).  ``fn`` is an elementwise torch
     function (e.g. ``torch.log``, ``lambda x: 1 / (x + mu)``)."""
     if callable(a):
         if n is None:
@@ -123,11 +135,11 @@ def slq_trace(a, fn: Callable, seed=0, num_probes: int = 16,
                                   out_dims=1)
         apply_a = batched
     else:
-        a = as_tensor(a)
+        a = _row_split(a)
         n, dtype, dev = a.shape[0], a.dtype, a.device
 
         def apply_a(x):
-            return _mv(a, x)
+            return _whole(_mm(a, x, "highest"))
     probes = rademacher(key_from_seed(seed, dev), (num_probes, n), dtype)
     al, be = _lanczos_block(apply_a, probes.T, steps)
     return float(n) * torch.mean(_quadrature(al, be, fn))

@@ -14,6 +14,12 @@ on a generator seeded from ``seed`` (torch Philox draws, not the JAX
 package's threefry values); Hutch++'s two sketches come from the seed's
 generator folded with 0 and 1.
 
+A DTensor whose rows are sharded is read block by block: A G stays
+row-split, each quadratic form is summed over the local rows and
+all-reduced, and the probes are drawn whole, as the one-card call draws
+them, so the estimate does not depend on the split; the diagonal comes
+back row-sharded.
+
 Matrix-free calling convention, shared with ``rsvd/slq.py``:
 ``estimator(apply_a, n=..., operands=(op1, op2, ...))`` where
 ``apply_a(X, *operands)`` returns A X.  The probes are drawn on the
@@ -27,7 +33,10 @@ import math
 
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    row_dtensor,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     fold_in_shard,
     key_from_seed,
@@ -39,12 +48,21 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION as _HI,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _like,
+    _local,
+    _mm,
+    _reduce,
+    _row_block,
+    _row_split,
+)
 
 
 def _quad_forms(apply_a, g):
-    """g_j^T (A g_j) for every column j: one product and a contraction."""
-    return torch.sum(g * apply_a(g), dim=0)
+    """g_j^T (A g_j) for every column j: one product and a contraction
+    (over the local rows, all-reduced, where A G is row-split)."""
+    y = apply_a(g)
+    return _reduce(torch.sum(_row_block(y, g) * _local(y), dim=0), y)
 
 
 def _operator(a, n, dtype, operands, who):
@@ -56,7 +74,7 @@ def _operator(a, n, dtype, operands, who):
         dev = next((o.device for o in operands
                     if isinstance(o, torch.Tensor)), torch.device("cuda"))
         return (lambda x: a(x, *operands)), int(n), dtype, dev
-    a = as_tensor(a)
+    a = _row_split(a)
     return (lambda x: _mm(a, x, _HI)), a.shape[0], a.dtype, a.device
 
 
@@ -96,7 +114,8 @@ def hutchpp(a, seed=0, budget: int = 96, kind: str = "rademacher",
     q = orthonormal_basis(apply_a(s), "robust")
     t_range = torch.trace(_mm(q.T, apply_a(q), _HI))
     # (I - QQ^T) g deflates both sides of each residual quadratic form
-    gp = g - _mm(q, _mm(q.T, g, _HI), _HI)
+    qq = _mm(q, _mm(q.T, g, _HI), _HI)
+    gp = _like(qq, _row_block(qq, g) - _local(qq))
     return t_range + torch.mean(_quad_forms(apply_a, gp))
 
 
@@ -110,5 +129,9 @@ def diag_estimate(a, seed=0, num_samples: int = 128, n: int = None,
                                        "diag_estimate")
     g = sketch_matrix(key_from_seed(seed, dev), n, num_samples, dtype,
                       "rademacher")
-    prod = g * apply_a(g)                          # n x m, row i -> a_ii
-    return torch.mean(prod, dim=1), _std_err(prod, 1, num_samples)
+    y = apply_a(g)
+    prod = _row_block(y, g) * _local(y)            # n x m, row i -> a_ii
+    out = torch.mean(prod, dim=1), _std_err(prod, 1, num_samples)
+    if isinstance(y, Sharded):                     # row-sharded, as A
+        return tuple(row_dtensor(t, y.mesh, y.rows, n) for t in out)
+    return out

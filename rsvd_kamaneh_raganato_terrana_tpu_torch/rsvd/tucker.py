@@ -12,6 +12,13 @@ shrinks geometrically.
 Error: ||A - [G; U]||_F^2 <= sum_i eps_i^2, eps_i mode i's truncation
 error.  Each mode's range finder uses the driver's 'robust' QR, which
 reads its fallback flag on the host once per QR, as the main path does.
+
+A DTensor sharded on mode 0 is read block by block: mode 0's unfolding
+is split by rows, every other mode's by columns (held as the transpose
+of a row split), and the driver's split products all-reduce the Grams
+and contractions that cross the split; the sketches are drawn whole, as
+on one card.  Once mode 0 is contracted the core is replicated.  U_0
+comes back row-sharded, the other factors and the core replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     resolve_precision,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
 )
@@ -34,6 +42,8 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._modewise import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     _mm,
+    _row_split,
+    _to_api,
     generate_omega,
     subspace_iteration,
 )
@@ -68,20 +78,44 @@ def _order(shape):
     return sorted(range(len(shape)), key=lambda i: -shape[i])
 
 
+def _split_unfold(view, local, mode: int):
+    """The mode unfolding of a tensor split on mode 0 (``view``, its
+    :class:`Sharded` view, ``local`` its current block): mode 0's by
+    rows; any other mode's columns run over mode 0 outermost, so each
+    rank holds one block of them, held as the transpose of a row
+    split."""
+    unf = _unfold(local, mode)
+    if mode == 0:
+        return Sharded(unf, (view.shape[0], unf.shape[1]), view.mesh,
+                       view.rows)
+    cols = unf.shape[1] * view.rows.size
+    return Sharded(unf.T, (cols, unf.shape[0]), view.mesh, view.rows).T
+
+
 def _tucker_impl(a, seed, ranks: Tuple[int, ...], p: int, q: int,
                  precision: str):
     prec = resolve_precision(precision)
-    core = a
-    factors = [None] * a.ndim
+    view = a if isinstance(a, Sharded) else None
+    core = a.local if view else a                  # this rank's block
+    shape = list(a.shape)                          # the whole core's
+    factors = [None] * len(shape)
     for mode in _order(a.shape):
-        unf = _unfold(core, mode)                  # n_mode x rest
-        l = min(ranks[mode] + p, min(unf.shape))
-        omega = generate_omega(seed + 7919 * mode, unf.shape[1], l,
-                               unf.dtype, device=unf.device)
+        unf = (_split_unfold(view, core, mode) if view
+               else _unfold(core, mode))           # n_mode x rest
+        rest = math.prod(shape) // shape[mode]
+        l = min(ranks[mode] + p, shape[mode], rest)
+        omega = generate_omega(seed + 7919 * mode, rest, l, core.dtype,
+                               device=core.device)
         q_mat = subspace_iteration(unf, omega, q, precision=prec)
         u, contracted = tighten_contract(unf, q_mat, ranks[mode], prec)
-        factors[mode] = u
-        core = _fold(contracted, mode, core.shape)  # mode axis -> r_mode
+        factors[mode] = _to_api(u)
+        shape[mode] = ranks[mode]
+        if view and mode == 0:
+            view = None                            # contracted: replicated
+        elif view:
+            contracted = contracted.T.local.T      # this rank's columns
+        core = _fold(contracted, mode, shape if view is None
+                     else (core.shape[0],) + tuple(shape[1:]))
     return core, tuple(factors)
 
 
@@ -104,10 +138,11 @@ def tucker(
 
     ``p``/``q``/``precision`` are the rSVD stage-A knobs (oversampling,
     power iterations, product precision) applied per mode.  A tensor
-    stays on its device; any other array goes to the card."""
-    a = as_tensor(a)
-    if len(ranks) != a.ndim:
-        raise ValueError(f"need {a.ndim} ranks, got {len(ranks)}")
+    stays on its device; any other array goes to the card; a DTensor
+    sharded on mode 0 is read block by block (the module docstring)."""
+    a = _row_split(a)
+    if len(ranks) != len(a.shape):
+        raise ValueError(f"need {len(a.shape)} ranks, got {len(ranks)}")
     # mirror _tucker_impl's processing order so the clip accounts for
     # already-contracted modes shrinking the unfolding
     eff = [int(min(r, n)) for r, n in zip(ranks, a.shape)]

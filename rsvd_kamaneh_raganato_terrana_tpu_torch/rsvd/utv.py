@@ -4,6 +4,10 @@ UTV finishes (the JAX package's ``rsvd/utv.py``).
 A ~ U T V^T with U, V orthonormal and T upper-triangular (Gopal &
 Martinsson 2018): V = range finder of A^T, W = A V, (U, T) = qr(W).  The
 approximation error is the range finder's ||A (I - V V^T)||.
+
+A DTensor whose rows are sharded goes through the driver's split
+products: V and T come back replicated, U row-sharded; Omega (m x l) is
+drawn whole, as on one card.
 """
 
 from __future__ import annotations
@@ -13,7 +17,11 @@ import torch
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     _as_operand,
+    _like,
+    _local,
     _mm,
+    _sharded_view,
+    _to_api,
     generate_omega,
     subspace_iteration,
 )
@@ -25,7 +33,7 @@ def rutv(a, k: int = 0, p: int = 10, q: int = 2, seed: int = 0,
     positive diagonal, V: n x l), l = k + p (all l = p when k = 0).
     A ~ U @ T @ V.T; truncate with :func:`rutv_reconstruct`.  Omega
     (m x l) is drawn from ``seed`` on A's device."""
-    a = _as_operand(a)
+    a = _sharded_view(_as_operand(a))
     m, n = a.shape
     l = min(k + p if k > 0 else p, min(m, n))
     omega = generate_omega(seed, m, l, a.dtype, device=a.device)
@@ -34,7 +42,8 @@ def rutv(a, k: int = 0, p: int = 10, q: int = 2, seed: int = 0,
     u, t = qr_reduced(w, qr_method)                               # A V = U T
     # positive diagonal of T, so diag(T) compares with singular values
     signs = torch.where(torch.diagonal(t) < 0, -1.0, 1.0).to(a.dtype)
-    return u * signs[None, :], t * signs[:, None], v
+    return (_to_api(_like(u, _local(u) * signs[None, :])),
+            t * signs[:, None], v)
 
 
 def rutv_reconstruct(u, t, v, k: int = 0):

@@ -165,7 +165,8 @@ _MESHES = {}
 
 def _mesh(kind: str):
     """The group's mesh of ``kind``: 'rows' (1-D), 'rows_cols' (2 x 2),
-    'pod' (``make_pod_mesh``) or 'tile'; made once a process."""
+    'pod' (``make_pod_mesh``), 'tile' or 'batch' (1-D, named 'batch');
+    made once a process."""
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core import mesh as cm
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
         make_pod_mesh,
@@ -179,6 +180,8 @@ def _mesh(kind: str):
                                               device="cpu"),
             "pod": lambda: make_pod_mesh(device="cpu"),
             "tile": lambda: cm.make_tile_mesh(device="cpu"),
+            "batch": lambda: cm.make_mesh(axis_names=("batch",),
+                                          device="cpu"),
         }[kind]()
     return _MESHES[key]
 
@@ -251,6 +254,121 @@ def task_rsvd(a, layout, call="rsvd_with_omega", omega=None, **kwargs):
     tally = collectives.tally()
     return dict(u=_full(u), u_local=_np(u.to_local()), s=_np(s), v=_np(v),
                 tally=tally)
+
+
+def _pack(x):
+    """A result as NumPy: a DTensor as {"whole", "local", "placements"}
+    (its whole tensor by DTensor's own gather, not counted), a tensor as
+    an array, a tuple (NamedTuples too) as a list, anything else as it
+    is."""
+    import torch
+
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+        is_dtensor,
+    )
+
+    if is_dtensor(x):
+        return dict(whole=_full(x), local=_np(x.to_local()),
+                    placements=[str(p) for p in x.placements])
+    if isinstance(x, torch.Tensor):
+        return _np(x)
+    if isinstance(x, tuple):
+        return [_pack(v) for v in x]
+    return x
+
+
+def _placed_as(x, layout):
+    """``x`` (NumPy) placed by ``layout``: 'rows' (dim 0 over the 1-D
+    mesh), 'cols' (dim 1 over it), 'batch' (dim 0 over a ('batch',)
+    mesh) or None (a tensor every rank holds whole; anything but an
+    array stays as it is)."""
+    from torch.distributed.tensor import Shard
+
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import mesh as cm
+
+    if layout is None:
+        return _t(x) if isinstance(x, np.ndarray) else x
+    t = _t(x)
+    if layout == "batch":
+        return cm.distribute(t, _mesh("batch"), (Shard(0),))
+    return cm.distribute(t, _mesh("rows"), (Shard(0 if layout == "rows"
+                                                    else 1),))
+
+
+def task_call(fn, args=(), layouts=(), **kwargs):
+    """The port's ``fn`` ('module:name' under the package) on ``args``,
+    each placed by its entry of ``layouts`` (None past its end): the
+    packed result and the collectives it issued."""
+    import importlib
+
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
+
+    module, name = fn.split(":")
+    func = getattr(importlib.import_module(
+        "rsvd_kamaneh_raganato_terrana_tpu_torch." + module), name)
+    layouts = tuple(layouts) + (None,) * (len(args) - len(layouts))
+    placed = [_placed_as(x, lay) for x, lay in zip(args, layouts)]
+    collectives.reset()
+    out = func(*placed, **kwargs)
+    return dict(out=_pack(out), tally=collectives.tally())
+
+
+def task_fd(a, n_cols, l, batch):
+    """FrequentDirections with its 2l x n buffer column-sharded over the
+    1-D mesh, fed ``a`` ``batch`` rows at a time: the sketch, the top-4
+    ``eigh_estimate`` (V packed) and the tally of the updates."""
+    import torch
+
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import mesh as cm
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.fd import (
+        FrequentDirections,
+    )
+
+    fd = FrequentDirections(n_cols, l, dtype=torch.float64, device="cpu")
+    fd._buf = cm.distribute(fd._buf, _mesh("rows"),
+                            cm.col_sharding(_mesh("rows")))
+    collectives.reset()
+    for i in range(0, a.shape[0], batch):
+        fd.update(a[i:i + batch])
+    tally = collectives.tally()
+    w, v = fd.eigh_estimate(4)
+    return dict(sketch=_pack(fd.sketch()), w=_np(w), v=_pack(v),
+                tally=tally)
+
+
+def task_tiled(data, k, grid, mesh="rows"):
+    """``Image.compress_tiled(mesh=)`` on the CPU: the tile factors, the
+    recorded layout and the tally."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.image import Image
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
+
+    collectives.reset()
+    im = Image(data).compress_tiled(k=k, grid=tuple(grid), mesh=_mesh(mesh),
+                                    device="cpu", dtype=_f64())
+    tf = im.tile_factors
+    return dict(u=tf.u, s=tf.s, v=tf.v, rec=im.reconstruct(),
+                sharding=[str(p) for p in im.last_tile_sharding or ()],
+                tally=collectives.tally())
+
+
+def task_video(frames, k, p, mesh="rows"):
+    """``compress_video(mesh=)`` on the CPU: (U, S, V) and the tally."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.apps.image import (
+        compress_video,
+    )
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
+
+    collectives.reset()
+    u, s, v = compress_video(frames, k=k, p=p, mesh=_mesh(mesh),
+                             device="cpu", dtype=_f64())
+    return dict(u=u, s=s, v=v, tally=collectives.tally())
+
+
+def _f64():
+    import torch
+
+    return torch.float64
 
 
 def task_ring(a, omega, **kwargs):

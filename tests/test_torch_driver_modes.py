@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from rsvd_kamaneh_raganato_terrana_tpu.rsvd import driver as jdriver
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import convert
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver as tdriver
 
 # the port's entry points default to the card; these tests run on the CPU
@@ -95,6 +96,42 @@ def test_batched_scan_element_is_the_single_matrix_pipeline():
         ui, si, vi = tdriver.rsvd_with_omega(stack[i], omega, q=2, k=4,
                                              method="eigh")
         assert torch.equal(s[i], si) and torch.equal(u[i], ui)
+
+
+def test_batched_vmap_is_one_vmap_program_held_to_the_loop():
+    """``mode='vmap'`` is one ``torch.func.vmap`` of ``rsvd_with_omega``
+    over the stack and the stacked Omegas ('cholqr2' QR), equal to the
+    loop of the same calls to 1e-10 (f64)."""
+    stack = from_numpy(np.stack([_decaying(s, 40, 30, floor=1e-3)
+                                 for s in range(3)]))
+    real = torch.func.vmap
+    with mock.patch.object(torch.func, "vmap", side_effect=real) as spy:
+        u, s, v = tdriver.rsvd_batched(stack, k=5, p=6, q=1, seed=11,
+                                       mode="vmap")
+    assert spy.call_count == 1
+    for i in range(3):
+        omega = tdriver.generate_omega(11 + i, 30, 11, torch.float64,
+                                       device="cpu")
+        ui, si, vi = tdriver.rsvd_with_omega(stack[i], omega, q=1, k=5,
+                                             method="eigh",
+                                             qr_method="cholqr2")
+        assert _rel(to_numpy(s[i]), to_numpy(si)) <= 1e-10
+        assert _rel(_recon(u[i], s[i], v[i]), _recon(ui, si, vi)) <= 1e-10
+
+
+def test_eigh_small_vmap_rule_runs_each_element():
+    """K3 under ``torch.func.vmap`` (``rsvd_batched(mode='vmap',
+    method='eigh_pallas')`` on the card): the rule calls the wrapper once
+    an element, bitwise the element's own call (the plain version
+    here)."""
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 6, 6))).float()
+    g = g + g.transpose(1, 2)
+    lam, vecs = torch.func.vmap(
+        lambda x: kernels._EighSmallBatched.apply(x, 8))(g)
+    for i in range(3):
+        lam_i, vecs_i = kernels.eigh_small(g[i])
+        assert torch.equal(lam[i], lam_i) and torch.equal(vecs[i], vecs_i)
 
 
 @pytest.mark.parametrize("bad", ["k0", "mode", "ndim"])

@@ -283,15 +283,30 @@ def test_compress_video_matches_jax():
                 jimage.reconstruct_video(ju, js, jv)) <= RTOL
 
 
-def test_mesh_and_tucker_are_not_ported():
-    """``mesh=`` waits for the distributed slice (queue 1 item 10); the
-    Tucker video codec is ported (item 8) and runs: on a stack of exact
-    multilinear rank both packages' codecs give the stack back."""
+def test_mesh_must_be_a_device_mesh_and_tucker_runs():
+    """``mesh=`` takes a torch ``DeviceMesh`` (the sharded runs are held
+    in tests/test_torch_distributed_extensions.py): anything else raises
+    ``TypeError``, and ``mesh=None`` is the one-card run.  The Tucker
+    video codec (item 8) runs: on a stack of exact multilinear rank both
+    packages' codecs give the stack back."""
     im = timage.Image(_photo((16, 16)))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         im.compress_tiled(k=2, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         timage.compress_video(np.zeros((2, 8, 8)), k=2, mesh=object(), **CPU)
+    one = timage.Image(_photo((16, 16))).compress_tiled(k=2, **CPU)
+    none = timage.Image(_photo((16, 16))).compress_tiled(k=2, mesh=None,
+                                                         **CPU)
+    for got, want in zip((none.tile_factors.u, none.tile_factors.s,
+                          none.tile_factors.v),
+                         (one.tile_factors.u, one.tile_factors.s,
+                          one.tile_factors.v)):
+        np.testing.assert_array_equal(got, want)
+    assert none.last_tile_sharding is None
+    frames = np.stack([_photo((12, 10), seed=s) for s in range(2)])
+    for got, want in zip(timage.compress_video(frames, k=2, mesh=None, **CPU),
+                         timage.compress_video(frames, k=2, **CPU)):
+        np.testing.assert_array_equal(got, want)
     g = np.random.default_rng(5)
     frames = np.einsum("ta,ib,jc,abc->tij", g.standard_normal((3, 1)),
                        g.standard_normal((8, 2)), g.standard_normal((9, 2)),
