@@ -5,10 +5,11 @@ the other driver modes, PCA, the rsvd/pca command lines, POD/ROM, the
 randomized-NLA extensions (block Krylov through K1/K2/K3 among them),
 the tensor and hierarchical formats, GP, checkpoints and autodiff,
 sparse operands and retrieval, kernel PCA, spectral clustering, the
-sklearn estimators, out-of-core streaming and the distributed half (a
-one-rank NCCL group, four ranks sharing the card over gloo) on one CUDA
-card, and hold every kernel of those paths to its plain PyTorch
-version.
+sklearn estimators, out-of-core streaming, the distributed half (a
+one-rank NCCL group, four ranks sharing the card over gloo), the
+degenerate inputs of the JAX suite's edge cases and the factor
+checkpoint on ``torch.distributed.checkpoint`` on one CUDA card, and
+hold every kernel of those paths to its plain PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
 
@@ -254,7 +255,24 @@ Phases (any failure raises; nothing is caught):
    solutions relative, DEIM and rLU indices equal, FD's S^T S over its
    largest), beside the single call's own shift when every draw is
    multiplied by 1 + 1e-7 xi.
-14. A ``kernels`` JSON line, the card's name and power limit, and as the
+14. Item 13's edge cases on the card, through the kernels.  (a)
+   ``svd(method='eigh_pallas')`` of a 1 x 1, a 20 x 1, a 1 x 15, a zero
+   10 x 6 and a constant 16 x 12 (K3 at n = 1, 6, 12); K1 and K2 on a
+   30 x 1 and a zero 12 x 4 panel (K1's NaN contract on the zero one);
+   ``rsvd(k=0, p=50, q=1)`` of a 10 x 8 with ``sketch='fused'`` (K4, l
+   clamped to 8), alone and with K1 interiors and the K3 tail, and
+   ``rsvd`` at k = min(m, n) (12 x 9, k 9, p 4) by that route: every
+   launch counted and held to its plain version, each result to
+   tests/test_edge_cases.py's bar against numpy's f64 sigma, or to its
+   f32 equivalent (P14_*).  (b) ``rsvd`` of a 1,048,576 x 1024 f32
+   operand (k 256, p 16; U 1 GiB) through ``save_factors_dcp`` /
+   ``load_factors_dcp``: one process, bitwise, with the save and load
+   GB/s; then four spawned gloo ranks sharing the card, each saving its
+   262,144 rows of the same U as a row-sharded DTensor and loading them
+   back on the (4,) mesh, bitwise, each also loading the one-process
+   checkpoint resharded onto the mesh, and rank 0 loading the whole U
+   plain, bitwise.  The directories are removed at the end.
+15. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -343,6 +361,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import (
     jacobi,
     kernels,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import svd as linalg_svd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.incremental import (
     IncrementalSVD,
 )
@@ -4925,6 +4944,341 @@ def phase_sharded_extensions():
     return launches, out
 
 
+# --- phase 14: item 13's edge cases through the kernels; the factor
+# checkpoint on torch.distributed.checkpoint at a real size -------------
+
+# (a) tests/test_edge_cases.py's bars, f64 there and f32 on the card: the
+# f32 equivalents below are stated beside the JAX bar they stand for
+P14_NORM_TOL = 1e-6       # |s_0 - ||a|| | / ||a||; JAX 1e-10 (f64)
+P14_CONST_TOL = 1e-6      # constant matrix: s_0 relative; JAX 1e-9 (f64)
+# constant matrix, s[1:] / s_0 (JAX 1e-9, the Jacobi engine in f64): the
+# Gram route rounds G's eigenvalues by ~eps lambda_1, so sigma by
+# sqrt(eps) sigma_1 = 3.5e-4 sigma_1 in f32
+P14_CONST_TAIL = 2e-3
+P14_SIGMA_TOL = 1e-5      # rsvd at l = min(m, n): rtol on sigma; JAX 1e-6
+P14_QR_TOL = 1e-5         # one-column K1/K2: ||QR - a|| / ||a||, | ||q|| - 1 |
+# each launch against its plain version on the same input: K1 and K2 to
+# phase 2's bounds, K3 bitwise at even n (else lambda to K3_LAM_TOL), K4
+# to K4_Y_TOL, all relative to the plain output's largest entry
+P14_PLAIN_TOL = {"fused_cholqr1": Q_TOL, "polar_qr_fused": K2_Q_TOL,
+                 "eigh_small": K3_LAM_TOL, "fused_sketch_matmul": K4_Y_TOL}
+P14_ROUTE = dict(sketch="fused", qr_method="cholqr1_fused",
+                 method="eigh_pallas")
+# (b) rsvd of a 1,048,576 x 1024 f32 operand (4 GiB), k 256, p 16: U is
+# 1 GiB; four gloo ranks sharing the card hold 262,144 rows each
+P14_ROWS, P14_COLS, P14_K, P14_P = 1 << 20, 1024, 256, 16
+P14_RANKS = 4
+P14_TIMEOUT = 300.0       # s: the four ranks' whole run
+
+
+@contextlib.contextmanager
+def p14_recorded():
+    """K1-K4's wrappers, each call recorded (its input, its output)."""
+    recs = {w: Recorder(getattr(kernels, w)) for w in WRAPPERS[:4]}
+    with mock.patch.multiple(kernels, **recs):
+        yield recs
+
+
+def p14_vs_plain(name, x, args, kwargs, out):
+    """One recorded launch of ``name`` against its plain version on the
+    same input: a non-finite plain result must be non-finite from the
+    kernel (K1's NaN contract); else bitwise, or within
+    P14_PLAIN_TOL[name] of the plain output's largest entry (K3 at odd n
+    on its eigenvalues only, as phase 2 holds it)."""
+    plain = getattr(kernels, f"{name}_reference")(x, *args, **kwargs)
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = plain if isinstance(plain, tuple) else (plain,)
+    what = f"phase 14 {name} {tuple(x.shape)}"
+    if not finite(*refs):
+        check(not finite(*outs), f"{what}: finite where the plain version "
+              f"is not")
+        return dict(kernel=name, shape=list(x.shape), nan_contract=True)
+    check(finite(*outs), f"{what}: non-finite where the plain version is "
+          f"finite")
+    bitwise = all(torch.equal(o, r) for o, r in zip(outs, refs))
+    held = outs[:1] if name == "eigh_small" and x.shape[0] % 2 else outs
+    err = max(float((o - r).abs().max()) / (float(r.abs().max()) or 1.0)
+              for o, r in zip(held, refs))
+    check(bitwise or (err <= P14_PLAIN_TOL[name]
+                      and not (name == "eigh_small" and x.shape[0] % 2 == 0)),
+          f"{what}: bitwise {bitwise}, max rel err {err}")
+    return dict(kernel=name, shape=list(x.shape), bitwise=bitwise,
+                max_rel_err=err)
+
+
+def p14_sigma_err(s, a64):
+    """max |s - s_numpy| / s_numpy over the nonzero numpy sigma."""
+    s_np = np.linalg.svd(a64, compute_uv=False)
+    return float(np.max(np.abs(to_numpy(s).astype(np.float64) - s_np)
+                        / s_np))
+
+
+def p14_edge_items(gen):
+    """(label, call, check) of phase 14a: ``check(result, a64)`` returns
+    the case's error, or raises."""
+    def card(shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    def norm_case(a):
+        def held(out, a64):
+            err = abs(float(out[1][0]) - np.linalg.norm(a64)) \
+                / np.linalg.norm(a64)
+            check(err <= P14_NORM_TOL and finite(*out),
+                  f"phase 14 svd {tuple(a.shape)}: s_0 off by {err}")
+            return err
+        return held
+
+    def zero_case(out, a64):
+        check(bool((out[1] == 0).all()) and finite(*out),
+              f"phase 14 svd zero: s {to_numpy(out[1])}")
+        return 0.0
+
+    def const_case(out, a64):
+        s = to_numpy(out[1]).astype(np.float64)
+        err = abs(s[0] - 7.0 * math.sqrt(16 * 12)) / (7.0 * math.sqrt(192))
+        tail = float(np.max(s[1:]) / s[0])
+        check(err <= P14_CONST_TOL and tail <= P14_CONST_TAIL
+              and finite(*out),
+              f"phase 14 svd constant: s_0 off by {err}, tail {tail}")
+        return max(err, tail)
+
+    def qr_case(out, a64):
+        q, r = (to_numpy(x).astype(np.float64) for x in out)
+        if not np.isfinite(q).all() or not np.isfinite(r).all():
+            return None                   # the NaN contract, held above
+        err = max(np.linalg.norm(q @ r - a64) / (np.linalg.norm(a64) or 1.0),
+                  abs(np.linalg.norm(q) - 1.0) if a64.any() else 0.0)
+        check(err <= P14_QR_TOL, f"phase 14 qr {a64.shape}: err {err}")
+        return err
+
+    def rsvd_case(l):
+        def held(out, a64):
+            check(out[1].shape == (l,) and finite(*out),
+                  f"phase 14 rsvd {a64.shape}: s {out[1].shape}")
+            err = p14_sigma_err(out[1], a64)
+            check(err <= P14_SIGMA_TOL,
+                  f"phase 14 rsvd {a64.shape}: sigma rtol {err}")
+            return err
+        return held
+
+    one = torch.tensor([[3.0]], device="cuda")
+    col, row = card((20, 1)), card((1, 15))
+    zero = torch.zeros(10, 6, device="cuda")
+    const = torch.full((16, 12), 7.0, device="cuda")
+    panel, zpanel = card((30, 1)), torch.zeros(12, 4, device="cuda")
+    a108, a129 = card((10, 8)), card((12, 9))
+    svd_pal = functools.partial(linalg_svd, method="eigh_pallas")
+    return [
+        ("svd 1x1", one, lambda: svd_pal(one), norm_case(one)),
+        ("svd 20x1", col, lambda: svd_pal(col), norm_case(col)),
+        ("svd 1x15", row, lambda: svd_pal(row), norm_case(row)),
+        ("svd zero 10x6", zero, lambda: svd_pal(zero), zero_case),
+        ("svd constant 16x12", const, lambda: svd_pal(const), const_case),
+        ("K1 30x1", panel, lambda: kernels.fused_cholqr1(panel), qr_case),
+        ("K1 zero 12x4", zpanel, lambda: kernels.fused_cholqr1(zpanel),
+         qr_case),
+        ("K2 30x1", panel, lambda: kernels.polar_qr_fused(panel), qr_case),
+        ("K2 zero 12x4", zpanel, lambda: kernels.polar_qr_fused(zpanel),
+         qr_case),
+        ("rsvd 10x8 k=0 p=50 q=1 sketch='fused'", a108,
+         lambda: rsvd(a108, k=0, p=50, q=1, sketch="fused"), rsvd_case(8)),
+        ("rsvd 10x8 k=0 p=50 q=1 K4+K1+K3", a108,
+         lambda: rsvd(a108, k=0, p=50, q=1, **P14_ROUTE), rsvd_case(8)),
+        ("rsvd 12x9 k=9 p=4 q=2 K4+K1+K3", a129,
+         lambda: rsvd(a129, k=9, p=4, q=2, **P14_ROUTE), rsvd_case(9)),
+    ]
+
+
+def p14_edge_cases():
+    """Phase 14a: every case with its launches counted and each launch
+    held to its plain version.  Returns ((K1..K5b) launches, summary)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out, launches = {}, list(NONE)
+    for label, a, call, held in p14_edge_items(gen):
+        reset_counts()
+        with p14_recorded() as recs:
+            res = call()
+            torch.cuda.synchronize()
+        got = counts()
+        vs_plain = [p14_vs_plain(name, *c) for name, r in recs.items()
+                    for c in r.calls]
+        check(len(vs_plain) == sum(got[:4]) and any(got[:4]),
+              f"phase 14 {label}: launches {got}, {len(vs_plain)} recorded")
+        err = held(res, to_numpy(a).astype(np.float64))
+        out[label] = dict(err=err, launches_k1_to_k5b=list(got),
+                          vs_plain=vs_plain)
+        launches = [x + y for x, y in zip(launches, got)]
+        log(f"  {label}: " + json.dumps(out[label]))
+    return launches, out
+
+
+def p14_rank(rank, world, port, tmp, results):
+    """One of phase 14b's four ranks sharing the card over gloo: its
+    262,144 rows of U from ``u.npy`` as a row-sharded DTensor, saved
+    together, loaded back on the (4,) mesh; the one-process checkpoint
+    resharded onto the mesh; rank 0 loads the four ranks' U whole."""
+    from torch.distributed.tensor import DTensor
+
+    torch.cuda.set_device(0)
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    mesh = make_mesh(device="cuda")
+    whole = np.load(os.path.join(tmp, "u.npy"), mmap_mode="r")
+    rows = whole.shape[0] // world
+    mine = torch.from_numpy(np.array(
+        whole[rank * rows:(rank + 1) * rows])).cuda()
+    s, v = (torch.from_numpy(np.load(os.path.join(tmp, f"{x}.npy"))).cuda()
+            for x in ("s", "v"))
+    u = DTensor.from_local(mine, mesh, (Shard(0),), run_check=False,
+                           shape=whole.shape, stride=(whole.shape[1], 1))
+    path, out = os.path.join(tmp, "four"), {}
+    dist.barrier()
+    t0 = time.perf_counter()
+    checkpoint.save_factors_dcp(path, u, s, v, meta={"ranks": world})
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    u2, s2, v2, meta = checkpoint.load_factors_dcp(path, mesh=mesh)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["rows_bitwise"] = (torch.equal(u2.to_local(), mine)
+                           and torch.equal(s2, s) and torch.equal(v2, v)
+                           and meta == {"ranks": world})
+    u3 = checkpoint.load_factors_dcp(os.path.join(tmp, "one"), mesh=mesh)[0]
+    out["resharded_bitwise"] = torch.equal(u3.to_local(), mine)
+    del u2, u3
+    if rank == 0:
+        t0 = time.perf_counter()
+        uw = checkpoint.load_factors_dcp(path)[0]
+        torch.cuda.synchronize()
+        out["plain_load_s"] = time.perf_counter() - t0
+        out["plain_bitwise"] = torch.equal(
+            uw, torch.from_numpy(np.array(whole)).cuda())
+        del uw
+    dist.barrier()
+    results.put((rank, out))
+    dist.destroy_process_group()
+
+
+def p14_four_ranks(tmp):
+    """Phase 14b's four spawned ranks; any rank's non-zero exit or the
+    time limit fails the phase."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=p14_rank,
+                         args=(r, P14_RANKS, port, tmp, results))
+             for r in range(P14_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + P14_TIMEOUT
+    try:
+        while len(got) < P14_RANKS:
+            check(time.monotonic() < deadline,
+                  f"phase 14 ranks gave {len(got)} results in {P14_TIMEOUT} s")
+            failed = [p.exitcode for p in procs if p.exitcode]
+            check(not failed, f"phase 14 rank exit codes {failed}")
+            try:
+                rank, out = results.get(timeout=2.0)
+            except queue.Empty:
+                continue
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 14 rank exit codes {[p.exitcode for p in procs]}")
+    return got
+
+
+def p14_checkpoint():
+    """Phase 14b: ``rsvd`` of the 4 GiB operand, its factors through
+    ``save_factors_dcp``/``load_factors_dcp`` in this process and on four
+    gloo ranks, every load bitwise; the directories removed at the end.
+    Returns the summary (GB/s = the factors' bytes over the host clock's
+    seconds of one call)."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    a = torch.randn(P14_ROWS, P14_COLS, device="cuda", generator=gen)
+    reset_counts()
+    t0 = time.perf_counter()
+    u, s, v = rsvd(a, k=P14_K, p=P14_P, method="eigh")
+    torch.cuda.synchronize()
+    out["rsvd_s"] = time.perf_counter() - t0
+    check(counts() == NONE and u.shape == (P14_ROWS, P14_K)
+          and finite(u, s, v), f"phase 14 rsvd: {u.shape}, {counts()}")
+    del a
+    torch.cuda.empty_cache()
+    gb = sum(x.numel() * x.element_size() for x in (u, s, v)) / 1e9
+    out["factor_gb"] = gb
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "one")
+        meta = {"k": P14_K, "p": P14_P, "rows": P14_ROWS}
+        t0 = time.perf_counter()
+        checkpoint.save_factors_dcp(path, u, s, v, meta=meta)
+        out["one_save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        u2, s2, v2, meta2 = checkpoint.load_factors_dcp(path)
+        torch.cuda.synchronize()
+        out["one_load_s"] = time.perf_counter() - t0
+        out["one_bitwise"] = (torch.equal(u2, u) and torch.equal(s2, s)
+                              and torch.equal(v2, v) and meta2 == meta
+                              and u2.device.type == "cuda")
+        out["one_save_gb_s"] = gb / out["one_save_s"]
+        out["one_load_gb_s"] = gb / out["one_load_s"]
+        out["files"] = sorted(os.listdir(path))
+        del u2, s2, v2
+        log("  one process: " + json.dumps(out))
+        check(out["one_bitwise"], "phase 14 one-process DCP round trip")
+        for name, x in (("u", u), ("s", s), ("v", v)):
+            np.save(os.path.join(tmp, f"{name}.npy"), to_numpy(x))
+        del u, s, v
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = p14_four_ranks(tmp)
+        r0 = ranks[0]
+        four = dict(
+            wall_s=time.perf_counter() - t0,
+            rows_bitwise=[ranks[r]["rows_bitwise"] for r in sorted(ranks)],
+            resharded_bitwise=[ranks[r]["resharded_bitwise"]
+                               for r in sorted(ranks)],
+            plain_bitwise=r0["plain_bitwise"],
+            save_s=max(r["save_s"] for r in ranks.values()),
+            load_s=max(r["load_s"] for r in ranks.values()),
+            plain_load_s=r0["plain_load_s"],
+            files=sorted(os.listdir(os.path.join(tmp, "four"))))
+        four["save_gb_s"] = gb / four["save_s"]
+        four["load_gb_s"] = gb / four["load_s"]
+        four["plain_load_gb_s"] = gb / four["plain_load_s"]
+        out["four_ranks"] = four
+        log("  four gloo ranks: " + json.dumps(four))
+        check(all(four["rows_bitwise"]) and all(four["resharded_bitwise"])
+              and four["plain_bitwise"],
+              f"phase 14 four-rank DCP round trips: {four}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_edge_and_checkpoint():
+    """Phase 14.  Returns ((K1, K2, K3, K4, K5a, K5b) launches of its
+    counted runs, summary)."""
+    t0 = time.perf_counter()
+    phase("phase 14a: item 13's edge cases through K1-K4")
+    launches, out = p14_edge_cases()
+    out = {"edge_cases": out, "launches_k1_to_k5b": launches}
+    phase("phase 14b: the factor checkpoint on torch.distributed.checkpoint "
+          f"({P14_ROWS} x {P14_COLS} f32, k {P14_K})")
+    out["dcp"] = p14_checkpoint()
+    out["s"] = time.perf_counter() - t0
+    log(f"  phase 14: {out['s']:.1f} s, launches {launches}")
+    return launches, out
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
     path, timings.  ``want`` = (K1, K2, K3, K4, K5a, K5b) launches per
@@ -5390,6 +5744,11 @@ def main(argv):
     ext_sh_launches, ext_sh_summary = phase_sharded_extensions()
     launches_total = [t + c for t, c in zip(launches_total, ext_sh_launches)]
 
+    phase("phase 14: item 13's edge cases on the card; the factor "
+          "checkpoint on torch.distributed.checkpoint")
+    edge_launches, edge_summary = phase_edge_and_checkpoint()
+    launches_total = [t + c for t, c in zip(launches_total, edge_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -5430,7 +5789,8 @@ def main(argv):
         "driver_modes": modes, "pca": pca_summary, "pod": pod_summary,
         "extensions": ext_summary, "formats": fmt_summary,
         "apps_streaming": app_summary, "distributed": dist_summary,
-        "sharded_extensions": ext_sh_summary}
+        "sharded_extensions": ext_sh_summary,
+        "edge_and_checkpoint": edge_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

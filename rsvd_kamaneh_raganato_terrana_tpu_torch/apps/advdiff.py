@@ -345,8 +345,10 @@ def solve_fom(cfg: AdvDiffConfig, mu, dtype=None,
 
 def fom_step(ops: Operators, u, f_t):
     """One theta-method step: the solve of lhs u' = rhs_mat u + f_t with
-    zero Dirichlet rows, for one state or a batch."""
-    return lu_solve(ops.lu, zero_ends(bmv(ops.rhs_mat, u) + f_t))
+    zero Dirichlet rows, for one state or a batch.  The ends of u' are
+    set to their exact 0: the pivoted solve leaves roundoff there that
+    differs between one state and a batch."""
+    return zero_ends(lu_solve(ops.lu, zero_ends(bmv(ops.rhs_mat, u) + f_t)))
 
 
 def solve_fom_reaction(cfg: AdvDiffConfig, mu, c_react, kind: str = "cubic",
@@ -370,7 +372,7 @@ def solve_fom_reaction(cfg: AdvDiffConfig, mu, c_react, kind: str = "cubic",
     def step(u, f_t):
         g = reaction(u, kind, c_react)
         rhs = bmv(ops.rhs_mat, u) + f_t - bmv(mass_d, g)
-        return lu_solve(ops.lu, zero_ends(rhs))
+        return zero_ends(lu_solve(ops.lu, zero_ends(rhs)))
 
     u_final, snaps = _time_loop(cfg, u0.expand(mu.shape + u0.shape), f_theta,
                                 step, include_initial)

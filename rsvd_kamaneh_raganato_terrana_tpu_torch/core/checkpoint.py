@@ -10,9 +10,13 @@ the host (bf16 widened to f32) before they are written.
 
 ``load_model`` rebuilds the recorded NamedTuple type from this package:
 a file the JAX package wrote, which records a JAX module, loads as the
-same-named type here, its arrays as tensors on ``device``.  The JAX
-package's orbax pair (``save_factors_orbax``/``load_factors_orbax``)
-stores JAX arrays and stays JAX-only.
+same-named type here, its arrays as tensors on ``device``.
+
+:func:`save_factors_dcp`/:func:`load_factors_dcp` are the counterpart of
+the JAX package's orbax pair (``save_factors_orbax``/
+``load_factors_orbax``): a directory written by
+``torch.distributed.checkpoint``, each rank writing its own rows of a
+row-sharded U.  They read no orbax directory (another format).
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import shutil
+import warnings
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -64,6 +71,107 @@ def load_factors(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Dict]:
     """Inverse of :func:`save_factors`: host (U, S, V, meta)."""
     with np.load(_npz_path(path), allow_pickle=False) as z:
         return z["U"], z["S"], z["V"], json.loads(str(z["meta"]))
+
+
+_FACTOR_META = "factor_meta.json"
+
+
+def _dcp_rank():
+    """(no_dist, rank): this process alone unless a process group is
+    up."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return False, dist.get_rank()
+    return True, 0
+
+
+@contextmanager
+def _one_process_quiet():
+    """DCP warns on every call in one process that it assumes one
+    process; here that is the contract."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is "
+                                "disabled, unavailable or uninitialized")
+        yield
+
+
+def save_factors_dcp(path: str, U, S, V, meta: Optional[Dict] = None) -> None:
+    """Save an SVD factor triple to the directory ``path`` with
+    ``torch.distributed.checkpoint`` (the counterpart of the JAX
+    package's ``save_factors_orbax``, ``core/checkpoint.py:46-74``).
+
+    ``U`` is a tensor, on the card or on the host, or the row-sharded
+    DTensor that ``rsvd`` returns on a sharded operand: each rank writes
+    its own rows, nothing is gathered.  ``S`` and ``V`` are tensors every
+    rank holds whole (written once).  With a process group up every rank
+    calls.  An existing ``path`` is replaced; ``meta`` goes to
+    ``factor_meta.json``, written by rank 0.  Returns once every file is
+    written."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    no_dist, rank = _dcp_rank()
+    if rank == 0 and os.path.isdir(path):
+        shutil.rmtree(path)
+    if not no_dist:
+        dist.barrier()
+    with _one_process_quiet():
+        dcp.save({"U": U, "S": S, "V": V}, checkpoint_id=path,
+                 no_dist=no_dist)
+    if meta and rank == 0:
+        with open(os.path.join(path, _FACTOR_META), "w") as f:
+            json.dump(meta, f)
+    if not no_dist:
+        dist.barrier()
+
+
+def load_factors_dcp(path: str, *, mesh=None, device=None):
+    """Inverse of :func:`save_factors_dcp` (the JAX package's
+    ``load_factors_orbax``): ``(U, S, V, meta)``, bitwise what was saved,
+    dtypes kept, shapes and dtypes read from the checkpoint's metadata.
+
+    With ``mesh`` (every rank of the process group calls) U comes back
+    as a row-sharded DTensor on it, whatever the world size was at save
+    time, and S and V as tensors on the mesh's device type.  Without,
+    this process alone reads three tensors on ``device`` (the card
+    unless the caller names another).  ``meta`` is ``{}`` when the
+    checkpoint has no ``factor_meta.json``."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+
+    path = os.path.abspath(path)
+    stored = FileSystemReader(path).read_metadata().state_dict_metadata
+
+    def empty(key, dev):
+        md = stored[key]
+        return torch.empty(md.size, dtype=md.properties.dtype, device=dev)
+
+    if mesh is None:
+        dev = torch.device(device or "cuda")
+        state = {key: empty(key, dev) for key in ("U", "S", "V")}
+    else:
+        from torch.distributed.tensor import empty as dtensor_empty
+
+        from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+            row_spec_for,
+        )
+
+        md = stored["U"]
+        dev = torch.device(mesh.device_type)
+        state = {"U": dtensor_empty(*md.size, dtype=md.properties.dtype,
+                                    device_mesh=mesh,
+                                    placements=row_spec_for(mesh)),
+                 "S": empty("S", dev), "V": empty("V", dev)}
+    with _one_process_quiet():
+        dcp.load(state, checkpoint_id=path, no_dist=mesh is None)
+    meta_path = os.path.join(path, _FACTOR_META)
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return state["U"], state["S"], state["V"], meta
 
 
 def save_tensor_factors(path: str, kind: str, *, core=None, factors=None,

@@ -185,7 +185,11 @@ jacobi_eigh(const float* __restrict__ g_in, float* __restrict__ lam_out,
           __fmul_rn(off, off) > __fmul_rn(eps2, fabsf(__fmul_rn(d, rd)));
       const float gs = rot ? off : 1.f;
       const float tau = __fdiv_rn(__fsub_rn(rd, d), __fmul_rn(2.f, gs));
-      const float sgn = tau >= 0.f ? 1.f : -1.f;
+      // tau = 0: +1 at the pair's lower index, -1 at its mirror, so the
+      // pair's (s, -s) stays a rotation (the plain version's tie rule)
+      const float sgn = tau > 0.f   ? 1.f
+                        : tau < 0.f ? -1.f
+                        : (i < mirror ? 1.f : -1.f);
       const float root = __fsqrt_rn(__fadd_rn(1.f, __fmul_rn(tau, tau)));
       const float t = rot ? __fdiv_rn(sgn, __fadd_rn(fabsf(tau), root)) : 0.f;
       const float c = rsqrtf(__fadd_rn(1.f, __fmul_rn(t, t)));

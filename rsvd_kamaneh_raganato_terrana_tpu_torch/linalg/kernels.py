@@ -299,6 +299,10 @@ def eigh_small_reference(g, sweeps: int = 8):
     ``sweeps * (n_pad - 1)`` rounds rotate the mirror pairs
     (i, n_pad - 1 - i) -- J = I c + anti s, G <- J^T G J, V <- V J, each
     a sum of two rounded products -- and apply the circle permutation Pi.
+    Where a pair's diagonal entries are equal (tau = 0), the lower index
+    takes t = +1 and its mirror t = -1: the JAX kernel gives both +1 there,
+    a singular J that wrecks G (a constant matrix's Gram, every diagonal
+    entry equal, came back with every eigenvalue 2.8e19).
     The ascending stable sort drops the pad eigenpair.  Computed in f32,
     returned in ``g.dtype``."""
     n = g.shape[-1]
@@ -313,6 +317,9 @@ def eigh_small_reference(g, sweeps: int = 8):
     perm = torch.arange(-1, n_pad - 1, device=g.device)
     perm[:2] = torch.tensor([0, n_pad - 1])
     idx = torch.arange(n_pad, device=g.device)
+    # tau = 0 (equal diagonal entries): +1 at the lower index of the pair
+    # and -1 at its mirror, so that the pair's (s, -s) stays a rotation
+    tie = torch.where(idx < idx.flip(0), 1.0, -1.0).to(torch.float32)
     for _ in range(sweeps * (n_pad - 1)):
         d = torch.diagonal(g32)
         r = g32[idx, idx.flip(0)]                     # G[i, n_pad - 1 - i]
@@ -320,7 +327,7 @@ def eigh_small_reference(g, sweeps: int = 8):
         do = r * r > (_F32_EPS * _F32_EPS) * torch.abs(d * rev_d)
         g_safe = torch.where(do, r, torch.ones_like(r))
         tau = (rev_d - d) / (2.0 * g_safe)
-        sgn = torch.where(tau >= 0, 1.0, -1.0)
+        sgn = torch.where(tau > 0, 1.0, torch.where(tau < 0, -1.0, tie))
         t = torch.where(do, sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau)),
                         torch.zeros_like(tau))
         c = torch.rsqrt(1.0 + t * t)

@@ -256,6 +256,30 @@ def task_rsvd(a, layout, call="rsvd_with_omega", omega=None, **kwargs):
                 tally=tally)
 
 
+def task_dcp(ckdir, a=None, omega=None, **kwargs):
+    """The factor checkpoint on the group: with ``a``, ``rsvd_with_omega``
+    of ``a`` row-sharded over the 1-D mesh, saved to ``ckdir`` by
+    ``save_factors_dcp`` (each rank its rows of U); then ``ckdir`` loaded
+    on the mesh and loaded whole by this rank alone.  The saved U's local
+    rows and whole (None without ``a``), and both loads."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import checkpoint
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
+
+    out = dict(saved_local=None, saved=None)
+    if a is not None:
+        u, s, v = driver.rsvd_with_omega(_placed(a, "rows"), _t(omega),
+                                         **kwargs)
+        checkpoint.save_factors_dcp(ckdir, u, s, v,
+                                    meta={"k": int(s.shape[0])})
+        out.update(saved_local=_np(u.to_local()), saved=_full(u),
+                   s=_np(s), v=_np(v))
+    u, s, v, meta = checkpoint.load_factors_dcp(ckdir, mesh=_mesh("rows"))
+    out["mesh"] = dict(u=_pack(u), s=_np(s), v=_np(v), meta=meta)
+    u, s, v, meta = checkpoint.load_factors_dcp(ckdir, device="cpu")
+    out["plain"] = dict(u=_np(u), s=_np(s), v=_np(v), meta=meta)
+    return out
+
+
 def _pack(x):
     """A result as NumPy: a DTensor as {"whole", "local", "placements"}
     (its whole tensor by DTensor's own gather, not counted), a tensor as

@@ -1,10 +1,12 @@
 """The port's factor checkpoints (``core/checkpoint.py``) and profiling
 harness (``core/profiling.py``) against the JAX package's, on the CPU.
 
-Each non-orbax case of ``tests/test_checkpoint.py`` runs here on the
-port, and the files are held to the JAX package's: what one package
-writes, the other reads back bit for bit (``.npz`` keys and arrays
-alike), and a model the JAX package saved loads as the port's type.
+Each case of ``tests/test_checkpoint.py`` runs here on the port (the
+orbax one beside the port's ``torch.distributed.checkpoint`` pair, on
+the same arrays, both bitwise), and the ``.npz`` files are held to the
+JAX package's: what one package writes, the other reads back bit for
+bit (``.npz`` keys and arrays alike), and a model the JAX package saved
+loads as the port's type.
 Models are compared through what they compute (``deim_interpolate``,
 ``hodlr_matvec``) to 1e-12 absolute, the arrays themselves exactly."""
 
@@ -83,6 +85,76 @@ def test_factor_files_cross_load_with_jax(tmp_path, rng):
     with np.load(tmp_path / "port.npz") as zp, \
             np.load(tmp_path / "jax.npz") as zj:
         assert sorted(zp.files) == sorted(zj.files)
+
+
+def _dcp_triple(rng):
+    """tests/test_checkpoint.py:52-54's arrays."""
+    return (rng.standard_normal((16, 4)).astype(np.float32),
+            rng.random(4).astype(np.float32),
+            rng.standard_normal((12, 4)).astype(np.float32))
+
+
+def test_orbax_and_dcp_roundtrips_agree(tmp_path, rng):
+    """JAX's orbax case (tests/test_checkpoint.py:45-62) on the same
+    arrays, beside the port's DCP pair: both round trips give the input
+    bitwise (so each other), and ``meta`` back."""
+    u, s, v = _dcp_triple(rng)
+    jck.save_factors_orbax(str(tmp_path / "orbax"), jnp.asarray(u),
+                           jnp.asarray(s), jnp.asarray(v), meta={"k": 4})
+    jax_back = jck.load_factors_orbax(str(tmp_path / "orbax"))
+    tck.save_factors_dcp(str(tmp_path / "dcp"), from_numpy(u),
+                         from_numpy(s), from_numpy(v), meta={"k": 4})
+    port_back = tck.load_factors_dcp(str(tmp_path / "dcp"), device="cpu")
+    for want, got_jax, got in zip((u, s, v), jax_back[:3], port_back[:3]):
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        np.testing.assert_array_equal(np.asarray(got_jax), want)
+        np.testing.assert_array_equal(to_numpy(got), want)
+        np.testing.assert_array_equal(to_numpy(got), np.asarray(got_jax))
+    assert jax_back[3] == port_back[3] == {"k": 4}
+    files = set(os.listdir(tmp_path / "dcp"))
+    assert {".metadata", "factor_meta.json"} <= files
+    assert any(f.endswith(".distcp") for f in files)
+
+
+def test_dcp_keeps_bf16(tmp_path, rng):
+    u, s, v = _dcp_triple(rng)
+    u16 = from_numpy(u).to(torch.bfloat16)
+    tck.save_factors_dcp(str(tmp_path / "ck"), u16, from_numpy(s),
+                         from_numpy(v))
+    u2, s2, v2, meta = tck.load_factors_dcp(str(tmp_path / "ck"),
+                                            device="cpu")
+    assert u2.dtype == torch.bfloat16 and s2.dtype == torch.float32
+    assert torch.equal(u2, u16) and torch.equal(v2, from_numpy(v))
+    assert meta == {}
+
+
+def test_dcp_replaces_an_existing_checkpoint(tmp_path, rng):
+    """A second save over the same path replaces it, as orbax's
+    ``force=True`` does: other shapes, other dtype, no meta file left."""
+    path = str(tmp_path / "ck")
+    u, s, v = _dcp_triple(rng)
+    tck.save_factors_dcp(path, from_numpy(u), from_numpy(s), from_numpy(v),
+                         meta={"k": 4})
+    u2, s2, v2 = _triple(rng)                      # f64, 20 x 5, 15 x 5
+    tck.save_factors_dcp(path, from_numpy(u2), from_numpy(s2),
+                         from_numpy(v2))
+    got = tck.load_factors_dcp(path, device="cpu")
+    for g, want in zip(got[:3], (u2, s2, v2)):
+        assert g.dtype == torch.float64
+        np.testing.assert_array_equal(to_numpy(g), want)
+    assert got[3] == {}
+    assert not os.path.exists(os.path.join(path, "factor_meta.json"))
+
+
+def test_dcp_without_meta_file_gives_empty_meta(tmp_path, rng):
+    path = str(tmp_path / "ck")
+    u, s, v = _dcp_triple(rng)
+    tck.save_factors_dcp(path, from_numpy(u), from_numpy(s), from_numpy(v),
+                         meta={"k": 4})
+    os.remove(os.path.join(path, "factor_meta.json"))
+    u2, _, _, meta = tck.load_factors_dcp(path, device="cpu")
+    assert meta == {}
+    np.testing.assert_array_equal(to_numpy(u2), u)
 
 
 def test_export_matrix_market_layout(tmp_path, rng):

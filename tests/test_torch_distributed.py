@@ -496,3 +496,50 @@ def test_tally_counts_kinds_and_bytes(ranks):
     res = ranks.run("primitive", name="ring_shift_rows", args=(x,))
     t = res[0]["tally"]["send_recv"]
     assert (t["calls"], t["bytes"], t["staged"]) == (1, 16 * 32 * 8, 0)
+
+
+# --- the factor checkpoint on torch.distributed.checkpoint --------------
+
+
+def test_dcp_checkpoint_of_a_row_sharded_u(rng, ranks, tmp_path):
+    """``rsvd`` of a row-sharded operand, saved by every rank (its own
+    rows of U), loaded back on the (4,) mesh (each rank's rows bitwise)
+    and whole by each rank alone (bitwise the gathered U); S and V
+    bitwise on every rank."""
+    from torch.distributed.tensor import Shard
+
+    a = rng.standard_normal((256, 48))
+    omega = jax_omega(0, 48, 12)
+    res = ranks.run("dcp", ckdir=str(tmp_path / "ck"), a=a, omega=omega,
+                    q=1, k=8)
+    for r, out in enumerate(res):
+        got = out["mesh"]["u"]
+        assert got["placements"] == [str(Shard(0))]
+        np.testing.assert_array_equal(got["local"], out["saved_local"])
+        np.testing.assert_array_equal(out["saved_local"],
+                                      shard_block(out["saved"], r, RANKS))
+        for load in ("mesh", "plain"):
+            np.testing.assert_array_equal(out[load]["s"], out["s"])
+            np.testing.assert_array_equal(out[load]["v"], out["v"])
+            assert out[load]["meta"] == {"k": 8}
+        np.testing.assert_array_equal(out["plain"]["u"], out["saved"])
+        np.testing.assert_array_equal(got["whole"], out["saved"])
+
+
+def test_dcp_checkpoint_of_one_process_reshards(rng, ranks, tmp_path):
+    """A checkpoint written by one process (no process group) loads on
+    the four ranks' mesh: each rank gets its block of rows, bitwise."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core.checkpoint import (
+        save_factors_dcp,
+    )
+
+    u, s, v = (torch.from_numpy(rng.standard_normal(shape))
+               for shape in ((40, 6), (6,), (30, 6)))
+    save_factors_dcp(str(tmp_path / "ck"), u, s, v)
+    res = ranks.run("dcp", ckdir=str(tmp_path / "ck"))
+    for r, out in enumerate(res):
+        np.testing.assert_array_equal(out["mesh"]["u"]["local"],
+                                      shard_block(u.numpy(), r, RANKS))
+        np.testing.assert_array_equal(out["plain"]["u"], u.numpy())
+        np.testing.assert_array_equal(out["mesh"]["v"], v.numpy())
+        assert out["mesh"]["meta"] == {}

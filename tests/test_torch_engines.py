@@ -378,3 +378,54 @@ def test_gram_eigh_tail_keeps_nan_contract(dtype):
     assert bool(torch.isnan(u).all()) and bool(torch.isnan(s).all())
     assert np.isnan(uj).all() and np.isnan(sj).all()
     np.testing.assert_array_equal(to_numpy(v), vj)
+
+
+# --- tests/test_linalg_utils.py:30-32, :48-50, :105-119 and
+# tests/test_f32_engines.py:43-49, at the JAX cases' bars ---------------
+
+
+def test_make_jacobi_zero_offdiag():
+    c, s = (float(v) for v in tjac.make_jacobi(2.0, 0.0, 1.0))
+    assert c == 1.0 and s == 0.0
+    assert (c, s) == tuple(float(v) for v in jjac.make_jacobi(2.0, 0.0, 1.0))
+
+
+def test_givens_zero():
+    c, s, r = (float(v) for v in tjac.givens_rotation(0.0, 0.0))
+    assert c == 1.0 and s == 0.0 and r == 0.0
+    assert (c, s, r) == tuple(float(v)
+                              for v in jjac.givens_rotation(0.0, 0.0))
+
+
+def test_procrustes_aligns_rsvd_factors():
+    """Two rSVD seeds' U of an exact rank-10 matrix, aligned by
+    Procrustes (the port's own draws)."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import rsvd
+
+    rng = np.random.default_rng(3)
+    a = from_numpy(rng.standard_normal((80, 10))
+                   @ rng.standard_normal((10, 60)))
+    u1, _, _ = rsvd(a, k=10, seed=0, method="eigh")
+    u2, _, _ = rsvd(a, k=10, seed=99, method="eigh")
+    q = tsvd.procrustes(u2, u1)
+    assert float(torch.linalg.norm(u2 @ q - u1)) < 1e-6
+
+
+def test_equal_norm_columns_f32():
+    """sign(0) regression: a constant matrix needs a 45-degree rotation.
+    Both engines are deterministic: sigma also held to JAX's at 1e-6 of
+    sigma_1 (f32)."""
+    ones = np.ones((4, 4), np.float32)
+    u, s, v = tjac.jacobi_svd(from_numpy(ones))
+    assert s.dtype == torch.float32
+    np.testing.assert_allclose(to_numpy(s), [4.0, 0, 0, 0], atol=1e-5)
+    np.testing.assert_allclose(
+        to_numpy(s), np.asarray(jjac.jacobi_svd(jnp.asarray(ones))[1]),
+        rtol=0, atol=1e-6 * 4.0)
+    threes = np.full((8, 8), 3.0, np.float32)
+    u, s, v = tsvd.svd(from_numpy(threes), "parallel_jacobi")
+    np.testing.assert_allclose(float(s[0]), 24.0, rtol=1e-6)
+    np.testing.assert_allclose(
+        to_numpy(s),
+        np.asarray(jsvd.svd(jnp.asarray(threes), "parallel_jacobi")[1]),
+        rtol=0, atol=1e-6 * 24.0)

@@ -456,3 +456,37 @@ def test_bf16_storage_casts_a_once():
     assert tdrv._stage_operand(staged, "bf16") is staged
     assert isinstance(tdrv._stage_operand(a, "int8"), tdrv.Int8Stored)
     assert tdrv._stage_operand(a, "highest") is a
+
+
+# --- tests/test_serving_preset.py:25-46, at the JAX cases' bars on the
+# port's own draws ------------------------------------------------------
+
+
+def _decaying(m, n, lo=1e-2, seed=0):
+    rng_ = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng_.standard_normal((m, min(m, n))))
+    v, _ = np.linalg.qr(rng_.standard_normal((n, min(m, n))))
+    s = np.geomspace(1.0, lo, min(m, n))
+    return ((u * s) @ v.T).astype(np.float32)
+
+
+def test_healthy_serving_run_matches_reference_quality():
+    a = from_numpy(_decaying(220, 160))
+    k = 12
+    u, s, v, health = tsrv.rsvd_serving(a, k=k)
+    assert health is not None and health["ok"]
+    e = float(tdrv.reconstruction_error(a, u, s, v))
+    uf, sf, vf = tdrv.rsvd(a, k=k, p=16, q=2, method="eigh")
+    ef = float(tdrv.reconstruction_error(a, uf, sf, vf))
+    assert e < 1.1 * ef + 1e-6
+
+
+def test_prepared_operand_reused_bitwise():
+    a = from_numpy(_decaying(180, 140, seed=1))
+    st = tsrv.prepare_operand(a)
+    u1, s1, v1, _ = tsrv.rsvd_serving(st, k=10)
+    u2, s2, v2, _ = tsrv.rsvd_serving(st, k=10)
+    assert torch.equal(s1, s2) and torch.equal(u1, u2)
+    # and the prepared operand path equals the quantize-inside path
+    u3, s3, v3, _ = tsrv.rsvd_serving(a, k=10)
+    assert torch.equal(s1, s3)
