@@ -26,10 +26,15 @@ Phases (any failure raises; nothing is caught):
    their kernels by stage and ptxas registers; K2 is also timed with its
    iteration's cluster set to 4 (the one-block iteration), 8 and 16
    blocks, measured only.  K3 (``eigh_small``) on the
-   three-kernel path's l x l tail Gram and at n in {1, 2, 16, 17, 128,
-   200} (16: the command line's l)
-   (200 runs the workspace route), on an indefinite and on a
-   rank-deficient matrix, bitwise at every even n; K4
+   three-kernel path's l x l tail Gram and at n in K3_SIZES (16: the
+   command line's l; 144 and 240: the streaming and Krylov tails; 241
+   odd on the cluster route), on an indefinite and on a rank-deficient
+   matrix, bitwise at every even n on the route its plan picks (one
+   block, or a thread-block cluster); timed against
+   ``torch.linalg.eigh`` at n = 80, 144 and 240, each with its rounds,
+   us a round, bound, route and cluster size; and every route forced at
+   K3_SWEEP_N (the one-block kernel, clusters of 2 to 16 blocks), each
+   bitwise its plain version, measured only.  K4
    (``fused_sketch_matmul``) on the recovered Omega (A = I) and on Y at
    4096^2 x 80, a ragged 4099 x 4001 x 17 and l = 130; its 3xTF32
    tensor-core variant is only measured (time, recovered-Omega ulps, Y
@@ -456,8 +461,14 @@ K2_STAGE_TOL = 1e-4      # K2: max |d stage| / max |stage|
 K2_SYM_TOL = 1e-5        # K2: max |R - R^T| / max |R|, cond ~1
 K2_NORM_TOL = 1e-3       # K2: column norms of R against Y's, relative
 SERVING_PLAIN_TOL = 1e-3  # polar serving, kernel vs plain K2 recon error
-# 16: the rsvd command line's l; 200: past shared memory, the workspace
-K3_SIZES = (1, 2, 16, 17, 128, 200)
+# 16: the rsvd command line's l; 144: the streaming and sharded tails'
+# l; 240: the Krylov tail's l(q + 1); 241: an odd n on the cluster route
+K3_SIZES = (1, 2, 16, 17, 128, 144, 200, 240, 241)
+# K3 timed against torch.linalg.eigh at these n (80: the main path's tail
+# Gram) and every route timed at K3_SWEEP_N (measured only)
+K3_TIMED = (80, 144, 240)
+K3_SWEEP_N = (16, 32, 48, 64, 80, 96, 128, 144, 200, 240)
+K3_SWEEP_CLUSTERS = (2, 4, 8, 16)
 K3_LAM_TOL = 1e-5        # K3: max |d lambda| / max |lambda| vs plain, odd n
 # K3: max |V^T V - I| and ||V L V^T - G||_F / ||G||_F of the kernel's own
 # factors on full-rank inputs: the JAX suite's orthogonality bound
@@ -1032,15 +1043,81 @@ def ptxas_report(src, entry):
     return None
 
 
+def k3_bound(n):
+    """(rounds, bound_ms, bound_by) of K3 at n: a round rotates n_pad / 2
+    pairs over G's columns, G's rows and V's columns, ~9 n_pad^2 flops; G
+    read, lambda and V written."""
+    n_pad = n + n % 2
+    rounds = 8 * (n_pad - 1)
+    return (rounds,) + bound(9 * rounds * n_pad ** 2, 4 * (2 * n * n + n))
+
+
+def k3_route_sweep(known):
+    """K3 at K3_SWEEP_N with each route forced (``rsvd_eigh_set_route``:
+    the one-block kernel, and clusters of K3_SWEEP_CLUSTERS blocks that
+    fit n), each bitwise its plain version and timed; measured only, the
+    plan's choice restored.  ``known`` maps n to (G, plain lambda, plain
+    V) of phase 2's full-rank inputs; other n take a Wishart matrix.
+    Returns {n: {route: ms}} with the plan's own route beside."""
+    lib = kernels._eigh_lib()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    try:
+        for n in K3_SWEEP_N:
+            if n in known:
+                g, lam0, v0 = known[n]
+            else:
+                x = torch.randn(n, 2 * n, device="cuda", generator=gen)
+                with device.ieee_fp32():
+                    g = x @ x.T / (2 * n)
+                lam0, v0 = kernels.eigh_small_reference(g)
+            reps = 10 if n <= 144 else 3
+            row = {"plan": kernels.eigh_small_plan(n)["route"]}
+            routes = [("one block", 0, 0)] + [
+                (f"cluster {c}", 1, c) for c in K3_SWEEP_CLUSTERS]
+            for label, route, blocks in routes:
+                check(lib.rsvd_eigh_set_route(route, blocks) == 0, label)
+                if kernels.eigh_small_plan(n)["smem_bytes"] == 0:
+                    continue   # a cluster that does not fit n
+                try:
+                    lam, v = kernels.eigh_small(g)
+                    torch.cuda.synchronize()
+                except RuntimeError as exc:   # a cluster the card refuses
+                    row[label] = str(exc)
+                    continue
+                check(torch.equal(lam, lam0) and torch.equal(v, v0),
+                      f"K3 n={n} route {label}: not bitwise its plain "
+                      f"version: max|dlam|="
+                      f"{float((lam - lam0).abs().max())} "
+                      f"max|dV|={float((v - v0).abs().max())}")
+                row[label] = cuda_ms(lambda: kernels.eigh_small(g), reps)
+            lib.rsvd_eigh_set_route(-1, 0)
+            out[n] = row
+            log(f"  K3 route sweep n={n} (bitwise each): " + ", ".join(
+                f"{k} {v:.4f} ms" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row.items()))
+    finally:
+        lib.rsvd_eigh_set_route(-1, 0)
+    return out
+
+
 def phase_k3(g_main):
     """K3 against its plain version; returns its kernels-line fields."""
     worst = 0.0
     bitwise = {}
+    known = {}   # n -> (G, plain lambda, plain V, plain ms), full rank
     for name, (g, full_rank) in k3_inputs(g_main).items():
         lam, v = kernels.eigh_small(g)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         lam0, v0 = kernels.eigh_small_reference(g)
-        torch.cuda.synchronize()
+        end.record()
+        end.synchronize()
         n = g.shape[0]
+        if full_rank and n not in known:
+            known[n] = (g, lam0, v0, start.elapsed_time(end))
+        route = kernels.eigh_small_plan(n)
         check(lam.shape == (n,) and v.shape == (n, n), name)
         check(bool(torch.isfinite(lam).all() and torch.isfinite(v).all()),
               f"{name}: non-finite K3 output")
@@ -1061,7 +1138,8 @@ def phase_k3(g_main):
             rec = float(torch.linalg.norm((v * lam) @ v.T - g)
                         / torch.linalg.norm(g))
         ascending = bool((lam[1:] >= lam[:-1]).all())
-        log(f"  K3 {name}: max|dlam|/max|lam|={dlam:.3e} max|dV|={dv:.3e} "
+        log(f"  K3 {name} ({route['route']}, {route['blocks']} blocks): "
+            f"max|dlam|/max|lam|={dlam:.3e} max|dV|={dv:.3e} "
             f"max|V^T V - I|={orth:.3e} ||V L V^T - G||/||G||={rec:.3e} "
             f"lam in [{float(lam[0]):.4g}, {float(lam[-1]):.4g}]")
         check(dlam <= K3_LAM_TOL and ascending,
@@ -1079,28 +1157,41 @@ def phase_k3(g_main):
                   f"{name}: K3 lambda_min={float(lam[0])}, vs f64 {dref}")
         worst = max(worst, dlam * scale)
 
-    n = g_main.shape[0]
-    ms = cuda_ms(lambda: kernels.eigh_small(g_main), 20)
-    plain_ms = cuda_ms(lambda: kernels.eigh_small_reference(g_main), 2)
-    lib_ms = cuda_ms(lambda: torch.linalg.eigh(g_main), 20)
-    n_pad = n + n % 2
-    rounds = 8 * (n_pad - 1)
-    # per round the rotations of n_pad/2 pairs over G's columns, G's rows
-    # and V's columns: ~9 n_pad^2 flops; G read, lambda and V written
-    bound_ms, bound_by = bound(9 * rounds * n_pad ** 2,
-                               4 * (2 * n * n + n))
+    # K3 against torch.linalg.eigh at K3_TIMED, in this run (80: the tail
+    # Gram, which k3_inputs lists first; 144, 240: Wishart matrices); the
+    # plain version's time is its one call above
+    sizes = {}
+    for n in K3_TIMED:
+        g, _, _, plain_ms = known[n]
+        ms = cuda_ms(lambda: kernels.eigh_small(g), 20 if n <= 144 else 10)
+        lib_ms = cuda_ms(lambda: torch.linalg.eigh(g), 20)
+        rounds, bound_ms, bound_by = k3_bound(n)
+        plan = kernels.eigh_small_plan(n)
+        sizes[str(n)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_us=bound_ms * 1e3, bound_by=bound_by, rounds=rounds,
+            us_per_round=ms * 1e3 / rounds, over_library=ms / lib_ms,
+            route=plan["route"], cluster_blocks=plan["blocks"], plan=plan)
+        log(f"  K3 at n={n}: kernel {ms:.4f} ms ({rounds} rounds, "
+            f"{ms * 1e3 / rounds:.3f} us each; {plan['route']}, "
+            f"{plan['blocks']} blocks of {plan['threads']} threads, "
+            f"{plan['smem_bytes']} B shared memory each, "
+            f"{plan['barriers_per_round']} block barriers a round), plain "
+            f"{plain_ms:.4f} ms, torch.linalg.eigh {lib_ms:.4f} ms "
+            f"(K3 {ms / lib_ms:.3f}x), bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by})")
+    sweep = k3_route_sweep({n: k[:3] for n, k in known.items()})
     ptxas = ptxas_report("eigh", "jacobi_eigh")
-    barriers = kernels._eigh_lib().rsvd_eigh_barriers_per_round()
-    log(f"  K3 at n={n}: kernel {ms:.4f} ms ({rounds} rounds, "
-        f"{ms * 1e3 / rounds:.3f} us each, {barriers} block barriers per "
-        f"round by csrc/eigh.cu), plain {plain_ms:.4f} ms, torch.linalg.eigh "
-        f"{lib_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}); "
-        f"bitwise at even n: {bitwise}; ptxas {ptxas}")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms,
-                bound_us=bound_ms * 1e3, bound_by=bound_by, rounds=rounds,
-                us_per_round=ms * 1e3 / rounds, bitwise_even_n=bitwise,
-                ptxas=ptxas)
+    ptxas_cluster = ptxas_report("eigh", "eigh_cluster")
+    log(f"  K3 bitwise at even n: {bitwise}; ptxas {ptxas}; "
+        f"ptxas eigh_cluster {ptxas_cluster}")
+    main = sizes[str(g_main.shape[0])]
+    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                bound_us=main["bound_us"], bound_by=main["bound_by"],
+                rounds=main["rounds"], us_per_round=main["us_per_round"],
+                sizes=sizes, route_sweep=sweep, bitwise_even_n=bitwise,
+                ptxas=ptxas, ptxas_cluster=ptxas_cluster)
 
 
 def ulp(x):
@@ -5468,7 +5559,7 @@ def phase_drawn_point(rows, cols, k, seed):
 # device kernels by name: (substrings, group), first match wins
 KERNEL_GROUPS = (
     (("nccl",), "NCCL collectives"),
-    (("jacobi_eigh",), "K3 jacobi_eigh"),
+    (("jacobi_eigh", "eigh_cluster"), "K3 jacobi_eigh / eigh_cluster"),
     (("sketch_cluster", "sum_splits"), "K4 sketch_cluster / sum_splits"),
     (("ns_cluster", "ns_iterate"), "K2 ns_cluster / ns_iterate"),
     (("quantize_u8",), "K5 quantize_u8"),
@@ -5476,8 +5567,8 @@ KERNEL_GROUPS = (
     (("gram_cluster", "gram_partials"),
      "K1/K2 Gram (gram_cluster, gram_partials)"),
     (("apply_rows", "apply_right"), "K1/K2 apply (apply_rows, apply_right)"),
-    (("syevj", "syevd", "sytrd", "stedc", "ormtr", "orgtr"),
-     "cuSOLVER eigh"),
+    (("syevj", "syevbj", "row_rotate", "column_rotate", "syevd", "sytrd",
+      "stedc", "ormtr", "orgtr"), "cuSOLVER eigh"),
     (("i8", "s8", "imma", "int8"), "int8 GEMMs"),
     (("potrf", "getrf", "trsm", "trtri", "cholesky", "syrk"),
      "cholqr1 factor and solve"),

@@ -72,6 +72,7 @@
 
 #include <cstddef>
 
+#include "dsmem.cuh"
 #include "panel.cuh"
 
 namespace {
@@ -306,54 +307,14 @@ __device__ __forceinline__ float poly_at(const Poly& p, int i, int j,
                    __fmul_rn(p.c, v));
 }
 
-// Pushing a band to the cluster's blocks: asynchronous remote stores
-// (st.async) that count their bytes on the receiving block's mbarrier, so
-// a block waits for exactly the data it needs instead of for the whole
-// cluster.  Two mbarriers alternate with the parity of the product.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void st_async4(unsigned addr, float4 v,
-                                          unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// waits for the mbarrier's phase of this parity; a wait that never ends
-// (a fault) stops the kernel instead of hanging the card
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  for (long long n = 0;; ++n) {
-    unsigned ok;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-    if (ok) return;
-    if (n > (1LL << 26)) __trap();
-  }
-}
+// Pushing a band to the cluster's blocks (dsmem.cuh): two mbarriers
+// alternate with the parity of the product.
+using dsmem::map_rank;
+using dsmem::mbar_expect;
+using dsmem::mbar_init;
+using dsmem::mbar_wait;
+using dsmem::smem_addr;
+using dsmem::st_async4;
 
 // The pushes of a cluster's products: the block's rank, its mbarriers and
 // how many products it has pushed.
@@ -524,7 +485,7 @@ ns_cluster(const float* __restrict__ part, int nparts, float* __restrict__ r,
   if (threadIdx.x == 0) {
     mbar_init(push.bars);
     mbar_init(push.bars + 8);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    dsmem::mbar_init_fence();
   }
 
   // pad columns stay zero: the pushes copy whole rows of a band

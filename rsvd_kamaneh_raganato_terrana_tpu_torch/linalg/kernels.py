@@ -345,8 +345,27 @@ def eigh_small_reference(g, sweeps: int = 8):
 def _eigh_lib():
     return _library("eigh", {
         "rsvd_eigh_workspace_floats": (ctypes.c_size_t, [ctypes.c_int]),
+        "rsvd_eigh_plan": (None, [ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_longlong)]),
+        "rsvd_eigh_set_route": (ctypes.c_int, [ctypes.c_int] * 2),
         "rsvd_eigh_small_f32": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p])})
+
+
+_EIGH_ROUTES = ("one block", "cluster", "one block, workspace")
+
+
+def eigh_small_plan(n: int) -> dict:
+    """K3's plan at n on the current card (``rsvd_eigh_plan``): the route
+    (one block of shared memory, a thread-block cluster, or one block with
+    a device workspace), the blocks, threads and dynamic shared memory of
+    the launch, block barriers a round and tournament pairs a block owns.
+    Needs the card: the cluster size depends on what it runs."""
+    out = (ctypes.c_longlong * 7)()
+    _eigh_lib().rsvd_eigh_plan(n, out)
+    return dict(route=_EIGH_ROUTES[out[0]], blocks=out[1], threads=out[2],
+                smem_bytes=out[3], barriers_per_round=out[4],
+                pairs_per_block=out[5], n_pad=out[6])
 
 
 def eigh_small(g, sweeps: int = 8):
@@ -354,11 +373,16 @@ def eigh_small(g, sweeps: int = 8):
     indefinite allowed): (eigenvalues ascending, V), the contract of
     ``torch.linalg.eigh``, at ~f32 eps relative to the dominant
     eigenvalue after ``sweeps`` Jacobi sweeps.  On a CUDA tensor it
-    launches ``csrc/eigh.cu`` (one block, one launch, no host sync) on
+    launches ``csrc/eigh.cu`` (one launch, no host sync) on
     the current stream; on a CPU tensor it runs
     :func:`eigh_small_reference`.  Computed in f32, returned in
-    ``g.dtype`` (the JAX kernel returns f32).  G and V stay in shared
-    memory up to n = 168 and move to a device workspace above."""
+    ``g.dtype`` (the JAX kernel returns f32).  The route follows n
+    (:func:`eigh_small_plan`): one block with G and V in its shared memory
+    up to n = 40, one thread-block cluster of 16 blocks (8 where the card
+    runs no such cluster) with G and V spread over the blocks' shared
+    memory above, and one block with a device workspace past the
+    cluster's reach (n ~ 670).  Every route is bitwise the plain version
+    at even n."""
     if g.ndim != 2 or g.shape[0] != g.shape[1]:
         raise ValueError(f"eigh_small takes a square matrix, got {g.shape}")
     if sweeps < 0:

@@ -108,6 +108,34 @@ def test_eigh_reference_matches_jax_eigh_small(kind):
                    _sines(top_j, exact).max()) <= 3e-3
 
 
+# max |V^T V - I| of the plain version's V: chip_smoke.py's K3_ORTH_TOL,
+# the JAX suite's orthogonality bound (tests/test_pallas.py:112)
+K3_ORTH_TOL = 1e-3
+
+
+@pytest.mark.parametrize("n", [144, 240])
+def test_eigh_reference_matches_f64_eigh_at_cluster_route_sizes(n):
+    """The plain version at the streaming and sharded tails' n = 144 and
+    the block-Krylov tail's n = 240, where the card runs K3's cluster
+    route, against numpy's f64 eigh on a Wishart matrix.  JAX's
+    interpret-mode kernel is not run at these sizes (minutes a call)."""
+    rng = np.random.default_rng(n)
+    b = rng.standard_normal((n, 2 * n)).astype(np.float32)
+    g = b @ b.T / (2 * n)
+    lam, v = (to_numpy(x) for x in
+              kernels.eigh_small_reference(from_numpy(g)))
+    ref = np.linalg.eigvalsh(g.astype(np.float64))
+    assert lam.shape == (n,) and v.shape == (n, n)
+    assert np.all(np.diff(lam) >= 0)
+    # the JAX suite's spectrum bar (tests/test_pallas.py:128-131), relative
+    # to the largest eigenvalue: the fixed-sweep arithmetic's rotations
+    # drift from orthogonal as rounds add up, so the plain version lands
+    # 2.7e-5 (n = 144) and 5.8e-5 (n = 240) from the f64 spectrum here
+    assert np.abs(lam - ref).max() <= 1e-4 * np.abs(ref).max()
+    orth = np.abs(v.T.astype(np.float64) @ v - np.eye(n)).max()
+    assert orth <= K3_ORTH_TOL
+
+
 def test_eigh_wrapper_runs_reference_on_cpu_and_counts_no_launch():
     g = from_numpy(_symmetric("psd24")[0])
     before = kernels.eigh_small.launches

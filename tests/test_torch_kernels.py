@@ -128,7 +128,8 @@ def test_build_names_sm90a_and_only_package_sources():
     srcs = _build.sources()
     assert [s.name for s in srcs] == ["cholqr1.cu", "eigh.cu", "polar.cu",
                                       "quantize.cu", "sketch.cu"]
-    assert [h.name for h in _build.headers()] == ["hash.cuh", "panel.cuh"]
+    assert [h.name for h in _build.headers()] == ["dsmem.cuh", "hash.cuh",
+                                                  "panel.cuh"]
     for src in srcs:
         cmd = _build.nvcc_command("nvcc", src, _build.library_path(src))
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
