@@ -277,7 +277,32 @@ Phases (any failure raises; nothing is caught):
    back on the (4,) mesh, bitwise, each also loading the one-process
    checkpoint resharded onto the mesh, and rank 0 loading the whole U
    plain, bitwise.  The directories are removed at the end.
-15. A ``kernels`` JSON line, the card's name and power limit, and as the
+15. Row-sharded operands through the public API beyond ``rsvd``.  (a)
+   A one-rank NCCL group in this process, every function of the slice
+   at the size of the single-card phase that runs it, on a row-sharded
+   (or mode-0-sharded) DTensor: ``rsvd_adaptive`` (phase 6's rank-512
+   operand), ``rsvd_onepass`` with the K3 tail, ``rsvd_warm`` through K1
+   (4096^2); ``column_id``,
+   ``row_id``, ``cur``, ``leverage_sample`` (4096^2, rank 64 plus
+   noise); ``rsvd_krylov`` through K1 and K3 and through K2, the four
+   estimates of ``diagnostics.py`` (8192^2); ``reigh``,
+   ``reigh_generalized``, ``nystrom_pcg`` (the 16384-point RBF kernel);
+   ``sketch_lstsq`` sparse and damped, ``sketch_minnorm``,
+   ``lstsq_residual`` (262144 x 512); ``cca`` (262144 x (512, 384));
+   ``dmd`` (65536 x 401); ``PCA`` ('eigh' and ``use_rsvd``) and the two
+   estimators (262144 x 1024); ``KernelPCA`` and the feature maps (16384
+   points); ``tucker_adaptive`` (1024^3), TT (128^4), CP 'als' and 'rand'
+   (512^3).  Each call against the single-card call, bitwise (the
+   sparse sketch's atomics: within 1e-4), with ms sharded, ms single and
+   rank 0's ms in the collectives, its collectives by kind, and every
+   K1-K4 launch recorded and held to its plain version as phase 2 holds
+   it (K1 and K2 by max |dQ|, K3 bitwise at even n); each kernel a call
+   names launched at least once, no other.
+   (b) Four spawned ranks sharing the card over gloo, the same calls at
+   P15B's cuts, each within 1e-4 of the single call on rank 0 (the
+   iterative ones 1e-3), beside the single call's own shift when every
+   float draw is multiplied by 1 + 1e-7 xi.
+16. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -1677,19 +1702,18 @@ def phase_driver_modes(a, a64, err_np):
     out["adaptive"] = res
     return out
 
-def pca_operand(seed=0):
-    """X = 1 mu^T + G diag(0.97^i) W^T + 0.01 E on the card: G and E
-    Gaussian, W orthogonal, mu a per-feature offset of scale 5."""
+def pca_operand(seed=0, rows=None, d=None):
+    """X = 1 mu^T + G diag(0.97^i) W^T + 0.01 E on the card (PCA_ROWS x
+    PCA_D unless given): G and E Gaussian, W orthogonal, mu a
+    per-feature offset of scale 5."""
+    rows, d = rows or PCA_ROWS, d or PCA_D
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    w, _ = torch.linalg.qr(torch.randn(PCA_D, PCA_D, device="cuda",
-                                       generator=gen))
-    mu = PCA_OFFSET * torch.randn(PCA_D, device="cuda", generator=gen)
-    decay = PCA_DECAY ** torch.arange(PCA_D, device="cuda",
-                                      dtype=torch.float32)
-    x = torch.randn(PCA_ROWS, PCA_D, device="cuda", generator=gen) * decay
+    w, _ = torch.linalg.qr(torch.randn(d, d, device="cuda", generator=gen))
+    mu = PCA_OFFSET * torch.randn(d, device="cuda", generator=gen)
+    decay = PCA_DECAY ** torch.arange(d, device="cuda", dtype=torch.float32)
+    x = torch.randn(rows, d, device="cuda", generator=gen) * decay
     x = device.matmul_at(x, w.T, "highest")
-    x += PCA_NOISE * torch.randn(PCA_ROWS, PCA_D, device="cuda",
-                                 generator=gen)
+    x += PCA_NOISE * torch.randn(rows, d, device="cuda", generator=gen)
     return x + mu
 
 
@@ -2666,20 +2690,22 @@ def phase_nystrom():
     return out
 
 
-def ls_operand(seed):
-    """A LS_ROWS x LS_COLS f32 panel of condition LS_COND and its
-    right-hand sides b = A X + noise (relative LS_NOISE), on the card."""
+def ls_operand(seed, rows=None, cols=None):
+    """A rows x cols (LS_ROWS x LS_COLS unless given) f32 panel of
+    condition LS_COND and its right-hand sides b = A X + noise (relative
+    LS_NOISE), on the card."""
+    rows, cols = rows or LS_ROWS, cols or LS_COLS
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    v, _ = torch.linalg.qr(torch.randn(LS_COLS, LS_COLS, device="cuda",
+    v, _ = torch.linalg.qr(torch.randn(cols, cols, device="cuda",
                                        generator=gen))
-    s = torch.logspace(0, -math.log10(LS_COND), LS_COLS, device="cuda")
+    s = torch.logspace(0, -math.log10(LS_COND), cols, device="cuda")
     with device.ieee_fp32():
-        a = (torch.randn(LS_ROWS, LS_COLS, device="cuda", generator=gen)
+        a = (torch.randn(rows, cols, device="cuda", generator=gen)
              * s) @ v.T
-        b0 = a @ torch.randn(LS_COLS, LS_RHS, device="cuda", generator=gen)
-    noise = torch.randn(LS_ROWS, LS_RHS, device="cuda", generator=gen)
+        b0 = a @ torch.randn(cols, LS_RHS, device="cuda", generator=gen)
+    noise = torch.randn(rows, LS_RHS, device="cuda", generator=gen)
     b = b0 + LS_NOISE * torch.linalg.norm(b0, dim=0) / math.sqrt(
-        LS_ROWS) * noise
+        rows) * noise
     return a, b
 
 
@@ -4581,26 +4607,33 @@ P13_DRAWS = (("rsvd.driver", "generate_omega"),
 
 
 @contextlib.contextmanager
-def p13_perturbed():
-    """Every draw of the slice's modules times (1 + 1e-7 xi), xi Gaussian:
-    the single call's own sensitivity to a roundoff-level change."""
+def p13_perturbed(draws=P13_DRAWS):
+    """Every float draw of the slice's modules (``draws``: (module, name)
+    pairs) times (1 + 1e-7 xi), xi Gaussian: the single call's own
+    sensitivity to a roundoff-level change.  A draw that returns a tuple
+    has each of its tensors shifted."""
     gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def shift(x):
+        return x * (1.0 + P13_PERTURB * torch.randn(
+            x.shape, device=x.device, dtype=x.dtype, generator=gen))
+
     with contextlib.ExitStack() as stack:
-        for mod, name in P13_DRAWS:
+        for mod, name in draws:
             module = importlib.import_module(
                 "rsvd_kamaneh_raganato_terrana_tpu_torch." + mod)
 
             def draw(*args, _real=getattr(module, name), **kwargs):
                 x = _real(*args, **kwargs)
-                return x * (1.0 + P13_PERTURB * torch.randn(
-                    x.shape, device=x.device, dtype=x.dtype, generator=gen))
+                return tuple(map(shift, x)) if isinstance(x, tuple) \
+                    else shift(x)
             stack.enter_context(mock.patch.object(module, name, draw))
         yield
 
 
 def p13_whole(x):
     """A result with every DTensor gathered whole through the counted
-    collectives (rows or columns over the mesh's first axis), tuples and
+    collectives (its sharded dim over the mesh's first axis), tuples and
     NamedTuples walked, numpy arrays and numbers as they are."""
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
         is_dtensor,
@@ -4608,10 +4641,9 @@ def p13_whole(x):
 
     if is_dtensor(x):
         group = x.device_mesh.get_group(0)
-        if x.placements[0] == Shard(1):
-            return collectives.all_gather(x.to_local().T.contiguous(),
-                                          group).T
-        return collectives.all_gather(x.to_local(), group)
+        dim = x.placements[0].dim
+        return collectives.all_gather(
+            x.to_local().movedim(dim, 0).contiguous(), group).movedim(0, dim)
     if isinstance(x, tuple):
         return [p13_whole(v) for v in x]
     return x
@@ -4785,15 +4817,17 @@ def p13_completion_operand():
                          generator=gen) < COMP_FRAC
 
 
-def p13_snapshots():
-    """Phase 9's DMD snapshot stack (65536 x 401, 16 modes), f32."""
+def p13_snapshots(n=None):
+    """Phase 9's DMD snapshot stack (DMD_N = 65536 states unless given,
+    x 401, 16 modes), f32."""
+    n = n or DMD_N
     gen = torch.Generator(device="cuda").manual_seed(19)
     theta = torch.linspace(0.1, 2.5, DMD_PAIRS, device="cuda",
                            dtype=torch.float64)
     radius = torch.linspace(0.996, 0.9995, DMD_PAIRS, device="cuda",
                             dtype=torch.float64)
     mu = torch.polar(radius, theta)
-    phi = torch.complex(*(torch.randn(DMD_N, DMD_PAIRS, device="cuda",
+    phi = torch.complex(*(torch.randn(n, DMD_PAIRS, device="cuda",
                                       generator=gen, dtype=torch.float64)
                           for _ in range(2)))
     t = torch.arange(DMD_M, device="cuda", dtype=torch.float64)
@@ -4949,18 +4983,18 @@ def p13_meshes(device_type="cuda"):
     return meshes
 
 
-def p13_one_rank_nccl():
-    """Phase 13a: a one-rank NCCL group in this process: every call of
-    the slice at full size on a sharded operand, bitwise the single call
-    (the codecs, whose sharded runs factor with Householder QR, within
-    P13_BATCH_TOL), K3 in the batched calls and K1 in rutv held to their
-    plain versions."""
+def p13_one_rank_nccl(items=p13_items, run=p13_run):
+    """Phase 13a (and 15a, with its ``items`` and ``run``): a one-rank
+    NCCL group in this process: every call of the slice at full size on
+    a sharded operand, bitwise the single call (the codecs, whose sharded
+    runs factor with Householder QR, within P13_BATCH_TOL), K3 in the
+    batched calls and K1 in rutv held to their plain versions."""
     initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
     out, launches = {}, list(NONE)
     try:
         meshes = p13_meshes()
-        for item in p13_items(full=True):
-            got, out[item.name] = p13_run(item, meshes, 0, True, log)
+        for item in items(full=True):
+            got, out[item.name] = run(item, meshes, 0, True, log)
             launches = [x + y for x, y in zip(launches, got)]
     finally:
         dist.destroy_process_group()
@@ -4968,38 +5002,43 @@ def p13_one_rank_nccl():
     return launches, out
 
 
-def p13_rank(rank, world, port, results):
-    """One of phase 13b's four ranks sharing the card over gloo."""
+def p13_rank(rank, world, port, results, items, run):
+    """One of phase 13b's (or 15b's) four ranks sharing the card over
+    gloo, running ``items(full=False)`` through ``run``."""
     torch.cuda.set_device(0)
     initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
     say = log if rank == 0 else (lambda msg: None)
     out, launches = {}, list(NONE)
     meshes = p13_meshes()
-    for item in p13_items(full=False, world=world):
-        got, out[item.name] = p13_run(item, meshes, rank, False, say)
+    for item in items(full=False):
+        got, out[item.name] = run(item, meshes, rank, False, say)
         launches = [x + y for x, y in zip(launches, got)]
     results.put((rank, out, launches))
     dist.destroy_process_group()
 
 
-def p13_four_ranks():
-    """Phase 13b: four spawned ranks sharing the card over gloo; any
-    rank's non-zero exit or the time limit fails the phase."""
+def p13_four_ranks(items=functools.partial(p13_items, world=P13_RANKS),
+                   run=p13_run, tag="phase 13", timeout=P13_TIMEOUT,
+                   cuts=dict(fd_rows_a_rank_stream=P13B_FD_ROWS,
+                             tucker_side=P13B_TUCKER_N)):
+    """Phase 13b (or 15b): four spawned ranks sharing the card over gloo;
+    any rank's non-zero exit or the time limit fails the phase."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=p13_rank, args=(r, P13_RANKS, port, results))
+    procs = [ctx.Process(target=p13_rank, args=(r, P13_RANKS, port, results,
+                                                items, run))
              for r in range(P13_RANKS)]
     for p in procs:
         p.start()
     got = {}
-    deadline = time.monotonic() + P13_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         while len(got) < P13_RANKS:
             check(time.monotonic() < deadline,
-                  f"phase 13 ranks gave {len(got)} results in {P13_TIMEOUT} s")
+                  f"{tag} ranks gave {len(got)} results in {timeout} s")
             failed = [p.exitcode for p in procs if p.exitcode]
-            check(not failed, f"phase 13 rank exit codes {failed}")
+            check(not failed, f"{tag} rank exit codes {failed}")
             try:
                 rank, out, launches = results.get(timeout=2.0)
             except queue.Empty:
@@ -5013,12 +5052,10 @@ def p13_four_ranks():
                 p.kill()
                 p.join()
     check(all(p.exitcode == 0 for p in procs),
-          f"phase 13 rank exit codes {[p.exitcode for p in procs]}")
+          f"{tag} rank exit codes {[p.exitcode for p in procs]}")
     launches = [sum(got[r][1][i] for r in got) for i in range(len(NONE))]
     return launches, dict(rank0=got[0][0], ranks=P13_RANKS,
-                          launches_all_ranks=launches,
-                          cuts=dict(fd_rows_a_rank_stream=P13B_FD_ROWS,
-                                    tucker_side=P13B_TUCKER_N))
+                          launches_all_ranks=launches, cuts=cuts)
 
 
 def phase_sharded_extensions():
@@ -5370,6 +5407,486 @@ def phase_edge_and_checkpoint():
     return launches, out
 
 
+# --- phase 15: row-sharded operands through the public API beyond rsvd ---
+
+P15_TIMEOUT = 420.0       # s: the four ranks' whole run
+P15_TOL = 1e-4            # (b): of the largest quantity, as phase 13's
+# (b)'s iterative calls (CP's 25 sweeps, the sparse sketch's LSQR, PCG):
+# the single call itself moves by up to ~1e-4 under a 1e-7 change of
+# its draws there
+P15_ITER_TOL = 1e-3
+P15_CS_TOL = 1e-4         # (a) CountSketch (atomics): x relative, one rank
+# (b) a quantity may also sit within this many times the single call's
+# own shift under the perturbed draws (a solve whose conditioning
+# amplifies roundoff past the fixed bar moves that far on one card too)
+P15_SHIFT_FACTOR = 10.0
+# (b) runs every function at these cut sizes (the four ranks share the
+# card and gloo's host hops; PERF.md lists them beside (a)'s sizes)
+P15B = dict(side=2048, kry=4096, rbf=4096, ls=(65536, 256),
+            cca_rows=65536, dmd=16384, pca=(32768, 256), kpca=4096,
+            tucker=256, tt=64, cp=128)
+# every float draw of the slice's modules, for (b)'s perturbed call
+P15_DRAWS = (("rsvd.driver", "generate_omega"), ("rsvd.driver", "gaussian"),
+             ("rsvd.diagnostics", "_probes"),
+             ("rsvd.interp", "gumbel_uniforms"),
+             ("rsvd.lstsq", "sketch_matrix"),
+             ("rsvd._modewise", "generate_omega"),
+             ("rsvd.tucker", "generate_omega"),
+             ("rsvd.tt", "generate_omega"), ("rsvd.cp", "generate_omega"),
+             ("apps.kpca", "_rff_draws"))
+
+
+def p15_mod(name):
+    return importlib.import_module(
+        "rsvd_kamaneh_raganato_terrana_tpu_torch." + name)
+
+
+class P15Item(P13Item):
+    """A phase-13 item with the kernels its sharded call must launch
+    (each at least once, every other kernel never) and ``exact``: one
+    rank's call bitwise the single call (False: CountSketch's atomics,
+    held to P15_CS_TOL)."""
+
+    def __init__(self, name, build, call, pick, kinds, place=None,
+                 kernels_run=(), exact=True, tol=P15_TOL):
+        super().__init__(name, build, call, pick, kinds, place=place,
+                         tol=tol)
+        self.kernels_run, self.exact = kernels_run, exact
+
+
+def p15_polar_vs_plain(y, args, kwargs, out):
+    """(shape, max |dQ|, R's asymmetry and the plain version's) of one
+    recorded K2 call against its plain version, held to phase 2's
+    bounds for a panel of any conditioning: max |dQ| <= K2_Q_TOL, R
+    symmetric to max(K2_SYM_TOL, 4x the plain version's asymmetry), R's
+    column norms Y's to K2_NORM_TOL."""
+    q, r = out
+    q0, r0 = kernels.polar_qr_fused_reference(y, *args, **kwargs)
+    dq = float((q - q0).abs().max())
+    sym = float((r - r.T).abs().max() / r.abs().max())
+    sym0 = float((r0 - r0.T).abs().max() / r0.abs().max())
+    with device.ieee_fp32():
+        dnorm = float((torch.linalg.norm(r, dim=0)
+                       / torch.linalg.norm(y, dim=0) - 1.0).abs().max())
+    check(finite(q, r) and dq <= K2_Q_TOL
+          and sym <= max(K2_SYM_TOL, 4 * sym0) and dnorm <= K2_NORM_TOL,
+          f"K2 {tuple(y.shape)} in phase 15: dQ={dq} R asymmetry {sym} "
+          f"(plain {sym0}) column norms {dnorm}")
+    return tuple(y.shape), dq, sym, sym0
+
+
+# each recorded launch of phase 15 against its plain version, as phase 2
+# holds the kernel: K1 by max |dQ| and max |dR| / max |R|, K2 as above,
+# K3 bitwise at even n
+P15_VS_PLAIN = {"fused_cholqr1": cholqr1_vs_plain,
+                "polar_qr_fused": p15_polar_vs_plain,
+                "eigh_small": eigh_vs_plain}
+
+
+def p15_geometric(n, rank, ratio, seed):
+    """Phase 6's adaptive operand: rank ``rank``, sigma_i = ratio^i."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = orthonormal(n, rank, gen)
+    v = orthonormal(n, rank, gen)
+    s = ratio ** torch.arange(rank, device="cuda", dtype=torch.float32)
+    with device.ieee_fp32():
+        return (u * s) @ v.T
+
+
+def p15_decaying(n, ratio, seed):
+    """U diag(ratio^i) V^T, n x n f32 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = orthonormal(n, n, gen)
+    v = orthonormal(n, n, gen)
+    s = ratio ** torch.arange(n, device="cuda", dtype=torch.float32)
+    with device.ieee_fp32():
+        return (u * s) @ v.T
+
+
+def p15_noisy_low_rank(n, seed):
+    """Rank 64 plus 1e-4 noise: every pivot of a 64-column sketch is set
+    by the signal (phase 13's rlu operand)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return p13_low_rank(n, RLU_RANK, seed) + RLU_NOISE * torch.randn(
+        n, n, device="cuda", generator=gen)
+
+
+def p15_spd_b(n, seed):
+    """Phase 9's B of reigh_generalized: diag(1 + U(0, 1)) + 0.02 G G^T."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(n, 5, device="cuda", generator=gen)
+    with device.ieee_fp32():
+        return torch.diag(1.0 + torch.rand(n, device="cuda", generator=gen)) \
+            + 0.02 * g @ g.T
+
+
+def p15_views(rows, seed):
+    """Phase 9's CCA views: 8 shared directions, 512 and 384 features."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn(rows, CCA_SHARED, device="cuda", generator=gen)
+    views = []
+    for d in (CCA_P, CCA_Q):
+        with device.ieee_fp32():
+            w = z @ torch.randn(CCA_SHARED, d, device="cuda", generator=gen)
+        views.append(w + torch.randn(rows, d, device="cuda", generator=gen))
+    return tuple(views)
+
+
+def p15_tt_operand(n, seed):
+    """Phase 10's TT operand at side n: TT rank 16 plus 1e-3 noise."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cores, r_prev = [], 1
+    for _ in range(3):
+        cores.append(orthonormal(r_prev * n, TT_R, gen).reshape(
+            r_prev, n, TT_R))
+        r_prev = TT_R
+    cores.append(torch.randn(TT_R, n, 1, device="cuda", generator=gen))
+    return planted(tt_reconstruct(cores), gen)[0]
+
+
+def p15_cp_operand(n, seed):
+    """Phase 10's CP operand at side n: CP rank 16 plus 1e-3 noise."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fs = [torch.randn(n, CP_R, device="cuda", generator=gen)
+          for _ in range(3)]
+    fs = [f / torch.linalg.vector_norm(f, dim=0) for f in fs]
+    w = torch.sort(1.0 + 2.0 * torch.rand(CP_R, device="cuda",
+                                          generator=gen), descending=True)[0]
+    return planted(cp_reconstruct(w, fs), gen)[0]
+
+
+def p15_rows(*split):
+    """``place`` for several operands, those marked True row-sharded."""
+    return lambda ops, meshes: tuple(
+        shard_rows(x, meshes["rows"]) if meshes and s else x
+        for x, s in zip(ops, split))
+
+
+def p15_core_sigma(cores):
+    """Each TT core's singular values (of its (r n) x r' unfolding),
+    invariant to the cores' signs."""
+    return torch.cat([torch.linalg.svdvals(
+        torch.as_tensor(c).double().reshape(-1, c.shape[-1]))
+        for c in cores])
+
+
+def p15_items(full):
+    """Phase 15's calls: (a) ``full`` at the single-card phases' sizes
+    (PERF.md section 4), (b) at P15B's cuts."""
+    side = M if full else P15B["side"]
+    kry = KRY_N if full else P15B["kry"]
+    rbf = NYS_POINTS if full else P15B["rbf"]
+    ls_rows, ls_cols = (LS_ROWS, LS_COLS) if full else P15B["ls"]
+    pca_rows, pca_d = (PCA_ROWS, PCA_D) if full else P15B["pca"]
+    kpca_n = KPCA_N if full else P15B["kpca"]
+    interp, diag, nys = (p15_mod("rsvd." + m) for m in
+                         ("interp", "diagnostics", "nystrom"))
+    est = estimators
+    sig = dict(sigma="sigma")
+
+    def spectral_a():
+        return (p15_decaying(side, 0.97, 50),)
+
+    def warm_ops():                    # A and a previous call's U
+        a = p15_decaying(side, 0.97, 50)
+        return a, rsvd(a, k=K + P, method="eigh")[0]
+
+    def rbf_a():
+        return (rbf_kernel(rbf, NYS_DIM, NYS_H, seed=11),)
+
+    def kry_a():
+        return (krylov_operand(kry, 5),)
+
+    def diag_ops():
+        a = krylov_operand(kry, 5)
+        gen = torch.Generator(device="cuda").manual_seed(52)
+        q = orthonormal(kry, K + P, gen)
+        u, s, v = rsvd(a, k=K, method="eigh")
+        return a, q, u, s, v
+
+    def ls_ops():
+        a, b = ls_operand(18, ls_rows, ls_cols)
+        return a, b
+
+    def ls_damp():
+        return LS_DAMP_REL * float(ls_cols)
+
+    def pca_x():
+        return (pca_operand(0, pca_rows, pca_d),)
+
+    def kpca_x():
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        return kpca_points(kpca_n, gen), kpca_points(KPCA_NEW // 4, gen)
+
+    def kpca_call(ops):
+        kp = kpca.KernelPCA(KPCA_K, solver="randomized").fit(ops[0])
+        return (kp.eigenvalues_, kp.alphas_, kp.scores_,
+                kp.transform(ops[1]))
+
+    def tucker_t():
+        return (p13_planted_tucker(TUCKER_N if full else P15B["tucker"],
+                                   30),)
+
+    def tt_t():
+        return (p15_tt_operand(TT_N if full else P15B["tt"], 31),)
+
+    def cp_t():
+        return (p15_cp_operand(CP_N if full else P15B["cp"], 32),)
+
+    def pca_call(**kw):
+        def call(ops):
+            p = pca.PCA(ops[0], **kw)
+            return p.getS(), p.getV(), p.scores()
+        return call
+
+    def est_call(cls):
+        def call(ops):
+            e = cls(n_components=K, p=EST_PCA_P, q=EST_PCA_Q)
+            z = e.fit_transform(ops[0])
+            return (z, e.components_, e.singular_values_,
+                    e.explained_variance_ratio_)
+        return call
+
+    def tucker_sigma(r):
+        core = torch.as_tensor(r[0]).double()
+        return torch.linalg.svdvals(core.reshape(core.shape[0], -1))
+
+    return [
+        P15Item("rsvd_adaptive",
+                lambda: (p15_geometric(side, min(512, side // 2),
+                                       ADAPTIVE_RATIO, 54),),
+                lambda ops: rsvd_adaptive(ops[0], tol=ADAPTIVE_TOL),
+                lambda r: dict(sigma=r[1], k=torch.tensor(r[3])),
+                dict(sigma="sigma", k="index"), place=p15_rows(True)),
+        P15Item("rsvd_onepass_eigh_pallas", spectral_a,
+                lambda ops: rsvd_onepass(ops[0], k=K, method="eigh_pallas"),
+                lambda r: dict(sigma=r[1]), sig, place=p15_rows(True),
+                kernels_run=("eigh_small",)),
+        P15Item("rsvd_warm_cholqr1_fused",
+                warm_ops,
+                lambda ops: rsvd_warm(ops[0], ops[1], k=K,
+                                      qr_method="cholqr1_fused"),
+                lambda r: dict(sigma=r[1]), sig, place=p15_rows(True, True),
+                kernels_run=("fused_cholqr1",)),
+        P15Item("column_id", lambda: (p15_noisy_low_rank(side, 17),),
+                lambda ops: interp.column_id(ops[0], k=RLU_RANK - P, p=P),
+                lambda r: dict(cols=r[0], x=r[1]),
+                dict(cols="index", x="value"), place=p15_rows(True)),
+        P15Item("row_id", lambda: (p15_noisy_low_rank(side, 17),),
+                lambda ops: interp.row_id(ops[0], k=RLU_RANK - P, p=P),
+                lambda r: dict(rows=r[0], x=r[1]),
+                dict(rows="index", x="value"), place=p15_rows(True)),
+        P15Item("cur", lambda: (p15_noisy_low_rank(side, 17),),
+                lambda ops: interp.cur(ops[0], k=RLU_RANK - P, p=P),
+                lambda r: dict(cols=r[0], rows=r[1], u=r[2]),
+                dict(cols="index", rows="index", u="value"),
+                place=p15_rows(True)),
+        P15Item("leverage_sample", lambda: (p15_noisy_low_rank(side, 17),),
+                lambda ops: interp.leverage_sample(ops[0], k=K,
+                                                   num_samples=4 * K),
+                lambda r: dict(scores=r[1]), dict(scores="value"),
+                place=p15_rows(True)),
+        P15Item("rsvd_krylov_k1_k3", kry_a,
+                lambda ops: rsvd_krylov(ops[0], k=K, p=P, q=Q,
+                                        qr_method="cholqr1_fused",
+                                        method="eigh_pallas"),
+                lambda r: dict(sigma=r[1]), sig, place=p15_rows(True),
+                kernels_run=("fused_cholqr1", "eigh_small")),
+        P15Item("rsvd_krylov_k2", kry_a,
+                lambda ops: rsvd_krylov(ops[0], k=K, p=P, q=Q,
+                                        qr_method="polar_fused"),
+                lambda r: dict(sigma=r[1]), sig, place=p15_rows(True),
+                kernels_run=("polar_qr_fused",)),
+        P15Item("diagnostics", diag_ops,
+                lambda ops: (
+                    range_error_estimate(ops[0], ops[1]),
+                    factorization_error_estimate(ops[0], *ops[2:]),
+                    spectral_norm_estimate(ops[0]),
+                    stable_rank_estimate(ops[0])),
+                lambda r: dict(range=r[0], fact=r[1], norm=r[2], srank=r[3]),
+                dict(range="value", fact="value", norm="value",
+                     srank="value"),
+                place=p15_rows(True, True, True, False, False)),
+        P15Item("reigh", rbf_a, lambda ops: reigh(ops[0], k=REIGH_K),
+                lambda r: dict(w=r[0], u=r[1][:, :REIGH_TOP]),
+                dict(w="sigma", u="span"), place=p15_rows(True)),
+        P15Item("reigh_generalized",
+                lambda: rbf_a() + (p15_spd_b(rbf, 12),),
+                lambda ops: reigh_generalized(ops[0], ops[1], k=GEN_K),
+                lambda r: dict(w=r[0]), dict(w="sigma"),
+                place=p15_rows(True, True)),
+        P15Item("nystrom_pcg",
+                lambda: rbf_a() + (torch.randn(
+                    rbf, 2, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        13)),),
+                lambda ops: nystrom_pcg(ops[0], ops[1], 1e-2, rank=PCG_RANK,
+                                        iters=PCG_ITERS),
+                lambda r: dict(x=r), dict(x="value"),
+                place=p15_rows(True, False), tol=P15_ITER_TOL),
+        P15Item("sketch_lstsq_sparse", ls_ops,
+                lambda ops: sketch_lstsq(*ops, kind="sparse"),
+                lambda r: dict(x=r), dict(x="value"),
+                place=p15_rows(True, False), exact=False,
+                tol=P15_ITER_TOL),
+        P15Item("sketch_lstsq_damped", ls_ops,
+                lambda ops: sketch_lstsq(*ops, damp=ls_damp()),
+                lambda r: dict(x=r), dict(x="value"),
+                place=p15_rows(True, False), tol=P15_ITER_TOL),
+        P15Item("sketch_minnorm",
+                lambda: (ls_ops()[0].T.contiguous(),
+                         torch.randn(ls_cols, LS_RHS, device="cuda",
+                                     generator=torch.Generator(
+                                         device="cuda").manual_seed(53))),
+                lambda ops: sketch_minnorm(*ops),
+                lambda r: dict(x=r), dict(x="value"),
+                place=p15_rows(True, False), tol=P15_ITER_TOL),
+        P15Item("lstsq_residual",
+                lambda: ls_ops() + (torch.ones(ls_cols, LS_RHS,
+                                               device="cuda"),),
+                lambda ops: lstsq_residual(ops[0], ops[2], ops[1]),
+                lambda r: dict(r=r), dict(r="value"),
+                place=p15_rows(True, False, False)),
+        P15Item("cca", lambda: p15_views(CCA_ROWS if full
+                                         else P15B["cca_rows"], 18),
+                lambda ops: cca(*ops, k=CCA_K),
+                lambda r: dict(corr=r[0]), dict(corr="sigma"),
+                place=p15_rows(True, True)),
+        P15Item("dmd", lambda: (p13_snapshots(DMD_N if full
+                                              else P15B["dmd"]),),
+                lambda ops: dmd(ops[0], k=2 * DMD_PAIRS),
+                lambda r: dict(sv=r[4], eig=torch.as_tensor(
+                    np.sort(np.abs(r[1])))),
+                dict(sv="sigma", eig="sigma"), place=p15_rows(True)),
+        P15Item("pca_eigh", pca_x, pca_call(method="eigh"),
+                lambda r: dict(s=r[0]), dict(s="sigma"),
+                place=p15_rows(True)),
+        P15Item("pca_use_rsvd", pca_x,
+                pca_call(use_rsvd=True, rank=PCA_RANK),
+                lambda r: dict(s=r[0], v=r[1][:, :16]),
+                dict(s="sigma", v="span"), place=p15_rows(True)),
+        P15Item("randomized_pca", pca_x, est_call(est.RandomizedPCA),
+                lambda r: dict(s=r[2], ratio=r[3]),
+                dict(s="sigma", ratio="value"), place=p15_rows(True)),
+        P15Item("randomized_svd", pca_x, est_call(est.RandomizedSVD),
+                lambda r: dict(s=r[2]), dict(s="sigma"),
+                place=p15_rows(True)),
+        P15Item("kernel_pca", kpca_x, kpca_call,
+                lambda r: dict(lam=r[0]), dict(lam="sigma"),
+                place=p15_rows(True, False)),
+        P15Item("rff_features", lambda: kpca_x()[:1],
+                lambda ops: kpca.rff_features(ops[0], n_features=512),
+                lambda r: dict(z=r), dict(z="value"), place=p15_rows(True)),
+        P15Item("nystrom_features",
+                lambda: (lambda x, y: (x, y[:256]))(*kpca_x()),
+                lambda ops: kpca.nystrom_features(*ops),
+                lambda r: dict(z=r), dict(z="gram"),
+                place=p15_rows(True, False)),
+        P15Item("tucker_adaptive", tucker_t,
+                lambda ops: tucker_adaptive(ops[0], tol=TUCKER_TOL,
+                                            rank_cap=(TUCKER_CAP,) * 3),
+                lambda r: dict(core=tucker_sigma(r), ranks=torch.tensor(
+                    r[2]), u0=r[1][0]),
+                dict(core="sigma", ranks="index", u0="span"),
+                place=p15_rows(True)),
+        P15Item("tt_decompose", tt_t,
+                lambda ops: tt_decompose(ops[0], (TT_R,) * 3),
+                lambda r: dict(cores=p15_core_sigma(r)), dict(cores="sigma"),
+                place=p15_rows(True)),
+        P15Item("tt_adaptive", tt_t,
+                lambda ops: tt_adaptive(ops[0], tol=TT_TOL, rank_cap=TT_CAP),
+                lambda r: dict(ranks=torch.tensor(r[1])),
+                dict(ranks="index"), place=p15_rows(True)),
+        P15Item("cp_als", cp_t,
+                lambda ops: cp_decompose(ops[0], CP_R, iters=CP_SWEEPS),
+                lambda r: dict(w=r[0]), dict(w="sigma"),
+                place=p15_rows(True), tol=P15_ITER_TOL),
+        P15Item("cp_rand", cp_t,
+                lambda ops: cp_decompose(ops[0], CP_R, iters=CP_SWEEPS,
+                                         method="rand"),
+                lambda r: dict(w=r[0]), dict(w="sigma"),
+                place=p15_rows(True), tol=P15_ITER_TOL),
+    ]
+
+
+def p15_run(item, meshes, rank, one_rank, say):
+    """One item: the single call on rank 0 (the reference, and a warm
+    start), the sharded call (its collectives, launches, and ms; every
+    K1-K4 launch recorded), the single call again (ms); on one rank the
+    sharded call bitwise the single one (CountSketch's within
+    P15_CS_TOL), on four within ``item.tol`` beside the single call's own
+    shift under perturbed draws.  Returns (launches, summary)."""
+    ops = item.build()
+    placed = item.place(ops, meshes)
+    whole = item.place(ops, None)
+    want = item.call(whole) if rank == 0 else None
+    torch.cuda.synchronize()
+    with p14_recorded() as recs:
+        reset_counts()
+        collectives.reset()
+        got, t_sh = timed(lambda: item.call(placed))
+        launches = counts()
+        tally = collectives.tally()
+    got = p13_whole(got)
+    out = dict(sharded_ms=1e3 * t_sh, collectives=tally,
+               collective_ms=1e3 * sum(v["seconds"] for v in tally.values()),
+               launches_k1_to_k5b=list(launches))
+    named = {w: launches[WRAPPERS.index(w)] for w in WRAPPERS[:4]}
+    check(all(n >= 1 for w, n in named.items() if w in item.kernels_run)
+          and all(n == 0 for w, n in named.items()
+                  if w not in item.kernels_run) and launches[4:] == (0, 0),
+          f"phase 15 {item.name}: launches {launches}")
+    if rank == 0:
+        out["kernel_calls_vs_plain"] = [
+            (w,) + P15_VS_PLAIN[w](*call) for w, rec in recs.items()
+            for call in rec.calls]
+        again, t_si = timed(lambda: item.call(whole))
+        out["single_ms"] = 1e3 * t_si
+        diffs = p13_compare(item.kinds, item.pick(got), item.pick(want))
+        out["vs_single"] = diffs
+        bars = {name: item.tol for name in diffs}
+        if one_rank:
+            out["bitwise"] = p13_bitwise(got, want)
+            out["single_repeat_bitwise"] = p13_bitwise(again, want)
+            check(out["bitwise"] if item.exact else p13_within(
+                diffs, P15_CS_TOL),
+                  f"phase 15 {item.name}: not the single call ({diffs})")
+        else:
+            with p13_perturbed(P15_DRAWS):
+                moved = item.call(whole)
+            shift = p13_compare(item.kinds, item.pick(moved),
+                                item.pick(want))
+            out["single_vs_perturbed"] = shift
+            bars = {name: bar if isinstance(shift[name], bool) else max(
+                bar, P15_SHIFT_FACTOR * shift[name])
+                for name, bar in bars.items()}
+        floats = [t for t in p13_tensors(list(item.pick(got).values()))
+                  if t.is_floating_point()]
+        check(finite(*floats) and all(
+            v is True or (not isinstance(v, bool) and v <= bars[name])
+            for name, v in diffs.items()), f"phase 15 {item.name}: {out}")
+    say(f"  {item.name}: " + json.dumps(out))
+    del ops, placed, whole, want, got
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_sharded_api():
+    """Phase 15: row-sharded operands through the public API beyond
+    rsvd.  Returns ((K1, K2, K3, K4, K5a, K5b) launches of its counted
+    runs, summary)."""
+    t0 = time.perf_counter()
+    out = {}
+    la, out["nccl_one_rank"] = p13_one_rank_nccl(p15_items, p15_run)
+    out["a_s"] = time.perf_counter() - t0
+    lb, out["gloo_four_ranks"] = p13_four_ranks(
+        p15_items, p15_run, "phase 15", P15_TIMEOUT, P15B)
+    out["s"] = time.perf_counter() - t0
+    launches = [x + y for x, y in zip(la, lb)]
+    log(f"  phase 15: {out['s']:.1f} s, launches {launches}")
+    return launches, out
+
+
 def phase_main_path(label, forward, a, a64, err_np, prec, want):
     """Phase 3 for one configuration: the counted run, accuracy, the plain
     path, timings.  ``want`` = (K1, K2, K3, K4, K5a, K5b) launches per
@@ -5474,7 +5991,7 @@ def fault_c_krylov(a, qr_method, method):
     where it ran K3 (recorded, not launched again)."""
     krylov = importlib.import_module(
         "rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.krylov")
-    stack, seen = tail_capture(((krylov, "krylov_basis", "q"),
+    stack, seen = tail_capture(((krylov, "_krylov_basis", "q"),
                                 (krylov, "small_svd", "b")))
     rec3 = Recorder(kernels.eigh_small)
     with stack, mock.patch.object(kernels, "eigh_small", rec3):
@@ -5840,6 +6357,12 @@ def main(argv):
     edge_launches, edge_summary = phase_edge_and_checkpoint()
     launches_total = [t + c for t, c in zip(launches_total, edge_launches)]
 
+    phase("phase 15: row-sharded operands through the public API beyond "
+          "rsvd (one-rank NCCL group; four ranks sharing the card over "
+          "gloo)")
+    api_launches, api_summary = phase_sharded_api()
+    launches_total = [t + c for t, c in zip(launches_total, api_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -5881,7 +6404,7 @@ def main(argv):
         "extensions": ext_summary, "formats": fmt_summary,
         "apps_streaming": app_summary, "distributed": dist_summary,
         "sharded_extensions": ext_sh_summary,
-        "edge_and_checkpoint": edge_summary}
+        "edge_and_checkpoint": edge_summary, "sharded_api": api_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

@@ -12,6 +12,15 @@ JAX estimators' are.  A torch sparse input stays sparse: the driver
 factors it through its CSR path and the variance ratio's denominator is
 summed from its stored values.
 
+A dense X whose rows (the samples) are sharded, a DTensor, is fitted on
+its blocks through the sharded ``rsvd``: the means, the scales and the
+variances are merged over the ranks (``rsvd/_sharded.py``; one rank's
+are the local ones), the fitted attributes are replicated numpy arrays
+as on one card, and the scores of ``fit_transform``, ``transform`` and
+``inverse_transform`` of row-sharded rows come back as row-sharded
+DTensors (each rank's rows computed on the host as one card computes
+them).
+
 sklearn is optional: if importable, the classes subclass
 BaseEstimator/TransformerMixin; otherwise a minimal duck-typed base with
 the same methods stands in.
@@ -19,10 +28,27 @@ the same methods stands in.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    is_dtensor,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _like,
+    _local,
+    _mean,
+    _merge_moments,
+    _partials,
+    _reduce,
+    _row_split,
+    _sharded_view,
+    _spread,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     SparseStored,
     _mm,
@@ -57,7 +83,9 @@ def _on_device(x, device):
     ``device`` names another, a sparse one becomes the driver's
     :class:`SparseStored` (built once, for the factorization and the
     variance alike); any other array goes to ``device`` (the card when
-    None)."""
+    None); a DTensor becomes its row-split view."""
+    if is_dtensor(x):
+        return _row_split(x)
     if isinstance(x, torch.Tensor):
         x = x if device is None else x.to(device)
         return sparse_operand(x) if is_sparse(x) else x
@@ -80,9 +108,40 @@ def _total_column_variance(x) -> float:
         sq.index_add_(0, col, (data * data).to(torch.float64))
         cs.index_add_(0, col, data.to(torch.float64))
         return float(torch.sum(sq / n - (cs / n) ** 2))
-    if isinstance(x, torch.Tensor):
-        return float(torch.sum(torch.var(x, dim=0, unbiased=False)))
+    if isinstance(x, (torch.Tensor, Sharded)):
+        return float(torch.sum(_spread(x, correction=0)))
     return float(np.var(np.asarray(x), axis=0).sum())
+
+
+def _host_rows(rows, fn):
+    """``fn`` (numpy, row by row) of a row-sharded DTensor's local rows,
+    as a row-sharded DTensor on its device; of anything else, as numpy."""
+    if not is_dtensor(rows):
+        if isinstance(rows, torch.Tensor):
+            rows = to_numpy(rows)
+        return fn(np.asarray(rows))
+    view = _row_split(rows)
+    out = torch.as_tensor(fn(to_numpy(view.local)), device=view.device)
+    return view.with_local(out).to_dtensor()
+
+
+def _scores_out(u, s):
+    """U diag(s) on the host: numpy, or for a row-split U the row-sharded
+    DTensor of this rank's rows; with the rows' (mean, population
+    variance) merged over the ranks."""
+    local = to_numpy(_local(u)) * s[None, :]
+    var = np.var(local, axis=0)
+    if isinstance(u, Sharded):
+        dev = u.device
+        stats = _partials(torch.as_tensor(
+            np.stack([np.mean(local, axis=0), var]), device=dev), u)
+        parts = [(local.shape[0], to_numpy(st[0]), to_numpy(st[1]))
+                 for st in stats]
+        var = functools.reduce(
+            lambda a, b: _merge_moments(a, b, 0), parts)[2]
+        return u.with_local(torch.as_tensor(local, device=dev)) \
+            .to_dtensor(), var
+    return local, var
 
 
 class RandomizedSVD(TransformerMixin, BaseEstimator):
@@ -113,11 +172,10 @@ class RandomizedSVD(TransformerMixin, BaseEstimator):
         u, s, v = rsvd(a, k=self.n_components, p=self.p, q=self.q,
                        method=self.method, precision=self.precision,
                        seed=self.seed)
-        u, s, v = to_numpy(u), to_numpy(s), to_numpy(v)
-        scores = u * s[None, :]
+        s, v = to_numpy(s), to_numpy(v)
+        scores, self.explained_variance_ = _scores_out(_sharded_view(u), s)
         self.components_ = v.T                          # (k, n_features)
         self.singular_values_ = s
-        self.explained_variance_ = np.var(scores, axis=0)
         # ratio against the TOTAL variance of X (sklearn's semantics)
         full_var = _total_column_variance(a)
         self.explained_variance_ratio_ = (
@@ -130,12 +188,10 @@ class RandomizedSVD(TransformerMixin, BaseEstimator):
         if is_sparse(x):
             comp = torch.as_tensor(self.components_.T, device=x.device)
             return to_numpy(_mm(x, comp))
-        if isinstance(x, torch.Tensor):
-            x = to_numpy(x)
-        return np.asarray(x) @ self.components_.T
+        return _host_rows(x, lambda xs: xs @ self.components_.T)
 
     def inverse_transform(self, z):
-        return np.asarray(z) @ self.components_
+        return _host_rows(z, lambda zs: zs @ self.components_)
 
 
 class RandomizedPCA(TransformerMixin, BaseEstimator):
@@ -167,21 +223,22 @@ class RandomizedPCA(TransformerMixin, BaseEstimator):
         if x.dtype not in (torch.float32, torch.float64):
             x = x.to(torch.float64)
         n = x.shape[0]
-        mean = torch.mean(x, dim=0)
-        xc = x - mean
+        mean = _mean(x)
+        xc = _like(x, _local(x) - mean)
         if self.scale:
-            sd = torch.std(xc, dim=0, correction=1)
+            sd = _spread(xc, correction=1, std=True)
             sd = torch.where(sd > 0, sd, torch.ones_like(sd))
-            xc = xc / sd
+            xc = _like(x, _local(xc) / sd)
             self.scale_ = to_numpy(sd)
         else:
             self.scale_ = None
         u, s, v = rsvd(xc, k=self.n_components, p=self.p, q=self.q,
                        method=self.method, precision=self.precision,
                        seed=self.seed)
-        total_var = float(torch.sum(xc * xc)) / (n - 1)
+        total_var = float(_reduce(torch.sum(_local(xc) * _local(xc)),
+                                  xc)) / (n - 1)
         del xc
-        u, s, v = to_numpy(u), to_numpy(s), to_numpy(v)
+        u, s, v = _sharded_view(u), to_numpy(s), to_numpy(v)
         self.mean_ = to_numpy(mean)
         self.components_ = v.T
         self.singular_values_ = s
@@ -196,19 +253,20 @@ class RandomizedPCA(TransformerMixin, BaseEstimator):
             max(total_var - float(self.explained_variance_.sum()), 0.0)
             / n_rest if n_rest > 0 else 0.0)
         self.n_features_in_ = x.shape[1]
-        return u * s[None, :]
+        return _scores_out(u, s)[0]
 
     def _center(self, x):
-        if isinstance(x, torch.Tensor):
-            x = to_numpy(x)
-        xc = np.asarray(x) - self.mean_
+        xc = x - self.mean_
         return xc / self.scale_ if self.scale_ is not None else xc
 
     def transform(self, x):
-        return self._center(x) @ self.components_.T
+        return _host_rows(x, lambda xs: self._center(xs) @ self.components_.T)
 
-    def inverse_transform(self, z):
-        xr = np.asarray(z) @ self.components_
+    def _uncenter(self, z):
+        xr = z @ self.components_
         if self.scale_ is not None:
             xr = xr * self.scale_
         return xr + self.mean_
+
+    def inverse_transform(self, z):
+        return _host_rows(z, self._uncenter)

@@ -18,6 +18,16 @@ orthogonal to working precision, torch's f32 eigh on the card only to
 about 1e-5.  The data and the fit live on the fit's device: a tensor
 stays on its own, any other array goes to ``device`` (the card unless
 the caller names another).
+
+The training points may be a DTensor whose rows are sharded.  Each row
+of K needs every point, so ``fit`` gathers X (n x d) once, a counted
+all-gather and the one whole gather of the sharded API; K (n x n) is
+built and kept row-split, its centring means are merged over the ranks,
+its symmetrization reads K^T through one all-to-all, and the
+randomized and Nystrom solvers run on the row-split K (the exact eigh
+needs K whole and refuses it).  ``alphas_`` and ``scores_`` come back
+row-sharded, ``transform`` of row-sharded rows row-sharded.  The
+feature maps take row-sharded rows and return them row-sharded.
 """
 
 from __future__ import annotations
@@ -32,9 +42,20 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     eigh,
     matmul_at,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import key_from_seed
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _like,
+    _local,
+    _mean,
+    _row_split,
+    _sharded_view,
+    _to_api,
+    _transpose,
+    _whole,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.nystrom import (
     _nystrom_impl,
@@ -90,19 +111,23 @@ def _finish(w, v, kc):
     ok = w > floor
     inv_sqrt = torch.where(ok, 1.0 / torch.sqrt(torch.where(
         ok, w, torch.ones_like(w))), torch.zeros_like(w))
-    scores = v * torch.sqrt(w)[None, :] * ok
+    scores = _like(v, _local(v) * torch.sqrt(w)[None, :] * ok)
     return w * ok, v, inv_sqrt, scores
 
 
 def _fit_impl(x, kernel: str, gamma, degree: int, coef0, k: int,
               solver: str, p: int, seed):
-    kmat = _kernel(x, x, kernel, gamma, degree, coef0)
-    col_means = torch.mean(kmat, dim=0)
-    tot = torch.mean(kmat)
-    row = torch.mean(kmat, dim=1, keepdim=True)
-    kc = kmat - row - col_means[None, :] + tot       # feature-space centre
-    del kmat
-    kc = 0.5 * (kc + kc.T)
+    """The fit on x (a row-split ``x`` carries the whole points as
+    ``x_all``: K's rows are this rank's, its columns every point's)."""
+    x_all = _whole(x)
+    kmat = _like(x, _kernel(_local(x), x_all, kernel, gamma, degree, coef0))
+    col_means = _mean(kmat)
+    tot = _mean(kmat, dim=None)
+    local = _local(kmat)
+    row = torch.mean(local, dim=1, keepdim=True)
+    kc = _like(x, local - row - col_means[None, :] + tot)   # centred
+    del kmat, local
+    kc = _like(x, 0.5 * (_local(kc) + _local(_transpose(kc))))
     if solver == "exact":
         w, v = eigh(kc)
         w, v = w.flip(0)[:k], v.flip(1)[:, :k]
@@ -119,7 +144,9 @@ def _transform_impl(y, x, kernel: str, gamma, degree: int, coef0,
     k_new = _kernel(y, x, kernel, gamma, degree, coef0)
     row = torch.mean(k_new, dim=1, keepdim=True)
     kc = k_new - row - col_means[None, :] + tot
-    return _mm(kc, alphas) * inv_sqrt[None, :]
+    # alphas row-major, as a gathered panel is (a fit's own is a column
+    # slice of a wider product)
+    return _mm(kc, _whole(alphas).contiguous()) * inv_sqrt[None, :]
 
 
 class KernelPCA:
@@ -161,30 +188,37 @@ class KernelPCA:
 
     def fit(self, x) -> "KernelPCA":
         _check_kernel(self.kernel)
-        x = as_tensor(x, self.device)
-        self._x = x
+        x = _row_split(x, self.device)
         self._d = x.shape[1]
         solver = self.solver
         if solver == "auto":
             solver = "exact" if x.shape[0] <= 1024 else "randomized"
         if solver not in ("exact", "randomized", "nystrom"):
             raise ValueError(f"unknown solver {solver!r}")
+        if solver == "exact" and isinstance(x, Sharded):
+            raise ValueError("the exact eigh reads K whole: fit sharded "
+                             "points with solver='randomized' or "
+                             "'nystrom'")
         gamma, degree, coef0 = self._params()
-        (self._col_means, self._tot, self.eigenvalues_, self.alphas_,
-         self._inv_sqrt, self.scores_) = _fit_impl(
+        (self._col_means, self._tot, self.eigenvalues_, alphas,
+         self._inv_sqrt, scores) = _fit_impl(
             x, self.kernel, gamma, degree, coef0, self.k, solver, self.p,
             self.seed)
+        self._x = _whole(x)
+        self.alphas_, self.scores_ = _to_api(alphas), _to_api(scores)
         return self
 
     def transform(self, y) -> torch.Tensor:
         """Project new rows onto the kernel principal axes:
         z = K_c(new, train) alphas / sqrt(eigenvalues), with the
-        rank-deficient components pinned to zero."""
+        rank-deficient components pinned to zero.  Row-sharded rows give
+        row-sharded scores (a sharded fit's alphas gathered, k wide)."""
         gamma, degree, coef0 = self._params()
-        return _transform_impl(
-            as_tensor(y, self._x.device, self._x.dtype), self._x,
-            self.kernel, gamma, degree, coef0, self._col_means, self._tot,
-            self.alphas_, self._inv_sqrt)
+        rows = _row_split(y, self._x.device, self._x.dtype)
+        return _to_api(_like(rows, _transform_impl(
+            _local(rows), self._x, self.kernel, gamma, degree, coef0,
+            self._col_means, self._tot, _sharded_view(self.alphas_),
+            self._inv_sqrt)))
 
     def fit_transform(self, x) -> torch.Tensor:
         return self.fit(x).scores_
@@ -198,9 +232,11 @@ def nystrom_features(x, landmarks, kernel: str = "rbf",
     z(x) z(y)^T ~ k(x, y), with an error set by how well the landmarks
     cover the data.  Directions of K(L, L) below a spectrum-relative
     floor are dropped (the pseudo-inverse square root).  Two kernel
-    GEMMs and one landmark eigh (``core/device.py::eigh``)."""
+    GEMMs and one landmark eigh (``core/device.py::eigh``).  Row-sharded
+    x gives row-sharded features."""
     _check_kernel(kernel)
-    x = as_tensor(x, device)
+    rows = _row_split(x, device)
+    x = _local(rows)
     landmarks = as_tensor(landmarks, x.device, x.dtype)
     if gamma is None:
         gamma = 1.0 / x.shape[1]
@@ -214,7 +250,7 @@ def nystrom_features(x, landmarks, kernel: str = "rbf",
         keep, w, torch.ones_like(w))), torch.zeros_like(w))
     k_xl = _kernel(x, landmarks, kernel, gamma, degree, coef0)
     # the JAX module multiplies by diag(inv_sqrt): the same products
-    return _mm(k_xl, u) * inv_sqrt[None, :]
+    return _to_api(_like(rows, _mm(k_xl, u) * inv_sqrt[None, :]))
 
 
 def _rff_draws(seed, d: int, n_features: int, dtype, device):
@@ -236,9 +272,12 @@ def rff_features(x, n_features: int = 256, gamma: float = 1.0, seed=0,
     O(1/sqrt(D)) uniformly.  The kernel exp(-gamma d^2) is the Gaussian
     kernel of variance 1/(2 gamma), whose spectral measure is
     N(0, 2 gamma I).  One GEMM and a cosine, deterministic in the seed
-    (:func:`_rff_draws`)."""
-    x = as_tensor(x, device)
+    (:func:`_rff_draws`).  Row-sharded x gives row-sharded features,
+    the draws made whole."""
+    rows = _row_split(x, device)
+    x = _local(rows)
     w0, b = _rff_draws(seed, x.shape[1], n_features, x.dtype, x.device)
     w = w0 * math.sqrt(2.0 * gamma)
     proj = _mm(x, w) + b[None, :]
-    return math.sqrt(2.0 / n_features) * torch.cos(proj)
+    return _to_api(_like(rows, math.sqrt(2.0 / n_features)
+                         * torch.cos(proj)))

@@ -18,6 +18,15 @@ JAX gives there).  ``check_orthogonality`` runs at 'highest': a bf16
 product would measure its own operand rounding (about 2^-9 sqrt(d)), not
 V.  The means and sums are ``torch.mean``/``torch.sum`` in the data's
 dtype.
+
+``PCA`` takes a data matrix whose rows (the observations) are sharded, a
+DTensor: the column means and scales are merged over the ranks
+(``rsvd/_sharded.py``: one rank's are the local ones), the centred data
+stays row-split, and every ``SVDMethod`` runs on it as ``linalg/svd.py``
+says (the Jacobi engines on the R factor of its row-split thin QR, the
+Gram engines on its all-reduced Gram); ``use_rsvd`` goes through the
+sharded ``rsvd``.  U, the scores and what ``project`` returns for
+row-sharded rows come back row-sharded, the rest replicated.
 """
 
 from __future__ import annotations
@@ -34,10 +43,21 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import (
     to_numpy,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import matmul_at
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.io import (
     load_whitespace_dataset,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import SVDMethod, svd
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _like,
+    _local,
+    _mean,
+    _reduce,
+    _row_split,
+    _sharded_view,
+    _spread,
+    _to_api,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import rsvd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.fd import (
     FrequentDirections,
@@ -56,33 +76,34 @@ class PCA:
         self._normalize = bool(normalize)
         self._use_rsvd = bool(use_rsvd)
         self._rank = int(rank)
-        self._assign(as_tensor(data, device))
+        self._assign(_row_split(data, device))
         self._initialize()
 
     # ------------------------------------------------------------------
     def _assign(self, data):
-        if data.dim() != 2 or data.shape[0] < 2 or data.shape[1] < 2:
+        if len(data.shape) != 2 or data.shape[0] < 2 or data.shape[1] < 2:
             raise ValueError("PCA needs an at least 2 x 2 data matrix")
         self._raw = data
 
     def _initialize(self):
         x = self._raw
-        self._mean = torch.mean(x, dim=0)
-        xc = x - self._mean[None, :]
+        self._mean = _mean(x)
+        xc = _like(x, _local(x) - self._mean[None, :])
         if self._normalize:
-            self._std = torch.std(xc, dim=0, correction=1)
-            xc = xc / self._safe_std()[None, :]
+            self._std = _spread(xc, correction=1, std=True)
+            xc = _like(x, _local(xc) / self._safe_std()[None, :])
         else:
             self._std = None
         self._centered = xc
         # the ratios divide by the total variance, not by sum(s^2), so
         # the truncated use_rsvd/rank path reports honest proportions
-        self._total_sq = torch.sum(torch.square(xc))
+        self._total_sq = _reduce(torch.sum(torch.square(_local(xc))), xc)
         if self._use_rsvd:
             k = self._rank if self._rank > 0 else min(xc.shape)
             self._u, self._s, self._v = rsvd(
                 xc, k=min(k, min(xc.shape) - 1) if k >= min(xc.shape) else k,
                 method=self._method)
+            self._u = _sharded_view(self._u)
         else:
             self._u, self._s, self._v = svd(xc, self._method, self._rank)
 
@@ -92,7 +113,7 @@ class PCA:
 
     # -- reference accessors -------------------------------------------
     def getU(self):  # noqa: N802
-        return self._u
+        return _to_api(self._u)
 
     def getS(self):  # noqa: N802
         return self._s
@@ -113,7 +134,7 @@ class PCA:
 
     def scores(self):
         """Projections U diag(S)."""
-        return self._u * self._s[None, :]
+        return _to_api(_like(self._u, _local(self._u) * self._s[None, :]))
 
     def loadings(self):
         """Right singular vectors V."""
@@ -124,12 +145,13 @@ class PCA:
             self._v[:, :n_components]
 
     def project(self, data, n_components: Optional[int] = None):
-        """Map new rows into PC space."""
-        x = as_tensor(data, self._raw.device, self._raw.dtype) \
-            - self._mean[None, :]
+        """Map new rows into PC space (row-sharded rows stay so)."""
+        rows = _row_split(data, self._raw.device, self._raw.dtype)
+        x = _local(rows) - self._mean[None, :]
         if self._std is not None:
             x = x / self._safe_std()[None, :]
-        return matmul_at(x, self._components(n_components), "default")
+        return _to_api(_like(rows, matmul_at(
+            x, self._components(n_components), "default")))
 
     def reconstruct(self, scores_mat, n_components: Optional[int] = None):
         """Back-map scores to data space."""
@@ -148,7 +170,10 @@ class PCA:
             matmul_at(self._v.T, self._v, "highest") - eye))
 
     def add_data(self, new_rows):
-        """Append observations and recompute."""
+        """Append observations and recompute (a PCA of whole data)."""
+        if isinstance(self._raw, Sharded):
+            raise ValueError("add_data appends to whole data; a sharded "
+                             "PCA is refitted on the new DTensor")
         new = as_tensor(new_rows, self._raw.device, self._raw.dtype)
         self._assign(torch.cat([self._raw, new], dim=0))
         self._initialize()

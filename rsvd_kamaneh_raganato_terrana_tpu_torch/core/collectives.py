@@ -73,7 +73,10 @@ def _group(group):
 
 def all_reduce(t: torch.Tensor, group=None, op: str = "sum"):
     """``t`` reduced over ``group`` ('sum', 'max' or 'min'), in place;
-    returns it."""
+    returns it.  A non-contiguous ``t`` (a view with padding cropped) is
+    reduced as a contiguous copy, which is returned: the backends reduce
+    a tensor's storage as one dense run."""
+    t = t.contiguous()
     rec = _Record("all_reduce", t)
     dist.all_reduce(t, op=_OPS[op], group=group)
     rec.done()

@@ -163,19 +163,24 @@ class Sharded:
     for a 2-D split, its columns over ``cols`` (None: every rank holds
     all columns).  ``local`` is a tensor or an ``Int8Stored`` block.
     ``.T`` flips a flag and moves nothing, as ``Int8Stored.T`` does; the
-    driver's ``_mm`` dispatches on it."""
+    driver's ``_mm`` dispatches on it.  ``start`` gives this rank's first
+    row where the blocks are not even (rows appended to the last rank's
+    block, as the augmented rows of a damped least-squares operand);
+    by default the blocks are even."""
 
     def __init__(self, local, shape, mesh: DeviceMesh, rows: Axis,
-                 cols: Optional[Axis] = None, transposed: bool = False):
+                 cols: Optional[Axis] = None, transposed: bool = False,
+                 start: Optional[int] = None):
         self.local, self.mesh = local, mesh
         self.rows, self.cols = rows, cols
         self._shape = tuple(shape)
         self.transposed = transposed
+        self._start = start
 
     @property
     def T(self):
         return Sharded(self.local, self._shape, self.mesh, self.rows,
-                       self.cols, not self.transposed)
+                       self.cols, not self.transposed, self._start)
 
     @property
     def shape(self):
@@ -191,6 +196,8 @@ class Sharded:
 
     @property
     def row_start(self) -> int:
+        if self._start is not None:
+            return self._start
         return self.rows.index * (self._shape[0] // self.rows.size)
 
     @property
@@ -203,11 +210,11 @@ class Sharded:
         """The same row split holding ``local`` (a row block of another
         width, never column-split)."""
         return Sharded(local, (self._shape[0], local.shape[1]), self.mesh,
-                       self.rows)
+                       self.rows, start=self._start)
 
     def to(self, dtype) -> "Sharded":
         return Sharded(self.local.to(dtype), self._shape, self.mesh,
-                       self.rows, self.cols, self.transposed)
+                       self.rows, self.cols, self.transposed, self._start)
 
     def gram(self) -> torch.Tensor:
         """A^T A of a row-split panel: the local Gram at full precision,

@@ -31,6 +31,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     eigh,
     matmul_at,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
@@ -339,7 +340,9 @@ def jacobi_svd(a, tol: Optional[float] = None, max_sweeps: int = 60,
     tournament over ``block_size``-wide column blocks, then the scalar
     polish) or 'auto' (the JAX package's crossover, :func:`_auto_apply`).
     Tall inputs are preconditioned with a robust thin QR, so the sweeps
-    run on the square R factor; wide inputs are factored transposed."""
+    run on the square R factor; wide inputs are factored transposed.  A
+    tall row-split matrix (``core/distributed.py::Sharded``) takes the
+    QR of its row-split panel (all-reduced Gram) and keeps U row-split."""
     return _jacobi_svd(a, tol, max_sweeps, apply, precondition, block_size)
 
 
@@ -359,6 +362,10 @@ def jacobi_svd_chunked(a, tol: Optional[float] = None, max_sweeps: int = 60,
 def _jacobi_svd(a, tol, max_sweeps: int, apply: str, precondition: bool,
                 block_size: int, progress=None):
     m, n = a.shape
+    if isinstance(a, Sharded) and (a.transposed or m <= n
+                                   or not precondition):
+        raise ValueError("a row-split matrix is factored through its thin "
+                         "QR: a tall one with precondition=True")
     if m < n:
         u, s, v = _jacobi_svd(a.T, tol, max_sweeps, apply, precondition,
                               block_size, progress)
@@ -378,6 +385,9 @@ def _jacobi_svd(a, tol, max_sweeps: int, apply: str, precondition: bool,
         # thin QR first: the sweeps then run on the n x n R factor
         q0, r0 = qr_reduced(a, "robust")
         ur, s, v, _ = core(r0)
+        if isinstance(q0, Sharded):
+            return q0.with_local(matmul_at(q0.local, ur, DOT_PRECISION)), \
+                s, v
         return matmul_at(q0, ur, DOT_PRECISION), s, v
     u, s, v, _ = core(a)
     return u, s, v

@@ -44,6 +44,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi import jacobi_svd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power import power_svd
+from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 
 
 class SVDMethod(enum.Enum):
@@ -109,7 +110,10 @@ def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
     ``core/distributed.py::Sharded``, the rowspace finish's C^T): the
     Gram engines run on its all-reduced Gram, V stays row-split; every
     other engine runs on the gathered panel, each rank keeping its rows
-    of V."""
+    of V.  ``a`` may also be a tall row-split matrix (PCA's centred data):
+    the Gram engines run on its Gram, the Jacobi engines on the R factor
+    of its row-split thin QR (their own preconditioning), and 'power',
+    'xla' and 'auto' on that R factor too; U stays row-split."""
     method = SVDMethod.parse(method)
     if isinstance(a, Sharded):
         return _svd_split(a, method, r, **kwargs)
@@ -140,16 +144,34 @@ def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
 
 
 def _svd_split(a, method: SVDMethod, r: int, **kwargs):
+    if method is SVDMethod.Auto:
+        method = (SVDMethod.ParallelJacobi if min(a.shape) <= 256
+                  else SVDMethod.XLA)
     if method is SVDMethod.GramEigh:
         u, s, v = _gram_eigh_svd(a)
     elif method is SVDMethod.GramEighPallas:
         u, s, v = _gram_eigh_svd(a, kernels.eigh_small)
+    elif not a.transposed and method is SVDMethod.Jacobi:
+        u, s, v = jacobi_svd(a, apply="scatter", **kwargs)
+    elif not a.transposed and method is SVDMethod.ParallelJacobi:
+        u, s, v = jacobi_svd(a, apply="auto", **kwargs)
+    elif not a.transposed:
+        # a tall row-split matrix: the engine factors R of A = Q R
+        q0, r0 = qr_reduced(a, "robust")
+        ur, s, v = svd(r0, method, r, **kwargs)
+        u = q0.with_local(matmul_at(q0.local, ur, "highest"))
     else:
         u, s, v = svd(a.T.gather().T, method, **kwargs)
         v = a.T.keep_rows(v)
     if r > 0:
-        u, s, v = u[:, :r], s[:r], v.with_local(v.local[:, :r])
+        u, s, v = _first(u, r), s[:r], _first(v, r)
     return u, s, v
+
+
+def _first(x, r: int):
+    """The first r columns of a tensor or of a row-split panel."""
+    return x.with_local(x.local[:, :r]) if isinstance(x, Sharded) \
+        else x[:, :r]
 
 
 class SVD:

@@ -48,15 +48,27 @@ def countsketch_apply(key_or_seed, x, sketch_size: int,
     E[S^T S] = I, so E||S x||_F^2 = ||x||_F^2 for any fixed x, and for an
     orthonormal-column Q the spectrum of S Q concentrates around 1.  An
     int seed draws on x's device; a generator must live there."""
+    return countsketch_rows(key_or_seed, x, sketch_size, nnz_per_row)
+
+
+def countsketch_rows(key_or_seed, x, sketch_size: int, nnz_per_row: int = 8,
+                     start: int = 0, total: int | None = None):
+    """S[:, start:start + len(x)] x: the columns of the embedding of
+    :func:`countsketch_apply` over ``total`` rows (default len(x)) that
+    meet rows ``start`` onwards, applied to ``x``.  The buckets and signs
+    are drawn for all ``total`` rows, so a row block's sketches summed
+    over the blocks are S applied to the whole."""
     key = key_from_seed(key_or_seed, x.device)
     squeeze = x.dim() == 1
     if squeeze:
         x = x[:, None]
     m = x.shape[0]
+    total = m if total is None else total
     t = int(nnz_per_row)
     out = x.new_zeros((sketch_size,) + tuple(x.shape[1:]))
     scale = 1.0 / math.sqrt(float(t))
-    for bucket, sign in _buckets_and_signs(key, m, sketch_size, t):
+    for bucket, sign in _buckets_and_signs(key, total, sketch_size, t):
+        bucket, sign = bucket[start:start + m], sign[start:start + m]
         mag = torch.full((m,), scale, dtype=x.dtype, device=x.device)
         signed = torch.where(sign, mag, -mag)
         out.index_add_(0, bucket, signed[:, None] * x)

@@ -13,6 +13,12 @@ orthogonal to working precision, torch's f32 eigh on the card only to
 ~1e-5.  The tolerance-adaptive variants fetch one spectrum per mode to
 the host between :func:`mode_spectrum` and :func:`mode_contract`, the
 same host sync the JAX package makes between its two jitted pieces.
+
+An unfolding may be split over the ranks (``core/distributed.py::
+Sharded``: mode 0's by rows, another mode's by columns, held as the
+transpose of a row split); the driver's split products all-reduce what
+crosses the split, and the energy ||unf||_F^2 is summed over the
+ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +29,10 @@ import torch
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import eigh
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _local,
+    _reduce,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     _mm,
@@ -52,7 +62,8 @@ def mode_spectrum(unf, seed, l: int, q: int):
     b = _mm(q_mat.T, unf, DOT_PRECISION)
     g = _mm(b, b.T, DOT_PRECISION)
     w, vecs = eigh(0.5 * (g + g.T))
-    return q_mat, w.flip(0), vecs.flip(1), torch.sum(torch.square(unf))
+    total = _reduce(torch.sum(torch.square(_local(unf))), unf)
+    return q_mat, w.flip(0), vecs.flip(1), total
 
 
 def mode_contract(unf, q_mat, vecs, r: int):

@@ -12,6 +12,11 @@ truncated SVD of the whitened p x q matrix runs through the rSVD driver
 when min(p, q) > 256 (Omega from the driver's ``generate_omega``) and
 exactly (``torch.linalg.svd``, NaN for a NaN input as in XLA:
 ``core/device.py::svd_nan``) otherwise.
+
+The two views may be DTensors whose rows (the samples) are sharded over
+one mesh: the column means are merged over the ranks, the three
+covariances are the local products all-reduced, and everything after
+them is replicated, as on one card.
 """
 
 from __future__ import annotations
@@ -29,7 +34,16 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _like,
+    _local,
+    _mean,
+    _reduce,
+    _row_block,
+    _row_split,
+)
 
 
 class CcaResult(NamedTuple):
@@ -47,16 +61,22 @@ def _whitener(c, reg: float):
                                       device=c.device))
 
 
+def _cov(x, y):
+    """X^T Y of two tensors, or of two panels split by the same rows (the
+    local products all-reduced)."""
+    return _reduce(matmul_at(_local(x).T, _local(y), DOT_PRECISION), x)
+
+
 def _cca_impl(x, y, k: int, reg: float, seed: int, use_rsvd: bool):
     n = x.shape[0]
-    xm = torch.mean(x, dim=0)
-    ym = torch.mean(y, dim=0)
-    xc = x - xm
-    yc = y - ym
+    xm = _mean(x)
+    ym = _mean(y)
+    xc = _like(x, _local(x) - xm)
+    yc = _like(y, _local(y) - ym)
     denom = float(n - 1)
-    cxx = matmul_at(xc.T, xc, DOT_PRECISION) / denom
-    cyy = matmul_at(yc.T, yc, DOT_PRECISION) / denom
-    cxy = matmul_at(xc.T, yc, DOT_PRECISION) / denom
+    cxx = _cov(xc, xc) / denom
+    cyy = _cov(yc, yc) / denom
+    cxy = _cov(xc, yc) / denom
     lx = _whitener(cxx, reg)
     ly = _whitener(cyy, reg)
     # M = Lx^{-1} Cxy Ly^{-T}
@@ -82,9 +102,17 @@ def cca(x, y, k: int = 2, reg: float = 1e-6, seed: int = 0) -> CcaResult:
     covariance.  The rSVD driver factors the whitened cross-covariance
     when min(p, q) > 256, the exact SVD otherwise.  Project new data with
     ``(x_new - res.x_mean) @ res.x_weights``.  Tensors stay on their
-    device (Y goes to X's); any other array goes to the card."""
-    x = as_tensor(x)
-    y = as_tensor(y, device=x.device)
+    device (Y goes to X's); any other array goes to the card.  Views
+    whose rows are sharded (DTensors over one mesh; a whole Y beside a
+    sharded X is read by X's rows) give replicated results (the module
+    docstring)."""
+    x = _row_split(x)
+    y = _row_split(y) if isinstance(x, Sharded) else as_tensor(
+        y, device=x.device)
+    if isinstance(x, Sharded) and not isinstance(y, Sharded):
+        if y.shape[0] != x.shape[0]:
+            raise ValueError("views must have the same number of rows")
+        y = x.with_local(_row_block(x, y.to(x.device)))
     if x.shape[0] != y.shape[0]:
         raise ValueError("views must have the same number of rows")
     k = min(k, x.shape[1], y.shape[1])

@@ -42,16 +42,18 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
     is_dtensor,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _like,
     _local,
-    _mm,
     _reduce,
     _row_block,
     _row_split,
     _sharded_view,
     _to_api,
     _whole,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _mm,
     rsvd_with_omega,
 )
 

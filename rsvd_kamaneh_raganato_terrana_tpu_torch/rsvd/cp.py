@@ -18,6 +18,17 @@ The fibers of sweep ``it``, mode ``i`` are drawn by
 :func:`_fiber_indices` from the generator ``fold_in_shard(
 fold_in_shard(key0, it), i)``, key0 the seed's key folded with 12345:
 torch Philox draws, not the JAX package's threefry values.
+
+A DTensor sharded on mode 0 is read block by block: the initial range
+finders are the driver's split products (Tucker's unfoldings), F_1
+(mode 0's factor) stays row-split and the other factors replicated.
+Mode 0's MTTKRP is local; every other mode's takes this rank's slice of
+the Khatri-Rao rows (mode 0 varies slowest) and all-reduces the partial
+sums; Grams and column norms of F_1 are completed over the ranks.
+CPRAND draws its fibers whole, by global index: the rows of F_1 they
+meet are taken from the ranks that hold them, and a fiber's entries are
+read by the rank that holds its mode-0 index, the products all-reduced.
+F_1 comes back row-sharded.
 """
 
 from __future__ import annotations
@@ -27,8 +38,14 @@ from typing import Sequence, Tuple
 
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import cholesky
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    from_dtensor,
+    is_dtensor,
+    row_dtensor,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     fold_in_shard,
     key_from_seed,
@@ -39,12 +56,25 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._modewise import (
     tighten_contract,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _cols,
+    _like,
+    _local,
+    _norm,
+    _row_block,
+    _row_split,
+    _take_rows,
+    _to_api,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     _mm,
     generate_omega,
     subspace_iteration,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.tucker import _unfold
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.tucker import (
+    _split_unfold,
+    _unfold,
+)
 
 
 def khatri_rao(mats: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -60,10 +90,12 @@ def khatri_rao(mats: Sequence[torch.Tensor]) -> torch.Tensor:
 def _cp_init(a, seed, rank: int):
     """rSVD-subspace init per mode: F_i = top-r left singular directions
     of the unfolding (HOSVD-style); padded with seeded Gaussian columns
-    when a mode can't support the full rank."""
+    when a mode can't support the full rank.  Mode 0's factor of a
+    tensor split on mode 0 stays row-split."""
+    view = a if isinstance(a, Sharded) else None
     factors = []
-    for i in range(a.ndim):
-        unf = _unfold(a, i)
+    for i in range(len(a.shape)):
+        unf = _split_unfold(view, a.local, i) if view else _unfold(a, i)
         r_i = min(rank, min(unf.shape))
         omega = generate_omega(seed + 31 * i, unf.shape[1], r_i, a.dtype,
                                device=a.device)
@@ -72,7 +104,8 @@ def _cp_init(a, seed, rank: int):
         if r_i < rank:
             extra = generate_omega(seed + 97 * i, a.shape[i], rank - r_i,
                                    a.dtype, device=a.device)
-            u = torch.cat([u, extra / math.sqrt(float(a.shape[i]))], dim=1)
+            u = _like(u, torch.cat([_local(u), _row_block(
+                u, extra / math.sqrt(float(a.shape[i])))], dim=1))
         factors.append(u)
     return factors
 
@@ -92,7 +125,8 @@ def _solve_pos(g, rhs):
 
 
 def _renormalize(f, eps):
-    return f / torch.clamp(torch.linalg.norm(f, dim=0), min=eps)[None, :]
+    return _like(f, _local(f) / torch.clamp(_norm(f, dim=0),
+                                            min=eps)[None, :])
 
 
 def _cp_finalize(factors, eps):
@@ -102,23 +136,35 @@ def _cp_finalize(factors, eps):
     last = last / torch.clamp(weights, min=eps)[None, :]
     order = torch.argsort(-weights, stable=True)
     return weights[order], tuple(
-        [f[:, order] for f in factors[:-1]] + [last[:, order]])
+        [_cols(f, order) for f in factors[:-1]] + [last[:, order]])
+
+
+def _mttkrp_done(a, i: int, part):
+    """Mode i's MTTKRP from this rank's ``part``: mode 0's rows are this
+    rank's (of a tensor split on mode 0, a row-split panel), any other
+    mode's partial sums over the mode-0 blocks are all-reduced."""
+    if not isinstance(a, Sharded):
+        return part
+    if i == 0:
+        return a.with_local(part)
+    return collectives.all_reduce(part, a.rows.group)
 
 
 def _cp_als_impl(a, seed, rank: int, iters: int):
-    d = a.ndim
-    unfolds = [_unfold(a, i) for i in range(d)]
+    d = len(a.shape)
+    unfolds = [_unfold(_local(a), i) for i in range(d)]  # this rank's
     fs = _cp_init(a, seed, rank)
     eps = 1e-30
     for _ in range(iters):
         for i in range(d):
             others = [fs[j] for j in range(d) if j != i]
-            kr = khatri_rao(others)                         # prod n_j x r
+            kr = khatri_rao([_local(f) for f in others])    # prod n_j x r
             g = torch.ones((rank, rank), dtype=a.dtype, device=a.device)
             for f in others:
                 g = g * _mm(f.T, f)                         # Hadamard Grams
-            mttkrp = _mm(unfolds[i], kr)                    # n_i x r
-            f_new = _solve_pos(_regularize(g, rank, a.dtype), mttkrp)
+            mttkrp = _mttkrp_done(a, i, _mm(unfolds[i], kr))  # n_i x r
+            f_new = _like(mttkrp, _solve_pos(
+                _regularize(g, rank, a.dtype), _local(mttkrp)))
             # renormalize columns (weights are re-absorbed on the last
             # mode each sweep, the standard CP-ALS convention)
             fs[i] = _renormalize(f_new, eps) if i < d - 1 else f_new
@@ -139,10 +185,11 @@ def _cp_rand_impl(a, seed, rank: int, iters: int, num_samples: int):
     rows of the Khatri-Rao product formed directly as Hadamard products
     of factor rows, and the matching S tensor fibers gathered from the
     flat tensor by int64 index (no per-mode unfolding copies)."""
-    d = a.ndim
+    d = len(a.shape)
     shape = a.shape
     strides = [math.prod(shape[j + 1:]) for j in range(d)]
-    a_flat = a.reshape(-1)
+    a_flat = _local(a).reshape(-1)                  # this rank's block
+    start0 = a.row_start if isinstance(a, Sharded) else 0
     fs = _cp_init(a, seed, rank)
     eps = 1e-30
     key0 = fold_in_shard(key_from_seed(seed, a.device), 12345)
@@ -155,14 +202,33 @@ def _cp_rand_impl(a, seed, rank: int, iters: int, num_samples: int):
             base = torch.zeros((num_samples,), dtype=torch.int64,
                                device=a.device)
             for j, idx in zip(others, idxs):
-                kr_s = kr_s * fs[j][idx]
+                kr_s = kr_s * _take_rows(fs[j], idx)
                 base = base + idx.to(torch.int64) * strides[j]
-            along = torch.arange(shape[i], device=a.device) * strides[i]
-            a_s = a_flat[base[None, :] + along[:, None]]    # n_i x S
+            if isinstance(a, Sharded) and i:
+                # the fibers whose mode-0 index this rank holds
+                a_s = _fibers_held(a, a_flat, idxs[0], base, i, strides)
+            else:
+                along = torch.arange(_local(a).shape[i],
+                                     device=a.device) * strides[i]
+                a_s = a_flat[base[None, :] + along[:, None]]  # n_i x S
             g = _regularize(_mm(kr_s.T, kr_s), rank, a.dtype)
-            f_new = _solve_pos(g, _mm(a_s, kr_s))
+            mttkrp = _mttkrp_done(a, i, _mm(a_s, kr_s))
+            f_new = _like(mttkrp, _solve_pos(g, _local(mttkrp)))
             fs[i] = _renormalize(f_new, eps) if i < d - 1 else f_new
     return _cp_finalize(fs, eps)
+
+
+def _fibers_held(a, a_flat, idx0, base, i: int, strides):
+    """The n_i x S fiber block of a tensor split on mode 0, this rank's
+    entries filled (the fibers whose mode-0 index it holds), zeros
+    elsewhere; ``base`` is each fiber's global flat offset."""
+    rows = a.local.shape[0]
+    mine = (idx0 >= a.row_start) & (idx0 < a.row_start + rows)
+    along = torch.arange(a.shape[i], device=a.device) * strides[i]
+    local_base = base[mine] - a.row_start * strides[0]
+    out = a_flat.new_zeros((a.shape[i], idx0.shape[0]))
+    out[:, mine] = a_flat[local_base[None, :] + along[:, None]]
+    return out
 
 
 def cp_decompose(
@@ -182,12 +248,13 @@ def cp_decompose(
     updates whose per-sweep cost is independent of prod(n)
     (``num_samples`` Khatri-Rao rows per update; default 4*rank + 64,
     clamped to the available fiber count).  A tensor stays on its
-    device; any other array goes to the card."""
-    a = as_tensor(a)
-    if a.ndim < 2:
+    device; any other array goes to the card; a DTensor sharded on mode
+    0 is read block by block (the module docstring)."""
+    a = _row_split(a)
+    if len(a.shape) < 2:
         raise ValueError("cp_decompose needs a tensor of ndim >= 2")
     if method == "als":
-        return _cp_als_impl(a, seed, int(rank), int(iters))
+        return _api(_cp_als_impl(a, seed, int(rank), int(iters)))
     if method == "rand":
         size = math.prod(a.shape)
         if size >= 2 ** 31:
@@ -199,12 +266,25 @@ def cp_decompose(
                 "a sharded/reshaped view instead")
         s = int(num_samples) if num_samples else 4 * int(rank) + 64
         s = max(min(s, size // max(min(a.shape), 1)), int(rank))
-        return _cp_rand_impl(a, seed, int(rank), int(iters), s)
+        return _api(_cp_rand_impl(a, seed, int(rank), int(iters), s))
     raise ValueError(f"unknown method {method!r}")
 
 
+def _api(result):
+    """(weights, factors) with a row-split F_1 as its row-sharded
+    DTensor."""
+    weights, factors = result
+    return weights, (_to_api(factors[0]),) + tuple(factors[1:])
+
+
 def cp_reconstruct(weights, factors):
-    """Sum of outer products back to the full tensor."""
+    """Sum of outer products back to the full tensor (sharded on mode 0
+    where F_1 is row-sharded)."""
     kr = khatri_rao(list(factors[1:]))               # prod n_j x r
-    lead = factors[0] * weights[None, :]
-    return _mm(lead, kr.T).reshape([f.shape[0] for f in factors])
+    view = from_dtensor(factors[0]) if is_dtensor(factors[0]) else None
+    lead = (view.local if view else factors[0]) * weights[None, :]
+    out = _mm(lead, kr.T).reshape([lead.shape[0]]
+                                  + [f.shape[0] for f in factors[1:]])
+    if view is None:
+        return out
+    return row_dtensor(out, view.mesh, view.rows, view.shape[0])

@@ -35,14 +35,16 @@ from typing import NamedTuple
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _like,
-    _mm,
     _row_block,
     _row_split,
     _sharded_view,
     _to_api,
     _whole,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _mm,
     rsvd,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.interp import _greedy_pivots

@@ -19,6 +19,12 @@ The probes come from a stream of their own: the seed's generator folded
 with a fixed tag (``_probe_key``), disjoint from ``generate_omega``'s
 stream for the same seed, as the JAX package's salted key is.  They are
 torch Philox draws, not JAX's threefry values.
+
+The certificates and the norm estimates take a DTensor whose rows are
+sharded (Q, U row-sharded alike, as ``rsvd`` returns them): the probes
+are drawn whole, as on one card, the m-sized panels stay row-split, and
+the column norms and the power iteration's norms are completed over the
+rows (``rsvd/_sharded.py``), so the estimates come back replicated.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import math
 
 import torch
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     fold_in_shard,
     gaussian,
@@ -37,6 +44,14 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION as _HI,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _like,
+    _local,
+    _norm,
+    _reduce,
+    _row_split,
+    _sharded_view,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
 
@@ -59,8 +74,10 @@ def _probes(seed, shape, dtype, device):
 
 
 def _certificate(resid):
-    """10 sqrt(2/pi) max_i ||resid[:, i]||_2."""
-    norms = torch.sqrt(torch.sum(resid * resid, dim=0))
+    """10 sqrt(2/pi) max_i ||resid[:, i]||_2 (of a row-split residual,
+    its column sums of squares all-reduced)."""
+    local = _local(resid)
+    norms = torch.sqrt(_reduce(torch.sum(local * local, dim=0), resid))
     return 10.0 * math.sqrt(2.0 / math.pi) * torch.max(norms)
 
 
@@ -68,18 +85,22 @@ def range_error_estimate(a, q_mat, seed=0, num_probes: int = 10):
     """Certified upper bound on ||(I - QQ^T) A||_2, holding with
     probability >= 1 - 10^{-num_probes} over the probes (drawn from a
     stream disjoint from ``generate_omega``'s for the same seed)."""
+    a, q_mat = _row_split(a), _sharded_view(q_mat)
     g = _probes(seed, (a.shape[1], num_probes), a.dtype, a.device)
     ag = _mm(a, g, _HI)                            # m x r
-    return _certificate(ag - _mm(q_mat, _mm(q_mat.T, ag, _HI), _HI))
+    proj = _mm(q_mat, _mm(q_mat.T, ag, _HI), _HI)
+    return _certificate(_like(ag, _local(ag) - _local(proj)))
 
 
 def factorization_error_estimate(a, u, s, v, seed=0, num_probes: int = 10):
     """Certified upper bound on ||A - U diag(s) V^T||_2 (the same probe
     argument applied to the factorization's residual operator; probes
     from the salted stream, see ``_probe_key``)."""
+    a, u = _row_split(a), _sharded_view(u)
     g = _probes(seed, (a.shape[1], num_probes), a.dtype, a.device)
-    return _certificate(_mm(a, g, _HI)
-                        - _mm(u * s[None, :], _mm(v.T, g, _HI), _HI))
+    ag = _mm(a, g, _HI)
+    fit = _mm(_like(u, _local(u) * s[None, :]), _mm(v.T, g, _HI), _HI)
+    return _certificate(_like(ag, _local(ag) - _local(fit)))
 
 
 def principal_angles(u, v):
@@ -148,15 +169,25 @@ def spectral_norm_estimate(a, seed=0, num_iters: int = 30):
     """||A||_2 estimate by power iteration on the Gram operator
     (x <- A^T (A x)).  A lower bound that converges geometrically in
     (sigma_2/sigma_1)^2."""
+    a = _row_split(a)
     x0 = _probes(seed, (a.shape[1],), a.dtype, a.device)
-    sigma, _, _ = power_triplet(a, x0, num_iters)
-    return sigma
+    if not isinstance(a, Sharded):
+        sigma, _, _ = power_triplet(a, x0, num_iters)
+        return sigma
+    # power_triplet's steps on the blocks: A v stays row-split, A^T (A v)
+    # is all-reduced, ||A v|| completed over the rows
+    v = x0 / torch.linalg.norm(x0)
+    for _ in range(num_iters):
+        z = _mm(a.T, _mm(a, v[:, None], _HI), _HI)[:, 0]
+        v = z / torch.linalg.norm(z)
+    return _norm(_mm(a, v[:, None], _HI))
 
 
 def stable_rank_estimate(a, seed=0, num_iters: int = 30):
     """Stable rank srank(A) = ||A||_F^2 / ||A||_2^2, with ||A||_F exact
     and ||A||_2 from :func:`spectral_norm_estimate` (so a slight
     over-estimate while the power iteration has not converged)."""
-    fro_sq = torch.sum(torch.square(a))
+    a = _row_split(a)
+    fro_sq = _reduce(torch.sum(torch.square(_local(a))), a)
     sig = spectral_norm_estimate(a, seed=seed, num_iters=num_iters)
     return fro_sq / torch.clamp(sig * sig, min=torch.finfo(a.dtype).tiny)

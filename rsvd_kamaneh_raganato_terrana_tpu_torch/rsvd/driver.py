@@ -23,7 +23,9 @@ target) and the image preset ``rsvd_image_preset``.
 
 Sharded operands: a DTensor whose rows (and optionally columns) are
 sharded over a ``DeviceMesh``, or an :class:`Int8Stored` of row-sharded
-DTensors, goes through ``rsvd``/``rsvd_core``/``rsvd_with_omega`` with
+DTensors, goes through ``rsvd``/``rsvd_core``/``rsvd_with_omega`` (and,
+rows sharded, through ``rsvd_adaptive``, ``rsvd_onepass`` and
+``rsvd_warm``) by the helpers of ``rsvd/_sharded.py``, with
 the numerics XLA's partitioner gives the JAX package: Y = A Omega and
 every m-sized panel stay row-sharded, Z = A^T Q and B = Q^T A are local
 products all-reduced over the rows (and gathered over a column split),
@@ -48,8 +50,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     STORAGE_BF16,
     STORAGE_INT8,
@@ -84,6 +84,17 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _cat_cols,
+    _cols,
+    _like,
+    _local,
+    _reduce,
+    _row_block,
+    _sharded_mm,
+    _sharded_view,
+    _to_api,
 )
 
 _FINISHES = ("project", "rowspace", "utv", "rowspace_utv")
@@ -230,31 +241,6 @@ def sparse_operand(a) -> SparseStored:
     return SparseStored(_csr(coo), _csr(coo.t().coalesce()))
 
 
-def _sharded_view(a):
-    """A DTensor operand, or an :class:`Int8Stored` of row-sharded
-    DTensors, as :class:`Sharded` (``core/distributed.py``); anything else
-    as it is."""
-    if is_dtensor(a):
-        return from_dtensor(a)
-    if isinstance(a, Int8Stored) and is_dtensor(a.q8):
-        if a.transposed:
-            raise ValueError("a sharded Int8Stored is read by rows: pass "
-                             "the untransposed operand")
-        view = from_dtensor(a.q8, Int8Stored(a.q8.to_local(),
-                                             a.row_scale.to_local()))
-        if view.cols is not None:
-            raise ValueError("int8 storage takes a row-sharded operand")
-        return view
-    return a
-
-
-def _cols(u, idx):
-    """Columns ``idx`` of a tensor or a row-split panel."""
-    if isinstance(u, Sharded):
-        return u.with_local(u.local[:, idx])
-    return u[:, idx]
-
-
 def _as_operand(a):
     """An :class:`Int8Stored` or :class:`SparseStored` stays as it is, a
     sparse tensor becomes a :class:`SparseStored` on its device, a dense
@@ -362,146 +348,6 @@ def _int8_mm(a: Int8Stored, b):
     y = _int8_product(fwd, b8)[:m]
     return (y.to(out_dtype) * a.row_scale[:, None].to(out_dtype)
             * t.to(out_dtype))
-
-
-def _int8_t_mm_split(x: Sharded, q):
-    """A^T Q for a row-split :class:`Int8Stored` A and Q's local rows:
-    ``_int8_mm``'s transposed product with the column scales taken from
-    the all-reduced column absmax and the int32 partial products summed
-    over the rows, so the integers equal the single-card ones."""
-    a8 = x.local
-    bs = q * a8.row_scale[:, None].to(q.dtype)
-    amax = collectives.all_reduce(
-        torch.amax(torch.abs(bs), dim=0, keepdim=True), x.rows.group, "max")
-    b8, t = _quant_cols(bs, amax)
-    z = collectives.all_reduce(
-        _int8_product(a8.layouts[1], b8)[:a8.q8.shape[1]], x.rows.group)
-    out_dtype = torch.promote_types(q.dtype, torch.float32)
-    return z.to(out_dtype) * t.to(out_dtype)
-
-
-def _t_mm_split(x: Sharded, y: Sharded, precision):
-    """X^T Y for X and Y split by the same rows: the local products
-    summed over the rows, then gathered over a column split (A^T Q's rows
-    lie over A's columns, Q^T A's columns do); replicated."""
-    if isinstance(y.local, Int8Stored):
-        return _t_mm_split(y, x, precision).T          # Q^T A = (A^T Q)^T
-    if isinstance(x.local, Int8Stored):
-        z = _int8_t_mm_split(x, y.local)
-    else:
-        z = collectives.all_reduce(_mm(x.local.T, y.local, precision),
-                                   x.rows.group)
-    if x.cols is not None:
-        z = collectives.all_gather(z, x.cols.group)
-    if y.cols is not None:
-        z = collectives.all_gather(z.T, y.cols.group).T
-    return z
-
-
-def _sharded_mm(a, b, precision):
-    """A product with a row-split operand (:class:`Sharded`), with the
-    collectives XLA's partitioner inserts for it:
-
-    - A B (B replicated) is the local rows' product, its partial sums
-      all-reduced where A's columns are split, and stays row-split;
-    - X^T Y of two row-split operands is :func:`_t_mm_split`
-      (replicated), and so is A^T B with B replicated: B's rows are cut
-      by A's split first;
-    - A B with B row-split too (B's rows are A's columns) gathers B;
-    - with a replicated left operand, X A is X's columns cut by A's row
-      split, the local products all-reduced (replicated), and X A^T is
-      this rank's columns of the product, a transposed row split.  Each
-      local product has the one-card product's orientation, so one rank
-      computes the one-card call's GEMMs; a column-split or int8 A takes
-      the transposes of the rules above."""
-    if isinstance(b, Sharded) and not isinstance(a, Sharded):
-        if b.cols is not None or isinstance(b.local, Int8Stored):
-            return _sharded_mm(b.T, a.T, precision).T
-        if b.transposed:
-            bt = b.T
-            return bt.with_local(_mm(a, bt.local.T, precision).T).T
-        cols = slice(b.row_start, b.row_start + b.local.shape[0])
-        return collectives.all_reduce(_mm(a[:, cols], b.local, precision),
-                                      b.rows.group)
-    if isinstance(a, Sharded) and a.transposed and not isinstance(b, Sharded):
-        at = a.T
-        b = at.with_local(_row_block(at, b))
-    if isinstance(a, Sharded) and isinstance(b, Sharded) \
-            and a.transposed and not b.transposed:
-        return _t_mm_split(a.T, b, precision)
-    if isinstance(a, Sharded) and isinstance(b, Sharded) \
-            and not a.transposed and not b.transposed:
-        b = b.gather()
-    if not isinstance(a, Sharded) or a.transposed or isinstance(b, Sharded):
-        raise TypeError("a sharded product is A B or A^T B with B "
-                        "replicated, X^T Y with both split by rows, or "
-                        "their transposes")
-    if a.cols is not None:
-        b = b[a.col_start:a.col_start + a.local.shape[1]]
-    y = _mm(a.local, b, precision)
-    if a.cols is not None:
-        y = collectives.all_reduce(y, a.cols.group)
-    return Sharded(y, (a.shape[0], y.shape[1]), a.mesh, a.rows)
-
-
-def _local(x):
-    """This rank's block of a row-split panel, or ``x`` itself."""
-    return x.local if isinstance(x, Sharded) else x
-
-
-def _like(x, local):
-    """``local``, a block of this rank's rows of ``x``, split as ``x`` is
-    (a :class:`Sharded` of its width), or ``local`` itself where ``x`` is
-    not split."""
-    return x.with_local(local) if isinstance(x, Sharded) else local
-
-
-def _row_block(x, full):
-    """The rows of ``full`` (a tensor every rank holds whole, with the
-    rows of ``x``) that this rank holds of the row-split ``x``; ``full``
-    itself where ``x`` is not split, its local block where ``full`` is a
-    row-split panel already."""
-    if isinstance(full, Sharded):
-        return full.local
-    if not isinstance(x, Sharded):
-        return full
-    return full[x.row_start:x.row_start + x.local.shape[0]]
-
-
-def _whole(x):
-    """A row-split panel gathered whole on every rank (a counted
-    all-gather: where XLA's partitioner gathers an operand of an op it
-    cannot split), or ``x`` itself."""
-    return x.gather() if isinstance(x, Sharded) else x
-
-
-def _reduce(t, x, op: str = "sum"):
-    """``t``, a reduction ('sum', 'max' or 'min') over this rank's rows of
-    ``x``, completed over x's row group by a counted all-reduce where x is
-    split: the partitioner's reduction of a row-sharded operand."""
-    if isinstance(x, Sharded):
-        return collectives.all_reduce(t, x.rows.group, op)
-    return t
-
-
-def _to_api(x):
-    """A row-split panel as its row-sharded DTensor (JAX's layout of an
-    m-row result), anything else as it is."""
-    return x.to_dtensor() if isinstance(x, Sharded) else x
-
-
-def _row_split(a):
-    """An extension's operand: a DTensor as its :class:`Sharded` view,
-    rows split and columns whole; any other operand as a tensor
-    (``as_tensor``: an array goes to the card)."""
-    if is_dtensor(a):
-        view = from_dtensor(a)
-        if view.cols is not None:
-            raise ValueError("this function takes an operand whose rows "
-                             f"are sharded, not its columns "
-                             f"(placements {a.placements})")
-        return view
-    return as_tensor(a)
 
 
 def _mm(a, b, precision=DOT_PRECISION):
@@ -854,7 +700,7 @@ def _grow_basis_block(a, q_prev, omega_new, q: int,
     range finder)."""
 
     def deflate(y):
-        return y - _mm(q_prev, _mm(q_prev.T, y))
+        return _like(y, _local(y) - _local(_mm(q_prev, _mm(q_prev.T, y))))
 
     y = deflate(_mm(a, omega_new))
     y = orthonormal_basis(y, qr_method)
@@ -926,12 +772,15 @@ def rsvd_adaptive(a, tol: float, k0: int = 16, k_max: Optional[int] = None,
     columns to Q and its rows to B = Q^T A; the block size comes from
     :func:`_predict_rank`.  A sparse A stays sparse throughout: its
     duplicate entries are summed first (:func:`sparse_operand`), so
-    ||A||_F^2 is the sum of its stored values' squares."""
-    a = _as_operand(a)
-    if isinstance(a, Int8Stored):
+    ||A||_F^2 is the sum of its stored values' squares.  A DTensor
+    whose rows are sharded runs on its blocks: ||A||_F^2 and the
+    products are all-reduced, every block's Omega is drawn whole, U comes
+    back row-sharded."""
+    a = _sharded_view(_as_operand(a))
+    if isinstance(_local(a), Int8Stored):
         raise TypeError("rsvd_adaptive takes a dense or sparse tensor")
-    vals = a.values() if isinstance(a, SparseStored) else a
-    a_norm_sq = float(torch.sum(torch.square(vals)))
+    vals = a.values() if isinstance(a, SparseStored) else _local(a)
+    a_norm_sq = float(_reduce(torch.sum(torch.square(vals)), a))
     m, n = a.shape
     min_dim = min(m, n)
     k_cap = min(k_max or min_dim, min_dim)
@@ -953,7 +802,7 @@ def rsvd_adaptive(a, tol: float, k0: int = 16, k_max: Optional[int] = None,
         if ok.size or l >= k_cap:
             k = int(ok[0]) + 1 if ok.size else int(s.shape[0])
             u = _mm(q_mat, u_t)
-            out = (u[:, :k], s[:k], v[:, :k], k)
+            out = (_to_api(_cols(u, slice(None, k))), s[:k], v[:, :k], k)
             if return_stats:
                 return out + ({"block_sizes": tuple(blocks),
                                "rounds": round_no,
@@ -966,7 +815,7 @@ def rsvd_adaptive(a, tol: float, k0: int = 16, k_max: Optional[int] = None,
         omega_new = generate_omega(seed + 7919 * round_no, n, dl, a.dtype,
                                    device=a.device)
         q_blk = _grow_basis_block(a, q_mat, omega_new, q)
-        q_mat = torch.cat([q_mat, q_blk], dim=1)
+        q_mat = _cat_cols([q_mat, q_blk])
         b = torch.cat([b, _mm(q_blk.T, a)], dim=0)
         l += dl
         blocks.append(dl)
@@ -984,16 +833,25 @@ def rsvd_onepass(a, k: int, p: int = 16, s_factor: int = 2,
     come, in that order, from one generator seeded with ``seed`` on A's
     device.  Composes with the int8 storage mode: pass an
     :class:`Int8Stored` (or ``precision='int8'``) and each sketch reads
-    one byte per element.  Returns (U, s, V) truncated to k."""
-    a = _as_operand(a)
+    one byte per element.  Returns (U, s, V) truncated to k.
+
+    A DTensor whose rows are sharded (or an :class:`Int8Stored` of
+    row-sharded DTensors) is read block by block: Omega and Psi are drawn
+    whole, Psi^T A is the local rows' product all-reduced, the small
+    factors are replicated and U comes back row-sharded."""
+    a = _sharded_view(_as_operand(a))
     resolve_precision(precision)
     m, n = a.shape
     dtype = a.dtype
     l = min(k + p, min(m, n))
     s_cols = min(s_factor * l + 1, m)
     a_stage = a
-    if precision in STORAGE_INT8 and not isinstance(
-            a, (Int8Stored, SparseStored)):
+    if isinstance(a, Sharded) and precision in STORAGE_INT8 \
+            and not isinstance(a.local, Int8Stored):
+        a_stage = Sharded(quantize_int8_rows(a.local), a.shape, a.mesh,
+                          a.rows)
+    elif precision in STORAGE_INT8 and not isinstance(
+            a, (Int8Stored, SparseStored, Sharded)):
         a_stage = quantize_int8_rows(a)
     key = key_from_seed(seed, a.device)
     omega = gaussian(key, (n, l), dtype)
@@ -1006,7 +864,7 @@ def rsvd_onepass(a, k: int, p: int = 16, s_factor: int = 2,
     x = torch.linalg.solve_triangular(rp, _mm(qp.T, w), upper=True)  # l x n
     u_t, sv, v = small_svd(x, method)
     u = _mm(q_mat, u_t)
-    return u[:, :k], sv[:k], v[:, :k]
+    return _to_api(_cols(u, slice(None, k))), sv[:k], v[:, :k]
 
 
 def rsvd_warm(a, q_prev, k: int = 0, q: int = 1, method: str = "eigh",
@@ -1016,19 +874,26 @@ def rsvd_warm(a, q_prev, k: int = 0, q: int = 1, method: str = "eigh",
     slowly varying matrices, power-iterating the previous factorization's
     Q reaches a cold start's accuracy with fewer passes over A.
     ``q_prev`` is any m x l orthonormal(ish) basis, e.g. U from the
-    previous step.  Returns (U, s, V) truncated to k (all l when k = 0)."""
-    a = _as_operand(a)
+    previous step.  Returns (U, s, V) truncated to k (all l when k = 0).
+
+    A DTensor whose rows are sharded takes ``q_prev`` row-sharded alike
+    (the U of a previous sharded call) or whole on every rank (each rank
+    keeps its rows); U comes back row-sharded."""
+    a = _sharded_view(_as_operand(a))
     resolve_precision(precision)
-    if not isinstance(q_prev, torch.Tensor):
+    q_prev = _sharded_view(q_prev)
+    if not isinstance(q_prev, (torch.Tensor, Sharded)):
         q_prev = torch.as_tensor(q_prev, device=a.device)
+    if isinstance(a, Sharded) and not isinstance(q_prev, Sharded):
+        q_prev = a.with_local(_row_block(a, q_prev))
     q_mat = orthonormal_basis(q_prev, qr_method)
     q_mat = power_refine(a, q_mat, q, qr_method, precision, reorth)
     b = _mm(q_mat.T, a, precision)
     u_t, s, v = small_svd(b, method)
     u = _mm(q_mat, u_t)
     if k > 0:
-        u, s, v = u[:, :k], s[:k], v[:, :k]
-    return u, s, v
+        u, s, v = _cols(u, slice(None, k)), s[:k], v[:, :k]
+    return _to_api(u), s, v
 
 
 def _batch_split(a_batch):

@@ -18,13 +18,18 @@ orthonormalization as kernel K1, 'polar_fused' as K2 (q + 1 launches a
 call), and 'eigh_pallas' the tail's l(q+1) x l(q+1) eigh as K3 (one
 launch).  Omega comes from the driver's ``generate_omega`` on A's
 device.
+
+A DTensor whose rows are sharded is read block by block, as the
+driver's ``rsvd`` reads it: Omega is drawn whole, the Krylov blocks stay
+row-split (a block's QR factors the row-split panel, or gathers the
+l-wide panel for K1, K2 and Householder), the projection and the
+Gram-Schmidt coefficients are all-reduced, the tail is replicated (K3
+on the replicated l(q+1) x l(q+1) Gram for 'eigh_pallas') and U comes
+back row-sharded.
 """
 
 from __future__ import annotations
 
-import torch
-
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import (
     orthonormal_basis,
 )
@@ -33,6 +38,14 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
     svd as small_svd,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _cat_cols,
+    _cols,
+    _like,
+    _local,
+    _row_split,
+    _to_api,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
 
 
@@ -44,7 +57,13 @@ def krylov_basis(a, omega, q: int, qr_method: str = "robust",
     Each block is deflated against the accumulated basis and
     orthonormalized before the next multiplication: block classical
     Gram-Schmidt with reorthogonalization, so the final concatenation
-    needs no extra QR."""
+    needs no extra QR.  A DTensor whose rows are sharded (Omega whole on
+    every rank) gives the basis row-sharded."""
+    return _to_api(_krylov_basis(_row_split(a), omega, q, qr_method,
+                                 precision))
+
+
+def _krylov_basis(a, omega, q: int, qr_method: str, precision):
     def mm(x, y):
         return _mm(x, y, precision) if precision is not None else _mm(x, y)
 
@@ -57,10 +76,10 @@ def krylov_basis(a, omega, q: int, qr_method: str = "robust",
         # two-pass block Gram-Schmidt against everything so far
         for _pass in range(2):
             for prev in blocks:
-                y = y - mm(prev, mm(prev.T, y))
+                y = _like(y, _local(y) - _local(mm(prev, mm(prev.T, y))))
         q_blk = orthonormal_basis(y, qr_method)
         blocks.append(q_blk)
-    return torch.cat(blocks, dim=1)
+    return _cat_cols(blocks)
 
 
 def rsvd_krylov(
@@ -79,15 +98,16 @@ def rsvd_krylov(
     same passes over A as ``rsvd`` at equal q, and a better
     approximation on slowly decaying spectra; the projected problem is
     l(q+1) x n instead of l x n.  A tensor stays on its device; any
-    other array goes to the card."""
-    a = as_tensor(a)
+    other array goes to the card; a DTensor whose rows are sharded is
+    read block by block (the module docstring)."""
+    a = _row_split(a)
     method = SVDMethod.parse(method)
     m, n = a.shape
     l = min(k + p if k > 0 else p, min(m, n))
     omega = driver.generate_omega(seed, n, l, a.dtype, device=a.device)
-    q_mat = krylov_basis(a, omega, q, qr_method, precision)  # m x l(q+1)
+    q_mat = _krylov_basis(a, omega, q, qr_method, precision)  # m x l(q+1)
     b = _mm(q_mat.T, a, precision)                           # l(q+1) x n
     u_t, s, v = small_svd(b, method)
     u = _mm(q_mat, u_t)
     kk = k if k > 0 else l
-    return u[:, :kk], s[:kk], v[:, :kk]
+    return _to_api(_cols(u, slice(None, kk))), s[:kk], v[:, :kk]

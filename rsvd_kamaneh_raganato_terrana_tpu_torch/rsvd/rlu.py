@@ -32,13 +32,15 @@ import torch
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import cholesky
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _like,
-    _mm,
     _row_block,
     _row_split,
     _to_api,
     _whole,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _mm,
     subspace_iteration,
 )
 

@@ -34,14 +34,16 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     key_from_seed,
     sketch_matrix,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _like,
     _local,
-    _mm,
     _reduce,
     _row_split,
     _sharded_view,
     _to_api,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _mm,
     rsvd_with_omega,
 )
 

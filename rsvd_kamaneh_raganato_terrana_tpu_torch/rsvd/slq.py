@@ -39,11 +39,11 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     key_from_seed,
     rademacher,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
-    _mm,
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _row_split,
     _whole,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
 
 _EPS = 1e-30
 

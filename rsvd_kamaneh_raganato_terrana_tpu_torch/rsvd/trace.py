@@ -48,14 +48,14 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION as _HI,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _like,
     _local,
-    _mm,
     _reduce,
     _row_block,
     _row_split,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
 
 
 def _quad_forms(apply_a, g):

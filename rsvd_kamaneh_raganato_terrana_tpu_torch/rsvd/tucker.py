@@ -19,6 +19,10 @@ of a row split), and the driver's split products all-reduce the Grams
 and contractions that cross the split; the sketches are drawn whole, as
 on one card.  Once mode 0 is contracted the core is replicated.  U_0
 comes back row-sharded, the other factors and the core replicated.
+``tucker_adaptive`` reads its tensor the same way, its rank rule
+reading each mode's spectrum on the host as on one card, and
+``tucker_reconstruct`` of a row-sharded U_0 gives the tensor sharded on
+mode 0.
 """
 
 from __future__ import annotations
@@ -26,11 +30,15 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     resolve_precision,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    from_dtensor,
+    is_dtensor,
+    row_dtensor,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
 )
@@ -40,10 +48,12 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._modewise import (
     rank_for_budget,
     tighten_contract,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
-    _mm,
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _row_split,
     _to_api,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _mm,
     generate_omega,
     subspace_iteration,
 )
@@ -155,10 +165,15 @@ def tucker(
 
 
 def tucker_reconstruct(core, factors, precision=_HI):
-    """A ~ core x_1 U1 x_2 U2 ... x_d Ud."""
+    """A ~ core x_1 U1 x_2 U2 ... x_d Ud; with U1 row-sharded, the tensor
+    sharded on mode 0 (each rank contracts its rows of U1)."""
+    view = from_dtensor(factors[0]) if is_dtensor(factors[0]) else None
     out = core
     for mode, u in enumerate(factors):
-        out = mode_dot(out, u, mode, precision)
+        out = mode_dot(out, view.local if view and mode == 0 else u, mode,
+                       precision)
+    if view is not None:
+        return row_dtensor(out, view.mesh, view.rows, view.shape[0])
     return out
 
 
@@ -175,21 +190,31 @@ def tucker_adaptive(
     (per-mode budget tol/sqrt(d), by the ST-HOSVD error split).
 
     One small spectrum fetch to the host per mode.  Returns ``(core,
-    factors, ranks)``."""
-    a = as_tensor(a)
-    d = a.ndim
+    factors, ranks)``.  A DTensor sharded on mode 0 is read block by
+    block (the module docstring)."""
+    a = _row_split(a)
+    d = len(a.shape)
     budget = float(tol) / math.sqrt(d)
     caps = tuple(rank_cap) if rank_cap is not None else a.shape
-    core = a
+    view = a if isinstance(a, Sharded) else None
+    core = a.local if view else a                  # this rank's block
+    shape = list(a.shape)                          # the whole core's
     factors = [None] * d
     for mode in _order(a.shape):
-        unf = _unfold(core, mode)
+        unf = (_split_unfold(view, core, mode) if view
+               else _unfold(core, mode))
         cap = int(min(caps[mode], min(unf.shape)))
         l = min(cap + p, min(unf.shape))
         q_mat, w, vecs, total = mode_spectrum(
             unf, seed + 7919 * mode, l, q)
         r = rank_for_budget(w, total, budget, cap)
         u, contracted = mode_contract(unf, q_mat, vecs, r)
-        factors[mode] = u
-        core = _fold(contracted, mode, core.shape)
+        factors[mode] = _to_api(u)
+        shape[mode] = r
+        if view and mode == 0:
+            view = None                            # contracted: replicated
+        elif view:
+            contracted = contracted.T.local.T      # this rank's columns
+        core = _fold(contracted, mode, shape if view is None
+                     else (core.shape[0],) + tuple(shape[1:]))
     return core, tuple(factors), tuple(f.shape[1] for f in factors)

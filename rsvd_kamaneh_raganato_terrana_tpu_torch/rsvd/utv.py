@@ -15,13 +15,15 @@ from __future__ import annotations
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
-from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
-    _as_operand,
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _like,
     _local,
-    _mm,
     _sharded_view,
     _to_api,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+    _as_operand,
+    _mm,
     generate_omega,
     subspace_iteration,
 )

@@ -304,7 +304,8 @@ def _pack(x):
 def _placed_as(x, layout):
     """``x`` (NumPy) placed by ``layout``: 'rows' (dim 0 over the 1-D
     mesh), 'cols' (dim 1 over it), 'batch' (dim 0 over a ('batch',)
-    mesh) or None (a tensor every rank holds whole; anything but an
+    mesh), 'ragged' (dim 0 over the 1-D mesh in DTensor's own uneven
+    split) or None (a tensor every rank holds whole; anything but an
     array stays as it is)."""
     from torch.distributed.tensor import Shard
 
@@ -315,6 +316,10 @@ def _placed_as(x, layout):
     t = _t(x)
     if layout == "batch":
         return cm.distribute(t, _mesh("batch"), (Shard(0),))
+    if layout == "ragged":
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(t, _mesh("rows"), (Shard(0),))
     return cm.distribute(t, _mesh("rows"), (Shard(0 if layout == "rows"
                                                     else 1),))
 
@@ -335,6 +340,66 @@ def task_call(fn, args=(), layouts=(), **kwargs):
     collectives.reset()
     out = func(*placed, **kwargs)
     return dict(out=_pack(out), tally=collectives.tally())
+
+
+def task_fit(cls, args=(), layouts=(), init=None, method=None, attrs=(),
+             then=()):
+    """The port's class ``cls`` ('module:Name' under the package), made
+    with the ``init`` keywords: without ``method`` made on ``args`` (as
+    ``PCA(data)``), else ``obj.method(*args)``; each of ``attrs`` read
+    (a method called without arguments), then each of ``then``'s
+    (method, args, layouts) called.  Placed as ``task_call`` places
+    them; the tally covers the making and ``method``."""
+    import importlib
+
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
+
+    module, name = cls.split(":")
+    klass = getattr(importlib.import_module(
+        "rsvd_kamaneh_raganato_terrana_tpu_torch." + module), name)
+
+    def placed(xs, lays):
+        lays = tuple(lays) + (None,) * (len(xs) - len(lays))
+        return [_placed_as(x, lay) for x, lay in zip(xs, lays)]
+
+    collectives.reset()
+    if method is None:
+        obj, out = klass(*placed(args, layouts), **(init or {})), None
+    else:
+        obj = klass(**(init or {}))
+        out = getattr(obj, method)(*placed(args, layouts))
+        out = None if out is obj else out
+    tally = collectives.tally()
+    got = {}
+    for attr in attrs:
+        value = getattr(obj, attr)
+        got[attr] = _pack(value() if callable(value) else value)
+    later = [_pack(getattr(obj, m)(*placed(xs, lays)))
+             for m, xs, lays in then]
+    return dict(out=_pack(out), attrs=got, then=later, tally=tally)
+
+
+def task_raises(fn, args=(), layouts=(), cls_init=None, cls_method=None,
+                **kwargs):
+    """The exception type and message the port's ``fn`` raises on
+    ``args`` placed by ``layouts`` ('ragged': rows over the 1-D mesh in
+    DTensor's own uneven split), or None; with ``cls_method``, ``fn`` is
+    a class made with the ``cls_init`` keywords and ``cls_method`` is
+    called on the placed args."""
+    import importlib
+
+    module, name = fn.split(":")
+    func = getattr(importlib.import_module(
+        "rsvd_kamaneh_raganato_terrana_tpu_torch." + module), name)
+    if cls_method is not None:
+        func = getattr(func(**(cls_init or {})), cls_method)
+    layouts = tuple(layouts) + (None,) * (len(args) - len(layouts))
+    try:
+        func(*(_placed_as(x, lay) for x, lay in zip(args, layouts)),
+             **kwargs)
+    except Exception as exc:  # noqa: BLE001 -- the result under test
+        return dict(type=type(exc).__name__, message=str(exc)[:200])
+    return None
 
 
 def task_fd(a, n_cols, l, batch):
