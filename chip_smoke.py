@@ -7,9 +7,10 @@ the tensor and hierarchical formats, GP, checkpoints and autodiff,
 sparse operands and retrieval, kernel PCA, spectral clustering, the
 sklearn estimators, out-of-core streaming, the distributed half (a
 one-rank NCCL group, four ranks sharing the card over gloo), the
-degenerate inputs of the JAX suite's edge cases and the factor
-checkpoint on ``torch.distributed.checkpoint`` on one CUDA card, and
-hold every kernel of those paths to its plain PyTorch version.
+degenerate inputs of the JAX suite's edge cases, the factor checkpoint
+on ``torch.distributed.checkpoint`` and the public API on row-sharded
+operands on one CUDA card, and hold every kernel of those paths to its
+plain PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py  [--kernels-only]
 
@@ -302,7 +303,33 @@ Phases (any failure raises; nothing is caught):
    P15B's cuts, each within 1e-4 of the single call on rank 0 (the
    iterative ones 1e-3), beside the single call's own shift when every
    float draw is multiplied by 1 + 1e-7 xi.
-16. A ``kernels`` JSON line, the card's name and power limit, and as the
+16. Row-sharded operands through the rest of the public API.  (a) A
+   one-rank NCCL group in this process, at P16A's sizes: ``qr_reduced``
+   of a 4096 x 80 panel by every method (K1 and K2 on the gathered
+   panel, K1's dR within 1e-5 of max |R|) and the ``cholesky_qr*`` /
+   ``orthonormal_basis`` functions; ``svd`` of a 65536 x 240 panel by
+   'eigh_pallas' (K3 at n = 240), 'eigh', 'jacobi', 'power' and 'xla',
+   ``power_svd`` and ``power_triplet``; ``subspace_iteration`` and
+   ``power_refine`` through K1, ``reconstruct`` and
+   ``reconstruction_error`` (4096^2); ``rsvd_serving`` int8 4096^2 with
+   ``factor_health`` and ``utv_rescore``; ``lanczos_tridiag`` (8192^2,
+   30 steps); the DEIM functions (phase 9's 65536 x 401 snapshots' basis,
+   'qdeim' and 'deim'); ``kernel_matrix`` (16384 points);
+   ``standard_pod`` and ``naive_pod`` (pod_h100's snapshots, phase 8's);
+   ``IncrementalSVD(method='eigh_pallas')`` over pod_h100's 32 batches
+   (K3 each update); ``hodlr_build``/``hodlr_matvec``/``hodlr_solve``
+   (phase 10's 16384, levels 5, k 24); the GP (32768 points, implicit:
+   fit and predict; its log-likelihood); ``spectral_cluster`` (16384
+   points, 8 blobs, and the median heuristic on 2); ``complete_tucker``
+   (256^3).  Each call bitwise the single call, but ``svd``'s 'power'
+   and 'xla' and the GP's log-likelihood, which compute differently by
+   design and are held within 1e-4 beside the single call's own shift
+   under a 1 + 1e-7 xi change of its draws and inputs; ms sharded and
+   single, rank 0's ms in the collectives, every K1-K3 launch held to
+   its plain version.  (b) Four spawned ranks sharing the card over
+   gloo at P16B's cuts, each within 1e-4 of the single call (1e-3 for
+   CG, Lanczos, k-means, the completion), or 10x that shift.
+17. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -2288,6 +2315,7 @@ def pod_h100():
     res, wall = timed(lambda: rom.run_pod_pipeline(pcfg, adv))
     peak_pipeline = torch.cuda.max_memory_allocated()
     s = res.snapshots
+    POD_H100_RUN.update(snapshots=s, n_mu=n_mu)      # for phase 16
     # numpy's SVDs of S run on the host while the card goes on
     pool = ThreadPoolExecutor(max_workers=2)
     svd_np = pool.submit(np.linalg.svd, s, full_matrices=False)
@@ -5809,13 +5837,16 @@ def p15_items(full):
     ]
 
 
-def p15_run(item, meshes, rank, one_rank, say):
+def p15_run(item, meshes, rank, one_rank, say, draws=P15_DRAWS,
+            tag="phase 15", vs_plain=P15_VS_PLAIN, jitter=False):
     """One item: the single call on rank 0 (the reference, and a warm
     start), the sharded call (its collectives, launches, and ms; every
-    K1-K4 launch recorded), the single call again (ms); on one rank the
-    sharded call bitwise the single one (CountSketch's within
-    P15_CS_TOL), on four within ``item.tol`` beside the single call's own
-    shift under perturbed draws.  Returns (launches, summary)."""
+    K1-K4 launch recorded and held to its plain version by ``vs_plain``),
+    the single call again (ms); on one rank the sharded call bitwise the
+    single one (an item not ``exact``: within P15_CS_TOL, beside the
+    single call's own shift under perturbed ``draws`` and, with
+    ``jitter``, float inputs), on four within ``item.tol`` beside that
+    shift.  Returns (launches, summary)."""
     ops = item.build()
     placed = item.place(ops, meshes)
     whole = item.place(ops, None)
@@ -5835,28 +5866,30 @@ def p15_run(item, meshes, rank, one_rank, say):
     check(all(n >= 1 for w, n in named.items() if w in item.kernels_run)
           and all(n == 0 for w, n in named.items()
                   if w not in item.kernels_run) and launches[4:] == (0, 0),
-          f"phase 15 {item.name}: launches {launches}")
+          f"{tag} {item.name}: launches {launches}")
     if rank == 0:
         out["kernel_calls_vs_plain"] = [
-            (w,) + P15_VS_PLAIN[w](*call) for w, rec in recs.items()
+            (w,) + vs_plain[w](*call) for w, rec in recs.items()
             for call in rec.calls]
         again, t_si = timed(lambda: item.call(whole))
         out["single_ms"] = 1e3 * t_si
         diffs = p13_compare(item.kinds, item.pick(got), item.pick(want))
         out["vs_single"] = diffs
         bars = {name: item.tol for name in diffs}
+        if not one_rank or not item.exact:
+            with p13_perturbed(draws):
+                moved = item.call(item.place(p16_jittered(ops), None)
+                                  if jitter else whole)
+            shift = p13_compare(item.kinds, item.pick(moved),
+                                item.pick(want))
+            out["single_vs_perturbed"] = shift
         if one_rank:
             out["bitwise"] = p13_bitwise(got, want)
             out["single_repeat_bitwise"] = p13_bitwise(again, want)
             check(out["bitwise"] if item.exact else p13_within(
                 diffs, P15_CS_TOL),
-                  f"phase 15 {item.name}: not the single call ({diffs})")
+                  f"{tag} {item.name}: not the single call ({diffs})")
         else:
-            with p13_perturbed(P15_DRAWS):
-                moved = item.call(whole)
-            shift = p13_compare(item.kinds, item.pick(moved),
-                                item.pick(want))
-            out["single_vs_perturbed"] = shift
             bars = {name: bar if isinstance(shift[name], bool) else max(
                 bar, P15_SHIFT_FACTOR * shift[name])
                 for name, bar in bars.items()}
@@ -5864,7 +5897,7 @@ def p15_run(item, meshes, rank, one_rank, say):
                   if t.is_floating_point()]
         check(finite(*floats) and all(
             v is True or (not isinstance(v, bool) and v <= bars[name])
-            for name, v in diffs.items()), f"phase 15 {item.name}: {out}")
+            for name, v in diffs.items()), f"{tag} {item.name}: {out}")
     say(f"  {item.name}: " + json.dumps(out))
     del ops, placed, whole, want, got
     torch.cuda.empty_cache()
@@ -5884,6 +5917,415 @@ def phase_sharded_api():
     out["s"] = time.perf_counter() - t0
     launches = [x + y for x, y in zip(la, lb)]
     log(f"  phase 15: {out['s']:.1f} s, launches {launches}")
+    return launches, out
+
+
+# --- phase 16: row-sharded operands through the rest of the public API ---
+
+P16_TIMEOUT = 420.0       # s: the four ranks' whole run
+P16_TOL = 1e-4            # (a) the by-design routes, (b): of the largest
+P16_ITER_TOL = 1e-3       # (b) CG, Lanczos, k-means, the completion sweeps
+P16_K1_DR = 1e-5          # K1 on a phase-16 QR panel: max |dR| / max |R|
+P16_QR_METHODS = ("robust", "robust1", "cholqr1", "cholqr2", "cholqr3",
+                  "householder", "polar", "cholqr1_fused", "polar_fused")
+# (a) sizes: phase 2's panel, a 65536 x 240 panel (K3 at n = 240), the
+# 4096^2 driver operand, an 8192^2 RBF kernel, phase 9's snapshots,
+# 16384 kernel-PCA points, pod_h100's snapshots, phase 10's HODLR and GP,
+# phase 11's blobs, complete_tucker's 256^3; (b) cuts them (the four
+# ranks share the card and gloo's host hops; PERF.md lists both)
+P16A = dict(panel=(4096, 80), tall=(65536, 240), side=M, lanczos=8192,
+            snaps=DMD_N, kmat=KPCA_N, hodlr=HODLR_N, gp=GP_N, cluster=CL_N,
+            tucker=CT_N)
+P16B = dict(panel=(4096, 80), tall=(16384, 120), side=2048, lanczos=4096,
+            snaps=16384, kmat=4096, pod=(1024, 32, 26), hodlr=4096, gp=4096,
+            cluster=4096, tucker=128)
+P16_LANCZOS_STEPS = 30
+P16_POWER_R = 16          # svd(method='power'): the leading triplets
+P16_SPAN = 16             # spans compared: the leading columns (svd)
+P16_POD_SPAN = 8          # (POD and the incremental SVD: their modes)
+# every float draw of the slice's modules, for the perturbed single call
+P16_DRAWS = (("rsvd.driver", "generate_omega"),
+             ("rsvd.hodlr", "generate_omega"),
+             ("linalg.power", "gaussian"), ("rsvd.slq", "rademacher"),
+             ("rsvd.tucker", "generate_omega"),
+             ("rsvd._modewise", "generate_omega"))
+# pod_h100's snapshots (nodes x 32 parameters x 101 steps, f64) and its
+# parameter count, kept by phase 8 for phase 16's POD calls
+POD_H100_RUN = {}
+
+
+def p16_k1_vs_plain(y, args, kwargs, out):
+    """Phase 2's K1 bounds, and max |dR| / max |R| within P16_K1_DR."""
+    shape, dq, dr = cholqr1_vs_plain(y, args, kwargs, out)
+    check(dr is None or dr <= P16_K1_DR,
+          f"K1 {shape} in phase 16: dR/R={dr}")
+    return shape, dq, dr
+
+
+def p16_k2_vs_plain(y, args, kwargs, out):
+    """Phase 15's K2 bounds, with max |dR| / max |R| reported."""
+    r0 = kernels.polar_qr_fused_reference(y, *args, **kwargs)[1]
+    dr = float((out[1] - r0).abs().max()) / float(r0.abs().max())
+    return p15_polar_vs_plain(y, args, kwargs, out) + (dr,)
+
+
+P16_VS_PLAIN = dict(P15_VS_PLAIN, fused_cholqr1=p16_k1_vs_plain,
+                    polar_qr_fused=p16_k2_vs_plain)
+
+
+def p16_panel(rows, cols, seed, decades=2.0):
+    """A rows x cols f32 panel of condition 10^decades (geometric
+    spectrum)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = torch.logspace(0.0, -decades, cols, device="cuda")
+    with device.ieee_fp32():
+        return (orthonormal(rows, cols, gen) * s) @ orthonormal(
+            cols, cols, gen).T
+
+
+def p16_tall(rows, cols, seed):
+    """A rows x cols f32 panel whose P16_SPAN leading singular values
+    fall from 1 to 0.5 and the rest from 0.1 to 0.01: the leading span
+    has a gap behind it.  An f32 SVD's singular vectors inside a dense
+    spectrum move by ~1e-4 with the route (the direct SVD against R's:
+    1.1e-4 at condition 100, 4.0e-4 at condition 10 on a geometric
+    spectrum), the span across a gap does not."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = torch.cat([torch.logspace(0.0, math.log10(0.5), P16_SPAN,
+                                  device="cuda"),
+                   torch.logspace(-1.0, -2.0, cols - P16_SPAN,
+                                  device="cuda")])
+    with device.ieee_fp32():
+        return (orthonormal(rows, cols, gen) * s) @ orthonormal(
+            cols, cols, gen).T
+
+
+def p16_pod_snapshots(full):
+    """(snapshots, parameter count): (a) pod_h100's (phase 8's run, or
+    the pipeline again when phase 8 did not run in this process), f64;
+    (b) P16B's nodes x parameters x steps of 12 decaying synthetic modes
+    (fewer than the POD rank of 20: a rank-20 truncation of more modes
+    leaves the f32 K3 incremental SVD's trailing directions, and with
+    them its leading span, to roundoff, on one card too)."""
+    if not full:
+        nodes, n_mu, steps = P16B["pod"]
+        gen = torch.Generator(device="cuda").manual_seed(40)
+        modes = orthonormal(nodes, 12, gen).double()
+        coeff = torch.randn(12, n_mu * steps, device="cuda", generator=gen,
+                            dtype=torch.float64) * 0.6 ** torch.arange(
+            12, device="cuda", dtype=torch.float64)[:, None]
+        return modes @ coeff, n_mu
+    if not POD_H100_RUN:
+        adv, pcfg = pod_configs(POD_H100)
+        POD_H100_RUN.update(snapshots=rom.run_pod_pipeline(
+            pcfg, adv).snapshots, n_mu=pcfg.n)
+        torch.cuda.empty_cache()
+    return (torch.from_numpy(POD_H100_RUN["snapshots"]).cuda(),
+            POD_H100_RUN["n_mu"])
+
+
+def p16_gp_data(n, dtype):
+    """Phase 10's GP data at n points (unsorted: fit sorts), its test
+    points, in ``dtype``."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0.0, 20.0, n)
+    y = np.sin(x) + 0.1 * np.cos(7.0 * x) + 0.05 * rng.standard_normal(n)
+    xt = np.linspace(0.5, 19.5, GP_TEST)
+    return tuple(torch.from_numpy(v).to("cuda", dtype) for v in (x, y, xt))
+
+
+def p16_blobs(n, k=CL_K):
+    """Phase 11's planted blobs at n points (``k`` of them)."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    centers = CL_SCALE * torch.randn(k, CL_D, device="cuda",
+                                     generator=gen)
+    truth = torch.arange(n, device="cuda") % k
+    return centers[truth] + torch.randn(n, CL_D, device="cuda",
+                                        generator=gen)
+
+
+def p16_items(full):
+    """Phase 16's calls: (a) ``full`` at P16A's sizes, (b) at P16B's."""
+    z = P16A if full else P16B
+    # (b) runs the kernel systems in f64: in f32 their CG stops on
+    # roundoff (at 4096 GP points the single call's own alpha moved by
+    # 3.2x under a 1e-7 change of its input), which leaves nothing to
+    # hold the sharded route to
+    kdtype = torch.float32 if full else torch.float64
+    qr_mod, svd_mod, power, slq, deim, hodlr, gp_mod, inc = (
+        p15_mod(m) for m in ("linalg.qr", "linalg.svd", "linalg.power",
+                             "rsvd.slq", "rsvd.deim", "rsvd.hodlr",
+                             "apps.gp", "linalg.incremental"))
+    utv = p15_mod("rsvd.utv")
+
+    def panel():                      # condition 10: CholeskyQR1's Q
+        return (p16_panel(*z["panel"], 60, 1.0),)   # keeps 1e-5 on f32
+
+    def tall():
+        return (p16_tall(*z["tall"], 62),)
+
+    def side_a():
+        return (p15_decaying(z["side"], 0.97, 50),)
+
+    def omega_ops():
+        a = side_a()[0]
+        return a, driver.generate_omega(0, z["side"], K + P, a.dtype,
+                                        device="cuda")
+
+    def refine_ops():
+        a, om = omega_ops()
+        return a, driver.subspace_iteration(a, om, 0)
+
+    def factor_ops():
+        a = side_a()[0]
+        return (a,) + tuple(rsvd(a, k=K, method="eigh"))
+
+    def lanczos_ops():
+        gen = torch.Generator(device="cuda").manual_seed(62)
+        return (rbf_kernel(z["lanczos"], NYS_DIM, NYS_H, seed=11),
+                torch.randn(z["lanczos"], device="cuda", generator=gen))
+
+    def deim_basis():
+        return (rsvd(p13_snapshots(z["snaps"]), k=P13_DEIM_M, q=1,
+                     method="eigh")[0],)
+
+    def deim_call(method):
+        def call(ops):
+            idx = deim.deim_indices(ops[0], method)
+            return (idx, deim.deim_projector(ops[0], idx),
+                    deim.deim_condition(ops[0], idx))
+        return call
+
+    def kmat_ops():
+        x = kpca_points(z["kmat"], torch.Generator(
+            device="cuda").manual_seed(21))
+        return x, x
+
+    def pod_call(name):
+        def call(ops):
+            res = getattr(pod, name)(ops[0], rank=POD_H100["pod"]["rank"],
+                                     svd_type=POD_H100["pod"]["svd_type"])
+            return res.modes, res.sigma
+        return call
+
+    def pod_batches():
+        s, n_mu = p16_pod_snapshots(full)
+        k = s.shape[1] // n_mu
+        return tuple(s[:, i * k:(i + 1) * k].float() for i in range(n_mu))
+
+    def inc_call(ops):
+        acc = inc.IncrementalSVD(rank=POD_H100["pod"]["rank"],
+                                 method="eigh_pallas")
+        for b in ops:
+            acc.update(b)
+        return acc.factors()
+
+    def hodlr_ops():
+        gen = torch.Generator(device="cuda").manual_seed(63)
+        x = rbf_points(z["hodlr"], gen)
+        k = torch.exp(-0.5 * (x[:, None] - x[None, :]) ** 2 / 0.04) \
+            + GP_NOISE ** 2 * torch.eye(z["hodlr"], device="cuda",
+                                        dtype=torch.float64)
+        return (k.to(kdtype), torch.randn(z["hodlr"], device="cuda",
+                                          generator=gen, dtype=kdtype),
+                (torch.sin(x) + 0.1 * torch.cos(7.0 * x)).to(kdtype))
+
+    def hodlr_call(ops):
+        h = hodlr.hodlr_build(ops[0], levels=HODLR_LEVELS, k=HODLR_K)
+        x, steps = hodlr.hodlr_solve(h, ops[2], return_steps=True)
+        return hodlr.hodlr_matvec(h, ops[1]), x, steps
+
+    def gp_make():
+        return gp_mod.GP(noise=GP_NOISE, levels=GP_LEVELS, rank=GP_RANK,
+                         implicit_threshold=1)
+
+    def gp_call(ops):
+        g = gp_make().fit(ops[0], ops[1])
+        mean, var = g.predict(ops[2], return_var=True)
+        return g.alpha_, mean, var
+
+    def gp_lml(ops):
+        g = gp_make().fit(ops[0], ops[1])
+        return torch.tensor(g.log_marginal_likelihood(num_probes=8,
+                                                      steps=30))
+
+    def cluster_call(gamma, k=CL_K):
+        def call(ops):
+            r = cluster.spectral_cluster(ops[0], k, gamma=gamma)
+            return r.labels, r.embedding, r.centers, r.inertia
+        return call
+
+    def tucker_ops():
+        gen = torch.Generator(device="cuda").manual_seed(64)
+        n, r = z["tucker"], CT_R
+        t = tucker_reconstruct(torch.randn(r, r, r, device="cuda",
+                                           generator=gen),
+                               [orthonormal(n, r, gen) for _ in range(3)])
+        mask = torch.rand(t.shape, device="cuda", generator=gen) < CT_FRAC
+        return torch.where(mask, t, torch.zeros((), device="cuda")), mask
+
+    def qr_item(method):
+        run = {"cholqr1_fused": ("fused_cholqr1",),
+               "polar_fused": ("polar_qr_fused",)}.get(method, ())
+        return P15Item(f"qr_{method}", panel,
+                       lambda ops: qr_mod.qr_reduced(ops[0], method),
+                       lambda r: dict(q=r[0], r=r[1]),
+                       dict(q="value", r="value"), place=p15_rows(True),
+                       kernels_run=run)
+
+    def svd_item(method, exact=True):
+        r = P16_POWER_R if method == "power" else 0
+        run = ("eigh_small",) if method == "eigh_pallas" else ()
+        return P15Item(f"svd_{method}", tall,
+                       lambda ops: svd_mod.svd(ops[0], method, r),
+                       lambda r_: dict(s=r_[1], u=r_[0][:, :P16_SPAN]),
+                       dict(s="sigma", u="span"), place=p15_rows(True),
+                       kernels_run=run, exact=exact)
+
+    iter_tol = P16_TOL if full else P16_ITER_TOL
+    return [qr_item(m) for m in P16_QR_METHODS] + [
+        P15Item("cholesky_qr_family", panel,
+                lambda ops: (qr_mod.cholesky_qr(ops[0])[0],
+                             qr_mod.cholesky_qr2(ops[0])[0],
+                             qr_mod.cholesky_qr3(ops[0])[0],
+                             qr_mod.orthonormal_basis(ops[0])),
+                lambda r: dict(q1=r[0], q2=r[1], q3=r[2], qb=r[3]),
+                dict(q1="value", q2="value", q3="value", qb="value"),
+                place=p15_rows(True)),
+        svd_item("eigh_pallas"), svd_item("eigh"), svd_item("jacobi"),
+        svd_item("power", exact=False), svd_item("xla", exact=False),
+        P15Item("power_svd", tall,      # (b): gloo's ~7 ms all-reduces
+                lambda ops: power.power_svd(ops[0], k=8 if full else 2),
+                lambda r: dict(s=r[1], u=r[0]), dict(s="sigma", u="span"),
+                place=p15_rows(True), tol=iter_tol),
+        P15Item("power_triplet", lambda: tall() + (torch.ones(
+                    z["tall"][1], device="cuda"),),
+                lambda ops: power.power_triplet(ops[0], ops[1], 200),
+                lambda r: dict(s=r[0], u=r[1][:, None]),
+                dict(s="sigma", u="span"), place=p15_rows(True, False),
+                tol=iter_tol),
+        P15Item("subspace_iteration_k1", omega_ops,
+                lambda ops: driver.subspace_iteration(
+                    ops[0], ops[1], Q, qr_method="cholqr1_fused"),
+                lambda r: dict(q=r), dict(q="span"),
+                place=p15_rows(True, False), kernels_run=("fused_cholqr1",)),
+        P15Item("power_refine_k1", refine_ops,
+                lambda ops: driver.power_refine(ops[0], ops[1], Q,
+                                                qr_method="cholqr1_fused"),
+                lambda r: dict(q=r), dict(q="span"),
+                place=p15_rows(True, True), kernels_run=("fused_cholqr1",)),
+        P15Item("reconstruct_and_error", factor_ops,
+                lambda ops: (driver.reconstruct(*ops[1:]),
+                             driver.reconstruction_error(*ops)),
+                lambda r: dict(a_k=r[0], err=r[1]),
+                dict(a_k="value", err="value"),
+                place=p15_rows(True, True, False, False)),
+        P15Item("serving_health_rescore", side_a,
+                lambda ops: (lambda r: r[:3] + tuple(utv.utv_rescore(
+                    *r[:3])) + (torch.tensor([r[3][k] for k in (
+                        "u_col_err", "v_orth_err", "s_min")]),))(
+                    rsvd_serving(ops[0], k=K)),
+                lambda r: dict(s=r[1], sigma=r[4], u=r[3], health=r[6]),
+                dict(s="sigma", sigma="sigma", u="span", health="value"),
+                place=p15_rows(True)),
+        P15Item("lanczos_tridiag", lanczos_ops,
+                lambda ops: slq.lanczos_tridiag(ops[0], ops[1],
+                                                P16_LANCZOS_STEPS),
+                lambda r: dict(alpha=r[0], beta=r[1]),
+                dict(alpha="value", beta="value"),
+                place=p15_rows(True, True), tol=iter_tol),
+        P15Item("deim_qdeim", deim_basis, deim_call("qdeim"),
+                lambda r: dict(idx=r[0], proj=r[1], cond=r[2]),
+                dict(idx="index", proj="value", cond="value"),
+                place=p15_rows(True)),
+        P15Item("deim_classic", deim_basis, deim_call("deim"),
+                lambda r: dict(idx=r[0], proj=r[1], cond=r[2]),
+                dict(idx="index", proj="value", cond="value"),
+                place=p15_rows(True)),
+        P15Item("kernel_matrix", kmat_ops,
+                lambda ops: kpca.kernel_matrix(ops[0], ops[1]),
+                lambda r: dict(k=r), dict(k="value"),
+                place=p15_rows(True, False)),
+        P15Item("standard_pod", lambda: (p16_pod_snapshots(full)[0],),
+                pod_call("standard_pod"),
+                lambda r: dict(sigma=r[1], w=r[0][:, :P16_POD_SPAN]),
+                dict(sigma="sigma", w="span"), place=p15_rows(True)),
+        P15Item("naive_pod", lambda: (p16_pod_snapshots(full)[0],),
+                pod_call("naive_pod"),
+                lambda r: dict(sigma=r[1], w=r[0][:, :P16_POD_SPAN]),
+                dict(sigma="sigma", w="span"), place=p15_rows(True)),
+        P15Item("incremental_svd_k3", pod_batches, inc_call,
+                lambda r: dict(s=r[1], u=r[0][:, :P16_POD_SPAN]),
+                dict(s="sigma", u="span"),
+                place=lambda ops, meshes: tuple(
+                    shard_rows(b, meshes["rows"]) for b in ops)
+                if meshes else ops, kernels_run=("eigh_small",)),
+        P15Item("hodlr_build_solve", hodlr_ops, hodlr_call,
+                # the CG steps: on one rank bitwise with the rest of the
+                # result; on four f32 CG may stop a step apart
+                lambda r: dict(y=r[0], x=r[1]), dict(y="value", x="value"),
+                place=p15_rows(True, True, True), tol=iter_tol),
+        P15Item("gp_fit_predict",
+                lambda: p16_gp_data(z["gp"], kdtype), gp_call,
+                lambda r: dict(alpha=r[0], mean=r[1], var=r[2]),
+                dict(alpha="value", mean="value", var="value"),
+                place=p15_rows(True, True, False), tol=iter_tol),
+        P15Item("gp_lml", lambda: p16_gp_data(z["gp"], kdtype), gp_lml,
+                lambda r: dict(lml=r), dict(lml="value"),
+                place=p15_rows(True, True, False), exact=False,
+                tol=iter_tol),
+        P15Item("spectral_cluster", lambda: (p16_blobs(z["cluster"]),),
+                cluster_call(CL_GAMMA),
+                lambda r: dict(labels=r[0], z=r[1], inertia=r[3]),
+                dict(labels="index", z="span", inertia="value"),
+                place=p15_rows(True), tol=iter_tol),
+        # the median heuristic's gamma (two blobs: its wide kernel leaves
+        # eight blobs' k-means labels to roundoff, on one card too)
+        P15Item("spectral_cluster_median",
+                lambda: (p16_blobs(z["cluster"], 2),), cluster_call(None, 2),
+                lambda r: dict(labels=r[0], z=r[1], inertia=r[3]),
+                dict(labels="index", z="span", inertia="value"),
+                place=p15_rows(True), tol=iter_tol),
+        P15Item("complete_tucker", tucker_ops,
+                lambda ops: complete_tucker(ops[0], ops[1], (CT_R,) * 3,
+                                            iters=CT_ITERS),
+                lambda r: dict(rmse=r[2], u0=r[1][0]),
+                dict(rmse="value", u0="span"),
+                place=p15_rows(True, True), tol=iter_tol),
+    ]
+
+
+def p16_jittered(ops):
+    """The float tensors of ``ops`` times (1 + 1e-7 xi), xi Gaussian: a
+    call with no draws (a QR, an SVD, the incremental SVD) moves under
+    this roundoff-level change of its input as far as its conditioning
+    lets it."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    return tuple(x * (1.0 + P13_PERTURB * torch.randn(
+        x.shape, device=x.device, dtype=x.dtype, generator=gen))
+        if torch.is_tensor(x) and x.is_floating_point() else x
+        for x in ops)
+
+
+P16_RUN = functools.partial(p15_run, draws=P16_DRAWS, tag="phase 16",
+                            vs_plain=P16_VS_PLAIN, jitter=True)
+
+
+def phase_sharded_rest():
+    """Phase 16: row-sharded operands through the rest of the public API.
+    Returns ((K1, K2, K3, K4, K5a, K5b) launches of its counted runs,
+    summary)."""
+    t0 = time.perf_counter()
+    out = {}
+    la, out["nccl_one_rank"] = p13_one_rank_nccl(p16_items, P16_RUN)
+    out["a_s"] = time.perf_counter() - t0
+    lb, out["gloo_four_ranks"] = p13_four_ranks(
+        p16_items, P16_RUN, "phase 16", P16_TIMEOUT, P16B)
+    out["s"] = time.perf_counter() - t0
+    launches = [x + y for x, y in zip(la, lb)]
+    out["launches_k1_to_k5b"] = launches
+    log(f"  phase 16: {out['s']:.1f} s ((a) {out['a_s']:.1f} s), "
+        f"launches {launches}")
     return launches, out
 
 
@@ -6363,6 +6805,12 @@ def main(argv):
     api_launches, api_summary = phase_sharded_api()
     launches_total = [t + c for t, c in zip(launches_total, api_launches)]
 
+    phase("phase 16: row-sharded operands through the rest of the public "
+          "API (one-rank NCCL group; four ranks sharing the card over "
+          "gloo)")
+    rest_launches, rest_summary = phase_sharded_rest()
+    launches_total = [t + c for t, c in zip(launches_total, rest_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -6404,7 +6852,8 @@ def main(argv):
         "extensions": ext_summary, "formats": fmt_summary,
         "apps_streaming": app_summary, "distributed": dist_summary,
         "sharded_extensions": ext_sh_summary,
-        "edge_and_checkpoint": edge_summary, "sharded_api": api_summary}
+        "edge_and_checkpoint": edge_summary, "sharded_api": api_summary,
+        "sharded_rest": rest_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

@@ -35,6 +35,19 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import key_from_seed
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    row_dtensor,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _argmax,
+    _local,
+    _reduce,
+    _row_split,
+    _sharded_view,
+    _take_rows,
+    _transpose,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.nystrom import reigh
 
 
@@ -104,12 +117,17 @@ def _first_center(seed, n: int, device):
     return torch.randint(0, n, (), generator=key, device=key.device)
 
 
-def _kmeans(z, k: int, iters: int, seed: int):
+def _kmeans(zs, k: int, iters: int, seed: int):
     """Lloyd's iterations after greedy farthest-point initialization:
-    deterministic given (data, seed).  No host sync."""
-    n = z.shape[0]
+    deterministic given (data, seed).  No host sync.  A row-split ``zs``
+    (:class:`Sharded`) keeps its points and labels on their ranks: the
+    farthest point is a global argmax, the chosen points come from the
+    ranks that hold them, and each Lloyd step's centroid sums and counts
+    are all-reduced."""
+    z = _local(zs)
+    n = zs.shape[0]
     centers = torch.zeros((k, z.shape[1]), dtype=z.dtype, device=z.device)
-    centers[0] = z[_first_center(seed, n, z.device)]
+    centers[0] = _take_rows(zs, _first_center(seed, n, z.device)[None])[0]
     ar = torch.arange(k, device=z.device)
     inf = torch.tensor(float("inf"), dtype=z.dtype, device=z.device)
     for i in range(k - 1):
@@ -117,19 +135,20 @@ def _kmeans(z, k: int, iters: int, seed: int):
                            dim=-1)                         # (n, k)
         chosen = (ar <= i)[None, :]
         dmin = torch.amin(torch.where(chosen, d2_all, inf), dim=1)
-        centers[i + 1] = z[torch.argmax(dmin)]
-    labels = torch.zeros((n,), dtype=torch.int32, device=z.device)
+        centers[i + 1] = _take_rows(zs, _argmax(dmin, zs)[None])[0]
+    labels = torch.zeros((z.shape[0],), dtype=torch.int32, device=z.device)
     for _ in range(iters):
         d2 = torch.sum((z[:, None, :] - centers[None, :, :]) ** 2, dim=-1)
         labels = torch.argmin(d2, dim=1).to(torch.int32)
         one_hot = torch.nn.functional.one_hot(
             labels.long(), k).to(z.dtype)
-        hits = torch.sum(one_hot, dim=0)
+        hits = _reduce(torch.sum(one_hot, dim=0), zs)
         counts = torch.clamp(hits, min=1.0)
-        new_centers = matmul_at(one_hot.T, z, DOT_PRECISION) / counts[:, None]
+        new_centers = _reduce(matmul_at(one_hot.T, z, DOT_PRECISION),
+                              zs) / counts[:, None]
         # keep empty clusters where they were
         centers = torch.where((hits > 0)[:, None], new_centers, centers)
-    inertia = torch.sum((z - centers[labels.long()]) ** 2)
+    inertia = _reduce(torch.sum((z - centers[labels.long()]) ** 2), zs)
     return labels, centers, inertia
 
 
@@ -157,13 +176,30 @@ def spectral_cluster(
     one can be 1 - O(1/n^2) away), so 'auto' takes the exact eigh up to
     n = 2048 and the randomized ``reigh`` above; force 'exact' for
     elongated chains.  A tensor stays on its device; any other array
-    goes to ``device`` (the card unless named)."""
+    goes to ``device`` (the card unless named).
+
+    A DTensor whose rows are sharded is read by its rows (points or the
+    precomputed affinity): each rank builds its rows of W against the
+    points gathered once (n x d, as kernel PCA gathers them), the median
+    heuristic selects its two middle distances over the ranks
+    (:func:`_median_split`), the knn graph reads W^T by one all-to-all,
+    the degrees are gathered (n values), and the randomized ``reigh``
+    runs on the row-split operator; 'auto' takes it at every n, since
+    the exact eigh would need the n x n operator whole, and 'exact'
+    refuses.  k-means keeps the embedding's rows on their ranks
+    (:func:`_kmeans`).  The labels and the embedding come back
+    row-sharded, equal to the single call's with
+    ``eig_solver='randomized'``."""
+    x = _row_split(points_or_affinity, device)
+    if isinstance(x, Sharded):
+        return _spectral_split(x, n_clusters, affinity, gamma, n_neighbors,
+                               kmeans_iters, eig_solver, seed)
     if affinity == "rbf":
-        w = rbf_affinity(points_or_affinity, gamma, device)
+        w = rbf_affinity(x, gamma, device)
     elif affinity == "knn":
-        w = knn_affinity(points_or_affinity, n_neighbors, device)
+        w = knn_affinity(x, n_neighbors, device)
     elif affinity == "precomputed":
-        w = as_tensor(points_or_affinity, device)
+        w = x
     else:
         raise ValueError(f"unknown affinity {affinity!r}")
     d = torch.clamp(torch.sum(w, dim=1), min=1e-12)
@@ -193,3 +229,71 @@ def spectral_cluster(
                         min=1e-12)
     labels, centers, inertia = _kmeans(z, n_clusters, kmeans_iters, seed)
     return ClusterResult(labels, z, centers, inertia)
+
+
+def _median_split(t, x, count: int):
+    """``_median`` of the non-negative values spread over the ranks (this
+    rank's ``t``, ``count`` of them in all), never gathered: each middle
+    value is selected by its bit pattern, high bit first, a counted
+    all-reduce of the ranks' counts a bit (non-negative floats order as
+    their patterns), so the median is the single call's to the bit."""
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}[t.dtype]
+    bits = (t.flatten() + 0.0).view(ints)             # -0.0 -> +0.0
+    want = torch.tensor([(count - 1) // 2, count // 2], device=t.device)
+    ans = torch.zeros(2, dtype=ints, device=t.device)
+    for b in reversed(range(bits.element_size() * 8 - 1)):
+        cand = ans + (1 << b)
+        below = _reduce(torch.sum(bits[None, :] < cand[:, None], dim=1), x)
+        ans = torch.where(below <= want, cand, ans)
+    lo, hi = ans.view(t.dtype)
+    return lo if count % 2 else 0.5 * lo + 0.5 * hi
+
+
+def _spectral_split(x, n_clusters, affinity, gamma, n_neighbors,
+                    kmeans_iters, eig_solver, seed):
+    """:func:`spectral_cluster` of a row-split ``x`` (its docstring)."""
+    n, rows = x.shape[0], x.local.shape[0]
+    mine = torch.arange(rows, device=x.device)
+    diag = (mine[:, None] + x.row_start
+            == torch.arange(n, device=x.device)[None, :])   # this rank's I
+    if affinity in ("rbf", "knn"):
+        pts = x.gather()
+        sq = torch.sum(pts * pts, dim=1)
+        d2 = (torch.sum(x.local * x.local, dim=1)[:, None] + sq[None, :]
+              - 2.0 * matmul_at(x.local, pts.T, DOT_PRECISION))
+    if affinity == "rbf":
+        d2 = torch.clamp(d2, min=0.0)
+        if gamma is None:
+            med = _median_split(torch.sqrt(d2[~diag]), x, n * (n - 1))
+            gamma = 1.0 / (2.0 * torch.clamp(med, min=1e-12) ** 2)
+        w = torch.exp(-gamma * d2) * (1.0 - diag.to(d2.dtype))
+    elif affinity == "knn":
+        d2 = torch.where(diag, torch.full_like(d2, float("inf")), d2)
+        _, idx = torch.topk(-d2, min(n_neighbors, n - 1))
+        w = torch.zeros_like(d2)
+        w.scatter_(1, idx, 1.0)
+        w = torch.maximum(w, _transpose(x.with_local(w)).local)
+    elif affinity == "precomputed":
+        w = x.local
+    else:
+        raise ValueError(f"unknown affinity {affinity!r}")
+    d_isqrt = 1.0 / torch.sqrt(torch.clamp(torch.sum(w, dim=1), min=1e-12))
+    d_all = x.with_local(d_isqrt[:, None]).gather()[:, 0]
+    m = w * d_isqrt[:, None] * d_all[None, :]
+    if eig_solver == "exact":
+        raise ValueError("spectral_cluster of a row-sharded operand takes "
+                         "the randomized eigensolver: the exact eigh "
+                         "needs the n x n operator whole")
+    if eig_solver not in ("auto", "randomized"):
+        raise ValueError(f"unknown eig_solver {eig_solver!r}")
+    lam, u = reigh(x.with_local(m + diag.to(m.dtype)), k=n_clusters, q=4,
+                   seed=seed)
+    u = _sharded_view(u)
+    lam = lam - 1.0
+    order = torch.argsort(-lam, stable=True)
+    u = u.local[:, order]
+    z = x.with_local(u / torch.clamp(
+        torch.linalg.norm(u, dim=1, keepdim=True), min=1e-12))
+    labels, centers, inertia = _kmeans(z, n_clusters, kmeans_iters, seed)
+    return ClusterResult(row_dtensor(labels, z.mesh, z.rows, n),
+                         z.to_dtensor(), centers, inertia)

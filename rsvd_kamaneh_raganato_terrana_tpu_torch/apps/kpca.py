@@ -90,13 +90,16 @@ def _check_kernel(kernel):
 def kernel_matrix(x, y, kernel: str = "rbf", gamma: Optional[float] = None,
                   degree: int = 3, coef0: float = 1.0, device=None):
     """K[i, j] = k(x_i, y_j) for the rows of x (n x d) and y (m x d), on
-    x's device (``device`` for a non-tensor x; the card unless named)."""
+    x's device (``device`` for a non-tensor x; the card unless named).
+    A row-sharded x gives K's rows row-sharded alike, each rank's rows
+    against the whole y (a row-sharded y is gathered once, m x d)."""
     _check_kernel(kernel)
-    x = as_tensor(x, device)
-    y = as_tensor(y, x.device, x.dtype)
+    x = _row_split(x, device)
+    y = _whole(_row_split(y, _local(x).device, x.dtype))
     if gamma is None:
         gamma = 1.0 / x.shape[1]
-    return _kernel(x, y, kernel, gamma, degree, coef0)
+    return _to_api(_like(x, _kernel(_local(x), y, kernel, gamma, degree,
+                                    coef0)))
 
 
 def _finish(w, v, kc):

@@ -21,6 +21,10 @@ functions, all returning modes W and singular values sigma:
 ``core/device.py::eigh``; every product runs at full precision.  The
 snapshots stay on their device (a tensor's own; any other array goes to
 the card).  ``_energy_truncate`` reads sigma on the host: one sync a POD.
+
+``perform_svd``, ``naive_pod`` and ``standard_pod`` take snapshots
+sharded by nodes (a DTensor whose rows are sharded): the modes come back
+row-sharded, sigma replicated.
 """
 
 from __future__ import annotations
@@ -43,7 +47,18 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
     svd as full_svd,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
+    DOT_PRECISION,
     matmul as _mm,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _cols,
+    _like,
+    _local,
+    _row_split,
+    _sharded_view,
+    _t_mm_split,
+    _to_api,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import rsvd
 
@@ -109,30 +124,44 @@ def _modes_from_gram(s, v, lam):
 
 
 def naive_pod(s, rank: int, svd_type: int = 1, tol: float = 0.0) -> POD:
-    """SVD of S directly (reference naive_POD, POD.cpp:116-133)."""
-    s = as_tensor(s)
+    """SVD of S directly (reference naive_POD, POD.cpp:116-133).  Snapshots
+    sharded by nodes (a DTensor whose rows are sharded) go through the
+    sharded ``svd`` or ``rsvd``; the modes come back row-sharded."""
+    s = _row_split(s)
     u, sig, _ = perform_svd(s, svd_type, rank if svd_type >= 3 else 0)
+    u = _sharded_view(u)
     r = min(rank, u.shape[1])
     if tol > 0:
         r = min(r, _energy_truncate(sig, tol, rank))
-    return POD(u[:, :rank], sig[:rank], r, "naive")
+    return POD(_to_api(_cols(u, slice(None, rank))), sig[:rank], r, "naive")
 
 
 def standard_pod(s, rank: int, tol: float = 1e-12, svd_type: int = 1) -> POD:
-    """Quarteroni Alg. 6.1 (reference standard_POD, POD.cpp:153-220)."""
-    s = as_tensor(s)
+    """Quarteroni Alg. 6.1 (reference standard_POD, POD.cpp:153-220).
+    Snapshots sharded by nodes take the ns x ns route: C = S^T S from the
+    all-reduced local products, its SVD replicated, W = S V / sigma on
+    each rank's rows (row-sharded); the nh x nh route (ns > nh) would
+    need every rank's S and refuses them."""
+    s = _row_split(s)
     nh, ns = s.shape
+    if isinstance(s, Sharded) and ns > nh:
+        raise ValueError("standard_pod of snapshots sharded by nodes takes "
+                         f"ns <= nh (got {ns} > {nh}): the nh x nh route "
+                         "reads every rank's snapshots")
     if ns <= nh:
-        c = _mm(s.T, s)                                   # ns x ns
+        c = (_t_mm_split(s, s, DOT_PRECISION) if isinstance(s, Sharded)
+             else _mm(s.T, s))                            # ns x ns
         v, lam, _ = perform_svd(c, svd_type, rank if svd_type >= 3 else 0)
-        w, sig = _modes_from_gram(s, v, lam)
+        w, sig = _modes_from_gram(_local(s), v, lam)
+        w = _to_api(_like(s, w))
     else:
         k = _mm(s, s.T)                                   # nh x nh
         w, lam, _ = perform_svd(k, svd_type, rank if svd_type >= 3 else 0)
         sig = torch.sqrt(torch.clamp(lam, min=0.0))
     r = _energy_truncate(sig, tol, rank)
     keep = min(rank, w.shape[1])
-    return POD(w[:, :keep], sig[:keep], r, "standard")
+    return POD(_to_api(_cols(_sharded_view(w), slice(None, keep))),
+               sig[:keep], r, "standard")
 
 
 def _spd_sqrt(xh):

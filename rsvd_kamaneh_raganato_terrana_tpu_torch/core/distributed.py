@@ -23,6 +23,7 @@ One process and no launcher: the same API with nothing to do.
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 from typing import NamedTuple, Optional
@@ -305,3 +306,47 @@ def from_dtensor(x: "DTensor", local=None) -> Sharded:
                              f"{axis.size} ranks")
     return Sharded(x.to_local() if local is None else local,
                    tuple(x.shape), mesh, rows, cols)
+
+
+def row_view(x):
+    """A DTensor whose rows are sharded (columns whole) as its
+    :class:`Sharded` view; anything else as it is.  A column split
+    raises, and so does a row count that does not divide the ranks."""
+    if not is_dtensor(x):
+        return x
+    view = from_dtensor(x)
+    if view.cols is not None:
+        raise ValueError("this function takes an operand whose rows are "
+                         f"sharded, not its columns (placements "
+                         f"{x.placements})")
+    return view
+
+
+def _api_results(x):
+    """A result with every :class:`Sharded` in it (tuples walked) as its
+    row-sharded DTensor."""
+    if isinstance(x, Sharded):
+        return x.to_dtensor()
+    if isinstance(x, tuple):
+        items = [_api_results(v) for v in x]
+        return type(x)._make(items) if hasattr(x, "_fields") \
+            else tuple(items)
+    return x
+
+
+def row_sharded_api(fn):
+    """``fn``, written for :class:`Sharded` views, at the API: where an
+    argument is a row-sharded DTensor, every DTensor argument is read as
+    its view (:func:`row_view`) and every :class:`Sharded` result goes
+    back as its row-sharded DTensor; other calls (internal ones passing
+    views among them) go to ``fn`` as they are."""
+
+    @functools.wraps(fn)
+    def api(*args, **kwargs):
+        if not any(is_dtensor(v) for v in args + tuple(kwargs.values())):
+            return fn(*args, **kwargs)
+        return _api_results(fn(*(row_view(v) for v in args),
+                               **{k: row_view(v)
+                                  for k, v in kwargs.items()}))
+
+    return api

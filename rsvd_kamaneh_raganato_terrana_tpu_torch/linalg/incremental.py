@@ -22,12 +22,18 @@ import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core import device as _device
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    is_dtensor,
+    row_view,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import (
     SVDMethod,
     svd as small_svd,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
+    DOT_PRECISION,
     matmul as _mm,
 )
 
@@ -49,19 +55,42 @@ def svd_append_columns(
         [A | C] = [U Q_h] K [[V, 0], [0, I]]^T,
         K = [[diag(s), L], [0, R_h]]  ((r+c) x (r+c), small),
     so one small dense SVD of K rotates the bases.
+
+    U may be a DTensor whose rows are sharded, C row-sharded alike (or
+    whole: each rank keeps its rows): the products with U and C's rows
+    are all-reduced, the residual's QR goes by rows (``qr_reduced`` of
+    a row split), K's SVD runs replicated, and U' comes back
+    row-sharded.
     """
-    u = as_tensor(u)
-    s = as_tensor(s, u.device)
-    v = as_tensor(v, u.device)
-    c = as_tensor(c, u.device, u.dtype)
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+        _like,
+        _local,
+        _t_mm_split,
+    )
+
+    def tmm(x, y):                          # X^T Y, replicated
+        return _t_mm_split(x, y, DOT_PRECISION) if isinstance(x, Sharded) \
+            else _mm(x.T, y)
+
+    api = is_dtensor(u)
+    u = row_view(u) if api else as_tensor(u)
+    dev = _local(u).device
+    s = as_tensor(s, dev)
+    v = as_tensor(v, dev)
+    c = row_view(c)
+    if isinstance(u, Sharded) and not isinstance(c, Sharded):
+        c = u.with_local(as_tensor(c, dev, u.dtype)[
+            u.row_start:u.row_start + u.local.shape[0]])
+    elif not isinstance(c, Sharded):
+        c = as_tensor(c, dev, u.dtype)
     r = u.shape[1]
     cc = c.shape[1]
 
-    l = _mm(u.T, c)                        # r x c
-    h = c - _mm(u, l)                      # residual, m x c
+    l = tmm(u, c)                                            # r x c
+    h = _like(c, _local(c) - _mm(_local(u), l))              # m x c
     q_h, r_h = qr_reduced(h, "robust")     # m x c, c x c
 
-    k = u.new_zeros((r + cc, r + cc))
+    k = s.new_zeros((r + cc, r + cc))
     k[:r, :r] = torch.diag(s)
     k[:r, r:] = l
     k[r:, r:] = r_h
@@ -72,8 +101,8 @@ def svd_append_columns(
     # that and would inflate the spectrum; correct on the small side with
     # Gram square roots:
     #   [A|C] = (W Gw^-1/2) (Gw^1/2 K Gm^1/2) (M Gm^-1/2)^T.
-    w = torch.cat([u, q_h], dim=1)                           # m x (r+c)
-    gw = _mm(w.T, w)
+    w = _like(u, torch.cat([_local(u), _local(q_h)], dim=1))  # m x (r+c)
+    gw = tmm(w, w)
     gm = torch.zeros_like(k)
     gm[:r, :r] = _mm(v.T, v)
     gm[r:, r:] = torch.eye(cc, dtype=k.dtype, device=k.device)
@@ -85,13 +114,14 @@ def svd_append_columns(
     uk = _mm(gw_ih, uk)
     vk = _mm(gm_ih, vk)
 
-    u_new = _mm(w, uk)                                       # m x (r+c)
+    u_new = _mm(_local(w), uk)                               # m x (r+c)
     v_top = _mm(v, vk[:r, :])                                # n x (r+c)
     v_new = torch.cat([v_top, vk[r:, :]], dim=0)
 
     if rank is not None and rank < r + cc:
         u_new, sk, v_new = u_new[:, :rank], sk[:rank], v_new[:, :rank]
-    return u_new, sk, v_new
+    u_new = _like(u, u_new)
+    return (u_new.to_dtensor() if api else u_new), sk, v_new
 
 
 def _spd_half_pinvhalf(g):
@@ -110,7 +140,8 @@ class IncrementalSVD:
     """Stateful wrapper: feed column batches, keep a rank-capped
     factorization (the streaming-POD use).  The first batch fixes the
     device and dtype: a tensor keeps its own, any other array goes to
-    the card."""
+    the card.  Batches may be DTensors whose rows are sharded, all alike:
+    U is then kept row-sharded (:func:`svd_append_columns`)."""
 
     def __init__(self, rank: int, method=SVDMethod.GramEigh):
         self.rank = int(rank)
@@ -119,9 +150,15 @@ class IncrementalSVD:
 
     def update(self, c) -> "IncrementalSVD":
         if self.u is None:
-            u, s, v = small_svd(as_tensor(c), self.method)
+            c = row_view(c)
+            u, s, v = small_svd(c if isinstance(c, Sharded)
+                                else as_tensor(c), self.method)
             keep = min(self.rank, s.shape[0])
-            self.u, self.s, self.v = u[:, :keep], s[:keep], v[:, :keep]
+            if isinstance(u, Sharded):
+                u = u.with_local(u.local[:, :keep]).to_dtensor()
+            else:
+                u = u[:, :keep]
+            self.u, self.s, self.v = u, s[:keep], v[:, :keep]
             return self
         self.u, self.s, self.v = svd_append_columns(
             self.u, self.s, self.v, c, rank=self.rank, method=self.method

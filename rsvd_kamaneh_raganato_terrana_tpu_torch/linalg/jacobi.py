@@ -31,7 +31,10 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     eigh,
     matmul_at,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    row_sharded_api,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
@@ -331,6 +334,7 @@ def _auto_apply(n: int) -> str:
     return "block"
 
 
+@row_sharded_api
 def jacobi_svd(a, tol: Optional[float] = None, max_sweeps: int = 60,
                apply: str = "auto", precondition: bool = True,
                block_size: int = 64):
@@ -341,8 +345,9 @@ def jacobi_svd(a, tol: Optional[float] = None, max_sweeps: int = 60,
     polish) or 'auto' (the JAX package's crossover, :func:`_auto_apply`).
     Tall inputs are preconditioned with a robust thin QR, so the sweeps
     run on the square R factor; wide inputs are factored transposed.  A
-    tall row-split matrix (``core/distributed.py::Sharded``) takes the
-    QR of its row-split panel (all-reduced Gram) and keeps U row-split."""
+    tall or square row-split matrix (``core/distributed.py::Sharded``;
+    at the API a DTensor whose rows are sharded) takes the QR of its
+    row-split panel (all-reduced Gram) and keeps U row-split."""
     return _jacobi_svd(a, tol, max_sweeps, apply, precondition, block_size)
 
 
@@ -362,10 +367,10 @@ def jacobi_svd_chunked(a, tol: Optional[float] = None, max_sweeps: int = 60,
 def _jacobi_svd(a, tol, max_sweeps: int, apply: str, precondition: bool,
                 block_size: int, progress=None):
     m, n = a.shape
-    if isinstance(a, Sharded) and (a.transposed or m <= n
-                                   or not precondition):
+    split = isinstance(a, Sharded)
+    if split and (a.transposed or m < n or not precondition):
         raise ValueError("a row-split matrix is factored through its thin "
-                         "QR: a tall one with precondition=True")
+                         "QR: a tall or square one with precondition=True")
     if m < n:
         u, s, v = _jacobi_svd(a.T, tol, max_sweeps, apply, precondition,
                               block_size, progress)
@@ -381,7 +386,7 @@ def _jacobi_svd(a, tol, max_sweeps: int, apply: str, precondition: bool,
                                       min(block_size, x.shape[1]), progress)
         return _jacobi_core(x, tol, max_sweeps, apply)
 
-    if precondition and m > n:
+    if precondition and (m > n or split):
         # thin QR first: the sweeps then run on the n x n R factor
         q0, r0 = qr_reduced(a, "robust")
         ur, s, v, _ = core(r0)

@@ -28,13 +28,20 @@ replicated Gram, so every rank takes the same branch; Householder, polar
 and the fused kernels K1/K2, which do not split by rows, gather the
 whole panel (counted by ``core/collectives.py``), factor it on every
 rank and keep each rank's rows.
+
+At the API (``qr_reduced``, ``orthonormal_basis`` and the ``cholesky_qr*``
+functions) a DTensor whose rows are sharded is factored so: Q comes back
+row-sharded, R (and the 'robust' flag) replicated.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    row_sharded_api,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
@@ -95,12 +102,14 @@ def _cholesky_qr_flagged(a):
     return q, r, degraded
 
 
+@row_sharded_api
 def cholesky_qr(a):
     """Single-pass CholeskyQR: Q = A R^{-1}, R = chol(A^T A)^T."""
     q, r, _ = _cholesky_qr_flagged(a)
     return q, r
 
 
+@row_sharded_api
 def cholesky_qr1(a):
     """PURE single-pass CholeskyQR: one Gram, one plain Cholesky, one
     triangular-inverse GEMM; no retry, no fallback.  On rank-deficient
@@ -112,12 +121,14 @@ def cholesky_qr1(a):
     return _solve_right_upper(a, r), r
 
 
+@row_sharded_api
 def cholesky_qr2(a):
     """CholeskyQR2 -- orthogonality error O(eps) for cond(A) < ~1/sqrt(eps)."""
     q, r = robust_cholesky_qr2(a)[:2]
     return q, r
 
 
+@row_sharded_api
 def robust_cholesky_qr2(a):
     """(Q, R, degraded): CholeskyQR2 plus the flag marking inputs where a
     Householder fallback is required for full accuracy."""
@@ -126,6 +137,7 @@ def robust_cholesky_qr2(a):
     return q2, matmul(r2, r1), d1 | d2
 
 
+@row_sharded_api
 def cholesky_qr3(a):
     """Three-pass variant for ill-conditioned (but full-rank) inputs."""
     q1, r1, _ = _cholesky_qr_flagged(a)
@@ -152,6 +164,7 @@ def _householder_where(a, q, r, degraded):
     return _householder(a) if bool(degraded) else (q, r)
 
 
+@row_sharded_api
 def qr_reduced(a, method: str = "robust"):
     """Reduced QR: Q (m x n), R (n x n) for m >= n.
 
@@ -213,6 +226,7 @@ def qr_full(a):
     return torch.linalg.qr(a, mode="complete")
 
 
+@row_sharded_api
 def orthonormal_basis(y, method: str = "robust"):
     """Thin orthonormal basis of range(Y)."""
     q, _ = qr_reduced(y, method)

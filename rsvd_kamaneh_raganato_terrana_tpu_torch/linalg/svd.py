@@ -40,7 +40,10 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     matmul_at,
     svd_nan,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
+    row_sharded_api,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi import jacobi_svd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power import power_svd
@@ -84,8 +87,9 @@ def _gram_eigh_svd(a, eigh_fn=None):
         # no low-precision eigh: factor in f32, return the input dtype
         u, s, v = _gram_eigh_svd(a.to(torch.float32), eigh_fn)
         return u.to(dtype), s.to(dtype), v.to(dtype)
-    if m <= n:
-        split = isinstance(a, Sharded)         # a = C^T, C's rows split
+    split = isinstance(a, Sharded)
+    if (m <= n and not split) or (split and a.transposed):
+        # a = C^T where split, C's rows split
         at = a.T.local if split else a.T
         g = a.T.gram() if split else matmul_at(a, a.T, "highest")
         lam, u = eigh_fn(g)                    # ascending
@@ -100,6 +104,7 @@ def _gram_eigh_svd(a, eigh_fn=None):
     return u, s, v
 
 
+@row_sharded_api
 def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
     """A = U diag(s) V^T, truncated to rank ``r`` if r > 0 (r = 0: the
     full min(m, n) decomposition).  Engine keyword arguments go to the
@@ -113,7 +118,9 @@ def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
     of V.  ``a`` may also be a tall row-split matrix (PCA's centred data):
     the Gram engines run on its Gram, the Jacobi engines on the R factor
     of its row-split thin QR (their own preconditioning), and 'power',
-    'xla' and 'auto' on that R factor too; U stays row-split."""
+    'xla' and 'auto' on that R factor too; U stays row-split.  At the
+    API such a matrix is a DTensor whose rows are sharded, and U comes
+    back row-sharded."""
     method = SVDMethod.parse(method)
     if isinstance(a, Sharded):
         return _svd_split(a, method, r, **kwargs)
@@ -144,6 +151,9 @@ def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
 
 
 def _svd_split(a, method: SVDMethod, r: int, **kwargs):
+    if not a.transposed and a.shape[0] < a.shape[1]:
+        raise ValueError("a row-split matrix is factored tall (m >= n) "
+                         "or as the transpose of a row split")
     if method is SVDMethod.Auto:
         method = (SVDMethod.ParallelJacobi if min(a.shape) <= 256
                   else SVDMethod.XLA)

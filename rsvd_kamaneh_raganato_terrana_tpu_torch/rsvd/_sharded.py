@@ -32,6 +32,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
     Sharded,
     from_dtensor,
     is_dtensor,
+    row_view,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 
@@ -193,15 +194,8 @@ def _row_split(a, device=None, dtype=None):
     rows split and columns whole; any other operand as a tensor
     (``as_tensor(a, device, dtype)``: an array goes to the card unless
     ``device`` names another); a view as it is."""
-    if isinstance(a, Sharded):
-        return a
-    if is_dtensor(a):
-        view = from_dtensor(a)
-        if view.cols is not None:
-            raise ValueError("this function takes an operand whose rows "
-                             f"are sharded, not its columns "
-                             f"(placements {a.placements})")
-        return view
+    if isinstance(a, Sharded) or is_dtensor(a):
+        return row_view(a)
     return as_tensor(a, device, dtype)
 
 
@@ -293,6 +287,23 @@ def _take_rows(x, idx):
     out = x.local.new_zeros((idx.shape[0],) + tuple(x.local.shape[1:]))
     out[mine] = x.local.index_select(0, idx[mine] - start)
     return collectives.all_reduce(out, x.rows.group)
+
+
+def _argmax(t, x):
+    """The index of the first largest entry of ``t``, a vector over the
+    rows of ``x``: for a row-split x, ``t`` is this rank's entries and
+    the index is global (the local argmax, then the ranks' (value, global
+    index) pairs summed into place by one counted all-reduce, in f64 so
+    that both are exact; the largest value wins, a tie the lower index,
+    as ``argmax`` takes the first).  A 0-d int64 tensor; no host sync."""
+    j = torch.argmax(t)
+    if not isinstance(x, Sharded):
+        return j
+    pairs = t.new_zeros((x.rows.size, 2), dtype=torch.float64)
+    pairs[x.rows.index, 0] = t[j].to(torch.float64)
+    pairs[x.rows.index, 1] = (j + x.row_start).to(torch.float64)
+    pairs = collectives.all_reduce(pairs, x.rows.group)
+    return pairs[torch.argmax(pairs[:, 0]), 1].to(torch.int64)
 
 
 def _transpose(x):

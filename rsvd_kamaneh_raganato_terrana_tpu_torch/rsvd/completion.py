@@ -24,11 +24,13 @@ row-split, every sum over them is local and all-reduced, the
 projections and the column fit go through the driver's split products,
 the m x k row fit is local, and its k-column SVD runs on the gathered
 m x k panel.  The sketches are drawn whole, as on one card.  U comes
-back row-sharded, s, V and the trace replicated.
+back row-sharded, s, V and the trace replicated.  ``complete_tucker``
+takes a tensor sharded on mode 0 the same way (its docstring).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -40,6 +42,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     sketch_matrix,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Sharded,
     is_dtensor,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
@@ -231,37 +234,55 @@ def complete_tucker(
     Keeps the plain fixed-step + backtracking SVP scheme: the matrix
     path's NIHT step and two-sided ALS debias have no cheap Tucker
     analogue, so expect SVP-rate convergence here.  A tensor stays on
-    its device; any other array goes to the card."""
+    its device; any other array goes to the card.  A DTensor sharded on
+    mode 0, with the mask sharded like it (or whole), runs through the
+    sharded Tucker of ``rsvd/tucker.py``: the iterates stay split on
+    mode 0, every sum over them is local and all-reduced, U_0 comes back
+    row-sharded, the core, the other factors and the trace
+    replicated."""
     from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.tucker import (
         tucker,
         tucker_reconstruct,
     )
 
-    a_obs = as_tensor(a_obs)
-    mask = as_tensor(mask, device=a_obs.device, dtype=torch.bool)
+    a_obs = _row_split(a_obs)
+    mask = _row_block(a_obs, _row_split(mask) if is_dtensor(mask)
+                      else as_tensor(mask, device=a_obs.device))
+    mask = mask.to(torch.bool)
     ranks = tuple(ranks)
-    dtype = a_obs.dtype
-    n_obs = torch.clamp(torch.sum(mask), min=1).to(dtype)
-    frac = n_obs / a_obs.numel()
+    dtype, dev = a_obs.dtype, a_obs.device
+    n_obs = torch.clamp(_reduce(torch.sum(mask), a_obs), min=1).to(dtype)
+    frac = n_obs / math.prod(a_obs.shape)
     eta_v = (1.0 / frac) if eta is None else torch.tensor(
-        eta, dtype=dtype, device=a_obs.device)
-    a_masked = torch.where(mask, a_obs, torch.zeros_like(a_obs))
+        eta, dtype=dtype, device=dev)
+    a_local = _local(a_obs)
+    a_masked = torch.where(mask, a_local, torch.zeros_like(a_local))
+
+    def total(t):
+        return _reduce(torch.sum(t), a_obs)
 
     def obs_rmse_at(x):
         resid = torch.where(mask, a_masked - x, torch.zeros_like(x))
-        return torch.sqrt(torch.sum(resid * resid) / n_obs), resid
+        return torch.sqrt(total(resid * resid) / n_obs), resid
 
-    core, factors = tucker(eta_v * a_masked, ranks, p=p, q=q, seed=seed,
-                           precision=precision)
-    rmse = a_obs.new_zeros((iters,))
-    rmse[0] = torch.sqrt(torch.sum(a_masked * a_masked) / n_obs)
+    def project(t, sd):
+        """Tucker of the tensor whose block (split on mode 0) is ``t``:
+        (core, factors), U_0 as this rank's rows."""
+        if isinstance(a_obs, Sharded):
+            t = Sharded(t, a_obs.shape, a_obs.mesh, a_obs.rows)
+        core, factors = tucker(t, ranks, p=p, q=q, seed=sd,
+                               precision=precision)
+        return core, (_local(_sharded_view(factors[0])),) + factors[1:]
+
+    core, factors = project(eta_v * a_masked, seed)
+    rmse = a_local.new_zeros((iters,))
+    rmse[0] = torch.sqrt(total(a_masked * a_masked) / n_obs)
     x = tucker_reconstruct(core, factors)
-    eta_i = eta_v * torch.ones((), dtype=dtype, device=a_obs.device)
+    eta_i = eta_v * torch.ones((), dtype=dtype, device=dev)
     for i in range(1, iters):
         r_cur, resid = obs_rmse_at(x)
         rmse[i] = r_cur
-        c_core, c_factors = tucker(x + eta_i * resid, ranks, p=p, q=q,
-                                   seed=seed + 1 + i, precision=precision)
+        c_core, c_factors = project(x + eta_i * resid, seed + 1 + i)
         cx = tucker_reconstruct(c_core, c_factors)
         r_new, _ = obs_rmse_at(cx)
         ok = r_new <= r_cur
@@ -271,4 +292,5 @@ def complete_tucker(
         x = torch.where(ok, cx, x)
         eta_i = torch.where(ok, torch.minimum(1.2 * eta_i, eta_v),
                             0.5 * eta_i)
+    factors = (_to_api(_like(a_obs, factors[0])),) + factors[1:]
     return TuckerCompletionResult(core, factors, rmse)

@@ -22,10 +22,13 @@ Index selection:
 
 Indices are int64 tensors on the basis' device.
 
-``deim_fit`` takes a DTensor whose rows are sharded: the rSVD basis
-comes back row-sharded, the n x m basis is gathered (one counted
-all-gather) and the indices selected on every rank as on one card, and
-the projector keeps each rank's rows.
+The basis may be a DTensor whose rows are sharded (``deim_fit`` of
+row-sharded snapshots makes one), read by its rows and never gathered:
+each pivot's argmax is local, then global by one all-reduce of the
+ranks' (value, index) pairs, ties to the lower index as on one card
+(``rsvd/_sharded.py::_argmax``); the selected rows of U come from the
+ranks that hold them (``_take_rows``), the small m x m solves run
+replicated, and the projector comes back row-sharded.
 """
 
 from __future__ import annotations
@@ -36,12 +39,12 @@ import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _argmax,
     _like,
-    _row_block,
+    _local,
     _row_split,
-    _sharded_view,
+    _take_rows,
     _to_api,
-    _whole,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     _mm,
@@ -52,30 +55,34 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.interp import _greedy_pivots
 
 def _classic_deim_indices(u):
     """Chaturantabut-Sorensen greedy: row of max |residual| per basis
-    vector, residual from interpolating with the bases selected so far."""
+    vector, residual from interpolating with the bases selected so far.
+    A row-split ``u`` (:class:`Sharded`) takes each argmax over the ranks
+    and the selected rows from the ranks that hold them."""
     m = u.shape[1]
-    idx = torch.zeros((m,), dtype=torch.int64, device=u.device)
-    idx[0] = torch.argmax(torch.abs(u[:, 0]))
-    eye = torch.eye(m, dtype=u.dtype, device=u.device)
-    ar = torch.arange(m, device=u.device)
+    local = _local(u)
+    idx = torch.zeros((m,), dtype=torch.int64, device=local.device)
+    idx[0] = _argmax(torch.abs(local[:, 0]), u)
+    eye = torch.eye(m, dtype=local.dtype, device=local.device)
+    ar = torch.arange(m, device=local.device)
     for j in range(1, m):
         sel = ar < j
-        rows = u.index_select(0, idx)                # m x m (rows >= j dummy)
+        rows = _take_rows(u, idx)                    # m x m (rows >= j dummy)
         mat = torch.where(sel[:, None] & sel[None, :], rows, eye)
         rhs = torch.where(sel, rows[:, j], torch.zeros_like(rows[:, j]))
         c = torch.linalg.solve(mat, rhs)             # zero beyond row j
-        r = u[:, j] - _mm(u, c[:, None])[:, 0]
-        idx[j] = torch.argmax(torch.abs(r))
+        r = local[:, j] - _mm(local, c[:, None])[:, 0]
+        idx[j] = _argmax(torch.abs(r), u)
     return idx
 
 
 def deim_indices(u, method: str = "qdeim") -> torch.Tensor:
     """m interpolation row indices for the orthonormal basis ``u``
     (n x m).  ``method``: 'qdeim' (pivoted-QR selection, default) or
-    'deim' (classic greedy)."""
-    u = as_tensor(u)
+    'deim' (classic greedy).  A row-sharded ``u`` is read by its rows
+    (the module docstring); the indices equal the single call's."""
+    u = _row_split(u)
     if method == "qdeim":
-        return _greedy_pivots(u.T, u.shape[1])
+        return _greedy_pivots(_local(u).T, u.shape[1], u)
     if method == "deim":
         return _classic_deim_indices(u)
     raise ValueError(f"unknown DEIM index method: {method!r}")
@@ -83,10 +90,11 @@ def deim_indices(u, method: str = "qdeim") -> torch.Tensor:
 
 def deim_projector(u, idx) -> torch.Tensor:
     """The oblique projector factor  U (P^T U)^{-1}  (n x m): interpolate
-    a full vector f with ``proj @ f[idx]``."""
-    u = as_tensor(u)
-    pu = u.index_select(0, idx)                      # m x m
-    return torch.linalg.solve(pu.T, u.T).T
+    a full vector f with ``proj @ f[idx]``.  A row-sharded ``u`` gives
+    the projector row-sharded alike."""
+    u = _row_split(u)
+    pu = _take_rows(u, as_tensor(idx, _local(u).device))    # m x m
+    return _to_api(_like(u, torch.linalg.solve(pu.T, _local(u).T).T))
 
 
 class Deim(NamedTuple):
@@ -110,7 +118,8 @@ def deim_interpolate(d: Deim, f) -> torch.Tensor:
 def deim_condition(u, idx) -> torch.Tensor:
     """||(P^T U)^{-1}||_2 = 1/sigma_min(P^T U): the DEIM error
     amplification factor,  ||f - DEIM(f)|| <= cond * ||(I-UU^T) f||."""
-    pu = as_tensor(u).index_select(0, idx)
+    u = _row_split(u)
+    pu = _take_rows(u, as_tensor(idx, _local(u).device))
     return 1.0 / torch.linalg.svdvals(pu)[-1]
 
 
@@ -128,8 +137,5 @@ def deim_fit(
     row-sharded basis and projector (the module docstring)."""
     u, _, _ = rsvd(_row_split(snapshots), k=m, p=p, q=q, seed=seed,
                    method="eigh")
-    view = _sharded_view(u)
-    whole = _whole(view)
-    idx = deim_indices(whole, method)
-    proj = deim_projector(whole, idx)
-    return Deim(u, idx, _to_api(_like(view, _row_block(view, proj))))
+    idx = deim_indices(u, method)
+    return Deim(u, idx, deim_projector(u, idx))

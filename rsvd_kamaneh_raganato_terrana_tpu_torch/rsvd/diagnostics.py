@@ -11,7 +11,8 @@ health check (the JAX package's ``rsvd/diagnostics.py``).
   power iteration on the Gram operator, and ||A||_F^2 / ||A||_2^2.
 - ``factor_health``: the post-hoc check of a factorization triple that
   the serving configurations rely on (they have no rank-deficiency
-  fallback): one set of device ops and ONE 5-element host fetch.
+  fallback): one set of device ops and ONE 5-element host fetch; a
+  row-sharded U (as ``rsvd_serving`` returns it) is read by its rows.
 - ``principal_angles`` / ``subspace_distance``: angles between two
   subspaces, the metric for "did the sketch capture the same subspace".
 
@@ -125,12 +126,18 @@ def _factor_health_device(u, s, v):
     """Five scalars from device ops alone: [finite, max |col-norm(U) - 1|,
     max |V^T V - I|, worst ascending violation of s, min s]; every stat
     reads unhealthy (0, inf, inf, inf, inf) when a factor is not
-    finite."""
-    dtype = torch.promote_types(torch.promote_types(u.dtype, s.dtype),
+    finite.  A row-sharded U is read by its rows: two small all-reduces
+    (the finite flag, the column sums of squares), no gather."""
+    u = _sharded_view(u)
+    local = _local(u)
+    dtype = torch.promote_types(torch.promote_types(local.dtype, s.dtype),
                                 v.dtype)
-    finite = (torch.isfinite(u).all() & torch.isfinite(s).all()
-              & torch.isfinite(v).all())
-    ucol = torch.max(torch.abs(torch.sqrt(torch.sum(u * u, dim=0)) - 1.0))
+    # a row-split U: its finite flag and column sums of squares completed
+    # over the rows
+    u_finite = _reduce(torch.isfinite(local).all().to(dtype), u, "min") > 0
+    finite = u_finite & torch.isfinite(s).all() & torch.isfinite(v).all()
+    ucol = torch.max(torch.abs(torch.sqrt(
+        _reduce(torch.sum(local * local, dim=0), u)) - 1.0))
     vtv = _mm(v.T, v, _HI)
     vort = torch.max(torch.abs(
         vtv - torch.eye(vtv.shape[0], dtype=vtv.dtype, device=vtv.device)))

@@ -90,6 +90,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _cols,
     _like,
     _local,
+    _norm,
     _reduce,
     _row_block,
     _sharded_mm,
@@ -400,6 +401,14 @@ def _interior_basis(y, method: str):
         orthonormal_basis(y, method)
 
 
+def _at_api(*xs) -> bool:
+    """Whether a public function was handed a sharded operand (a DTensor,
+    or an :class:`Int8Stored` of DTensors): its m-row results then go
+    back as row-sharded DTensors."""
+    return any(is_dtensor(x) or (isinstance(x, Int8Stored)
+                                 and is_dtensor(x.q8)) for x in xs)
+
+
 def power_refine(a, q_mat, q: int, qr_method: str = "robust",
                  precision=DOT_PRECISION, reorth: str = "full",
                  interior_qr: Optional[str] = None):
@@ -407,7 +416,20 @@ def power_refine(a, q_mat, q: int, qr_method: str = "robust",
     orthonormalizes both the Z and Y sides each round; ``'half'`` skips
     the Z-side QR.  ``interior_qr`` (default: ``qr_method``) is used for
     every orthonormalization except the final one; ``'none'`` only
-    column-normalizes."""
+    column-normalizes.  A sharded A (the module docstring) takes Q
+    row-sharded alike, or whole on every rank (each rank keeps its
+    rows), and gives it back row-sharded."""
+    api = _at_api(a, q_mat)
+    a, q_mat = _sharded_view(a), _sharded_view(q_mat)
+    if isinstance(a, Sharded) and not a.transposed \
+            and not isinstance(q_mat, Sharded):
+        q_mat = a.with_local(_row_block(a, q_mat))
+    q_mat = _power_rounds(a, q_mat, q, qr_method, precision, reorth,
+                          interior_qr)
+    return _to_api(q_mat) if api else q_mat
+
+
+def _power_rounds(a, q_mat, q, qr_method, precision, reorth, interior_qr):
     inner = qr_method if interior_qr is None else interior_qr
     for i in range(q):
         last = i == q - 1
@@ -423,12 +445,17 @@ def power_refine(a, q_mat, q: int, qr_method: str = "robust",
 def subspace_iteration(a, omega, q: int, qr_method: str = "robust",
                        precision=DOT_PRECISION, reorth: str = "full",
                        interior_qr: Optional[str] = None):
-    """Stage A: range finder with q power-iteration refinements."""
+    """Stage A: range finder with q power-iteration refinements.  A
+    sharded A (the module docstring) with Omega whole on every rank gives
+    Q row-sharded."""
+    api = _at_api(a)
+    a = _sharded_view(a)
     y = _mm(a, omega, precision)
     inner = qr_method if interior_qr is None or q == 0 else interior_qr
     q_mat = _interior_basis(y, inner)
-    return power_refine(a, q_mat, q, qr_method, precision, reorth,
-                        interior_qr)
+    q_mat = _power_rounds(a, q_mat, q, qr_method, precision, reorth,
+                          interior_qr)
+    return _to_api(q_mat) if api else q_mat
 
 
 def _fold_weights(tri):
@@ -636,13 +663,23 @@ def rsvd(
 
 
 def reconstruct(u, s, v):
-    """A_k = U diag(s) V^T."""
-    return _mm(u * s[None, :], v.T)
+    """A_k = U diag(s) V^T; a row-sharded U gives A_k row-sharded."""
+    api = _at_api(u)
+    u = _sharded_view(u)
+    a_k = _mm(_like(u, _local(u) * s[None, :]), v.T)
+    return _to_api(a_k) if api else a_k
 
 
 def reconstruction_error(a, u, s, v):
-    """||A - U diag(s) V^T||_F."""
-    return torch.linalg.norm(a - reconstruct(u, s, v))
+    """||A - U diag(s) V^T||_F.  A row-sharded A takes U row-sharded
+    alike or whole; the squares are summed by rank and combined
+    (``rsvd/_sharded.py::_norm``)."""
+    a, u = _sharded_view(a), _sharded_view(u)
+    if not isinstance(a, Sharded) and not isinstance(u, Sharded):
+        return torch.linalg.norm(a - reconstruct(u, s, v))
+    x = a if isinstance(a, Sharded) else u
+    a_k = _local(reconstruct(x.with_local(_row_block(x, u)), s, v))
+    return _norm(x.with_local(_row_block(x, a) - a_k))
 
 
 def rsvd_sharded(a, mesh, k: int = 0, row_axis="rows", **kwargs):

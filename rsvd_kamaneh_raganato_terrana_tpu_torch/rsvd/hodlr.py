@@ -18,6 +18,27 @@ block, as ``jax.vmap`` does with its ``lax.cond``.  Factors live as
 ``jax.scipy.sparse.linalg.cg``; a block of right-hand sides runs as one
 batched CG whose columns each keep their own step sizes and freeze once
 converged, as the JAX ``while_loop`` does under ``vmap``.
+
+A DTensor whose rows are sharded over P ranks (2^levels a multiple of P,
+so each leaf falls to one rank) is built without gathering it:
+
+- at a level whose blocks lie inside one rank (2^(ell+1) >= P) each rank
+  factors its own blocks with the batched rSVD, no collective; where a
+  rank holds whole sibling pairs (2^ell >= P) the level's stacks are
+  DTensors sharded on the block index;
+- at a level above (2^(ell+1) < P) a block's rows span P / 2^(ell+1)
+  ranks, and it is factored as a row-split rSVD over the process group
+  of those ranks (one group a block, made once and kept);
+- a level with fewer pairs than ranks keeps its stacks replicated: one
+  all-gather each of the U and V rows (n x k), no block of A;
+- the leaves are a DTensor sharded on the leaf index.
+
+``hodlr_matvec`` keeps x and y row-split: the local levels and the
+leaves are local batched products, and each replicated level's V^T x is
+one all-reduce of its (2^ell, 2, k, c) coefficients.  ``hodlr_solve``'s
+CG all-reduces its dot products, its preconditioner is the local
+leaves' Cholesky, and x comes back row-sharded.  On one rank every level
+is local, so a one-rank group is the single call to the bit.
 """
 
 from __future__ import annotations
@@ -26,10 +47,25 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+import torch.distributed as dist
+
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import as_tensor
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     cholesky,
     ieee_fp32,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    Axis,
+    Sharded,
+    from_dtensor,
+    is_dtensor,
+    row_dtensor,
+)
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _row_block,
+    _row_split,
+    _sharded_view,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
     _mm,
@@ -100,12 +136,19 @@ def hodlr_build(a, levels: int = 3, k: int = 16, p: int = 10, q: int = 1,
                 seed: int = 0) -> HodlrMatrix:
     """Compress a dense n x n matrix (n divisible by 2**levels) into
     HODLR form with rank-k off-diagonal blocks.  A tensor stays on its
-    device; any other array goes to the card."""
-    a = as_tensor(a)
+    device; any other array goes to the card; a DTensor whose rows are
+    sharded is built by its rows (the module docstring)."""
+    a = _row_split(a)
     n = a.shape[0]
     if a.shape[0] != a.shape[1]:
         raise ValueError("HODLR requires a square matrix")
     _check_levels(n, levels)
+    if isinstance(a, Sharded):
+        def block(i0, j0, rows, cols):
+            start = i0 - a.row_start
+            return a.local[start:start + rows, j0:j0 + cols]
+
+        return _build_split(block, a, n, levels, k, p, q, seed)
     u_up, v_up, u_lo, v_lo = [], [], [], []
     for ell in range(levels):
         uppers, lowers = _off_diagonal_blocks(a, ell)
@@ -171,26 +214,160 @@ def hodlr_build_implicit(block_fn, n: int, levels: int = 3, k: int = 16,
                        leaves, n=n, k=k)
 
 
+def _split_of(h: HodlrMatrix):
+    """The row split of a sharded HODLR matrix's n rows (a
+    :class:`Sharded` holding nothing but the layout), or None."""
+    if not is_dtensor(h.leaves):
+        return None
+    view = from_dtensor(h.leaves)
+    rows = h.n // view.rows.size
+    return Sharded(view.local.new_zeros((rows, 0)), (h.n, 0), view.mesh,
+                   view.rows)
+
+
 def hodlr_matvec(h: HodlrMatrix, x) -> torch.Tensor:
     """y = H x in O(k n log n): per level, batched (b, m, k) products.
-    ``x`` is a vector (n,) or a block of columns (n, c)."""
-    x = as_tensor(x, device=h.leaves.device)
-    xm = x[:, None] if x.dim() == 1 else x
+    ``x`` is a vector (n,) or a block of columns (n, c).  For a sharded
+    H (the module docstring) x is row-sharded alike, or whole (each rank
+    takes its rows), and y comes back row-sharded."""
+    split = _split_of(h)
+    if split is None:
+        x = as_tensor(x, device=h.leaves.device)
+        xm = x[:, None] if x.dim() == 1 else x
+        y = _matvec_local(h, xm, None)
+        return y[:, 0] if x.dim() == 1 else y
+    x = _sharded_view(x)
+    if not isinstance(x, Sharded):
+        x = as_tensor(x, device=split.device)
+    xm = _row_block(split, x)
+    vector = xm.dim() == 1
+    y = _matvec_local(h, xm[:, None] if vector else xm, split)
+    return row_dtensor(y[:, 0] if vector else y, split.mesh, split.rows,
+                       h.n)
+
+
+def _matvec_local(h: HodlrMatrix, xm, split):
+    """H x on x's (n, c) block, or, with ``split`` a row split, on this
+    rank's rows of it, giving this rank's rows of H x."""
     c = xm.shape[1]
     with ieee_fp32():
         y = torch.zeros_like(xm)
         for fu, fv, gu, gv in zip(h.u_upper, h.v_upper, h.u_lower,
                                   h.v_lower):
+            if split is not None and not is_dtensor(fu):
+                y = y + _replicated_level(fu, fv, gu, gv, xm, split)
+                continue
+            fu, fv, gu, gv = (f.to_local() if is_dtensor(f) else f
+                              for f in (fu, fv, gu, gv))
             b, m, _ = fu.shape
             xb = xm.reshape(b, 2 * m, c)
             x1, x2 = xb[:, :m], xb[:, m:]
             y1 = torch.bmm(fu, torch.bmm(fv.transpose(1, 2), x2))
             y2 = torch.bmm(gu, torch.bmm(gv.transpose(1, 2), x1))
             y = y + torch.cat([y1, y2], dim=1).reshape(-1, c)
-        leaf = h.leaves.shape[1]
-        yl = torch.bmm(h.leaves, xm.reshape(-1, leaf, c)).reshape(-1, c)
-    y = y + yl
-    return y[:, 0] if x.dim() == 1 else y
+        leaves = h.leaves.to_local() if split is not None else h.leaves
+        leaf = leaves.shape[1]
+        yl = torch.bmm(leaves, xm.reshape(-1, leaf, c)).reshape(-1, c)
+    return y + yl
+
+
+def _replicated_level(fu, fv, gu, gv, xm, split):
+    """A level whose (b, m, k) stacks every rank holds whole, on this
+    rank's rows of x: this rank's rows lie in one half-block (m a
+    multiple of the rank's rows), its partial V^T x goes into its pair's
+    slot, one all-reduce completes them, and its rows of y take the
+    sibling's coefficients."""
+    b, m, k = fu.shape
+    rows, c = xm.shape
+    half, off = divmod(split.row_start, m)
+    pair, upper = divmod(half, 2)
+    upper = upper == 0
+    mine = slice(off, off + rows)
+    coeff = xm.new_zeros((b, 2, k, c))
+    # slot 0: fv^T x2 (read by the upper rows), slot 1: gv^T x1
+    coeff[pair, 1 if upper else 0] = torch.mm(
+        (gv if upper else fv)[pair, mine].T, xm)
+    coeff = collectives.all_reduce(coeff, split.rows.group)
+    return torch.mm((fu if upper else gu)[pair, mine],
+                    coeff[pair, 0 if upper else 1])
+
+
+_BLOCK_GROUPS = {}
+
+
+def _block_group(split, span: int):
+    """This rank's process group among the ``span`` consecutive ranks of
+    the row group that hold one block's rows, as an :class:`Axis`; made
+    once for those ranks of that row group (only they call it) and
+    kept."""
+    ranks = dist.get_process_group_ranks(split.rows.group)
+    first = split.rows.index // span * span
+    key = (split.rows.group, tuple(ranks[first:first + span]))
+    if key not in _BLOCK_GROUPS:
+        _BLOCK_GROUPS[key] = dist.new_group(
+            list(key[1]), use_local_synchronization=True)
+    return Axis(_BLOCK_GROUPS[key], split.rows.index - first, span,
+                split.rows.dims)
+
+
+def _build_split(block, split, n: int, levels: int, k: int, p: int, q: int,
+                 seed: int) -> HodlrMatrix:
+    """HODLR form of the row-split n x n matrix whose blocks in this
+    rank's rows ``block(i0, j0, rows, cols)`` returns (the module
+    docstring)."""
+    size, start = split.rows.size, split.row_start
+    rows = n // size
+    if (2 ** levels) % size:
+        raise ValueError(f"a row-sharded HODLR build needs 2^levels = "
+                         f"{2 ** levels} to be a multiple of the {size} "
+                         "ranks: each leaf falls to one rank")
+    probe = block(start, 0, 1, 1)
+    u_up, v_up, u_lo, v_lo = [], [], [], []
+    for ell in range(levels):
+        b = 2 ** ell
+        m = n // (2 * b)
+        kk = min(k, m)
+        omega = generate_omega(seed + ell, m, min(kk + p, m), probe.dtype,
+                               device=probe.device)
+        if b >= size:                   # whole sibling pairs on this rank
+            pairs = range(start // (2 * m), (start + rows) // (2 * m))
+            fu, fv = _factor_stack(torch.stack([
+                block(i * 2 * m, i * 2 * m + m, m, m) for i in pairs]),
+                omega, q, kk)
+            gu, gv = _factor_stack(torch.stack([
+                block(i * 2 * m + m, i * 2 * m, m, m) for i in pairs]),
+                omega, q, kk)
+            for out, f in ((u_up, fu), (v_up, fv), (u_lo, gu), (v_lo, gv)):
+                out.append(row_dtensor(f, split.mesh, split.rows, b))
+            continue
+        half, off = divmod(start, m)    # this rank's half-block
+        col0 = (half + 1) * m if half % 2 == 0 else (half - 1) * m
+        mine = block(start, col0, rows, m)
+        if m == rows:                   # the block is this rank's alone
+            fu, fv = _factor_stack(mine[None], omega, q, kk)
+            fu, fv = fu[0], fv[0]
+        else:                           # a row-split rSVD over its ranks
+            view = Sharded(mine, (m, m), split.mesh,
+                           _block_group(split, m // rows))
+            u, sv, fv = rsvd_with_omega(view, omega, q=q, k=omega.shape[1],
+                                        method="eigh", reorth="half")
+            fu = (u.to_local() if is_dtensor(u) else u) * sv[None, :]
+            fu, fv = fu[:, :kk], fv[:, :kk]
+        # every rank's rows of U and its rows of V (the sibling's side)
+        # gathered: the level's stacks, replicated
+        us = split.with_local(fu.contiguous()).gather()
+        vs = split.with_local(fv[off:off + rows].contiguous()).gather()
+        us, vs = us.reshape(b, 2, m, kk), vs.reshape(b, 2, m, kk)
+        u_up.append(us[:, 0])
+        u_lo.append(us[:, 1])
+        v_up.append(vs[:, 0])
+        v_lo.append(vs[:, 1])
+    leaf = n // 2 ** levels
+    leaves = torch.stack([block(i, i, leaf, leaf)
+                          for i in range(start, start + rows, leaf)])
+    return HodlrMatrix(tuple(u_up), tuple(v_up), tuple(u_lo), tuple(v_lo),
+                       row_dtensor(leaves, split.mesh, split.rows,
+                                   2 ** levels), n=n, k=k)
 
 
 def hodlr_reconstruct(h: HodlrMatrix) -> torch.Tensor:
@@ -217,14 +394,19 @@ def hodlr_compression_ratio(h: HodlrMatrix) -> float:
     return (h.n * h.n) / stored
 
 
-def _cg(apply_a, precond, b, tol: float, maxiter: int):
+def _cg(apply_a, precond, b, tol: float, maxiter: int, split=None):
     """Preconditioned CG on each column of b (n x c) with the arithmetic
     of ``jax.scipy.sparse.linalg.cg``: x0 = 0, z = M r, gamma = r.z,
     beta = gamma'/gamma, a column stops once ||r||^2 <= max(tol^2
     ||b||^2, 0) or after ``maxiter`` steps, and its iterates freeze.
-    Returns (x, steps per column)."""
+    Returns (x, steps per column).  With ``split`` a row split, b and
+    the iterates are this rank's rows and every dot product is
+    all-reduced, so each rank takes the same steps."""
     def vdot(u, v):
-        return torch.sum(u * v, dim=0)
+        dot = torch.sum(u * v, dim=0)
+        if split is None:
+            return dot
+        return collectives.all_reduce(dot, split.rows.group)
 
     atol2 = torch.clamp(tol * tol * vdot(b, b), min=0.0)
     x = torch.zeros_like(b)
@@ -257,11 +439,31 @@ def hodlr_solve(h: HodlrMatrix, b, tol: float = 1e-8,
     factors computed once, batched; a failed factor is NaN, so an
     indefinite operator gives a non-finite x).  ``b`` is a vector (n,) or
     a block of columns (n, c), each column solved on its own.  With
-    ``return_steps`` also returns the CG steps each column took."""
-    b = as_tensor(b, device=h.leaves.device)
-    bm = b[:, None] if b.dim() == 1 else b
-    chol = cholesky(h.leaves)
-    leaf = h.leaves.shape[1]
+    ``return_steps`` also returns the CG steps each column took.  For a
+    sharded H (the module docstring) b is row-sharded alike or whole,
+    and x comes back row-sharded."""
+    split = _split_of(h)
+    if split is not None:
+        b = _sharded_view(b)
+        if not isinstance(b, Sharded):
+            b = as_tensor(b, device=split.device)
+        b = _row_block(split, b)
+    else:
+        b = as_tensor(b, device=h.leaves.device)
+    x, steps = _solve_rows(h, b[:, None] if b.dim() == 1 else b, split,
+                           tol, maxiter)
+    x = x[:, 0] if b.dim() == 1 else x
+    if split is not None:
+        x = row_dtensor(x, split.mesh, split.rows, h.n)
+    return (x, steps) if return_steps else x
+
+
+def _solve_rows(h: HodlrMatrix, bm, split, tol: float, maxiter: int):
+    """CG on the (n, c) block ``bm``, or, with ``split`` a row split, on
+    this rank's rows of it: (x, steps per column)."""
+    leaves = h.leaves.to_local() if split is not None else h.leaves
+    chol = cholesky(leaves)
+    leaf = leaves.shape[1]
 
     def precond(r):
         # two batched triangular solves (cuBLAS trsm); torch.cholesky_solve
@@ -273,7 +475,5 @@ def hodlr_solve(h: HodlrMatrix, b, tol: float = 1e-8,
                                           upper=True)
         return z.reshape(r.shape)
 
-    x, steps = _cg(lambda v: hodlr_matvec(h, v), precond, bm, tol,
-                   maxiter)
-    x = x[:, 0] if b.dim() == 1 else x
-    return (x, steps) if return_steps else x
+    return _cg(lambda v: _matvec_local(h, v, split), precond, bm, tol,
+               maxiter, split)

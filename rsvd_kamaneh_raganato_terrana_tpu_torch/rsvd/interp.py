@@ -46,6 +46,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.qr import qr_reduced
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _argmax,
     _like,
     _local,
     _row_split,
@@ -60,27 +61,40 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
 _GUMBEL_SALT = 0x1e7a
 
 
-def _greedy_pivots(g, k: int):
+def _greedy_pivots(g, k: int, split=None):
     """k greedy column pivots of the small sketch G (l x n): at each step
     pick the column of largest residual norm (the first of equal ones, as
     ``argmax`` does in both packages), then deflate its direction (one
-    rank-1 update): right-looking pivoted Gram-Schmidt."""
+    rank-1 update): right-looking pivoted Gram-Schmidt.
+
+    With ``split`` a row split whose rows are G's columns (G = U^T of a
+    row-split U), ``g`` is this rank's columns: the argmax is global
+    (``rsvd/_sharded.py::_argmax``), the pivot column and its norm come
+    from the rank that holds them (``_take_rows``), and the indices are
+    global, equal to the single call's."""
     n = g.shape[1]
     eps = torch.finfo(g.dtype).eps
     r = g
     idx = torch.zeros((k,), dtype=torch.int64, device=g.device)
     mask = torch.zeros((n,), dtype=torch.bool, device=g.device)
+    start = split.row_start if isinstance(split, Sharded) else 0
+    local = torch.arange(n, device=g.device)
     for i in range(k):
         norms = torch.sum(r * r, dim=0)
         norms = torch.where(mask, -torch.inf, norms)
-        j = torch.argmax(norms).reshape(1)
-        col = r.index_select(1, j)[:, 0]
-        scale = torch.sqrt(torch.clamp(norms.index_select(0, j)[0],
-                                       min=eps * eps))
+        j = _argmax(norms, split).reshape(1)
+        if isinstance(split, Sharded):
+            picked = _take_rows(split.with_local(
+                torch.cat([r.T, norms[:, None]], dim=1)), j)[0]
+            col, norm_j = picked[:-1], picked[-1]
+        else:
+            col = r.index_select(1, j)[:, 0]
+            norm_j = norms.index_select(0, j)[0]
+        scale = torch.sqrt(torch.clamp(norm_j, min=eps * eps))
         q = col / scale
         r = r - torch.outer(q, _mm(q[None, :], r)[0])
         idx[i] = j[0]
-        mask = mask.index_fill(0, j, True)
+        mask = mask | (local == j - start)
     return idx
 
 

@@ -23,6 +23,10 @@ from __future__ import annotations
 
 import warnings
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
+from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _sharded_view,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.diagnostics import (
     factor_health,
 )
@@ -53,12 +57,20 @@ def rsvd_serving(a, k: int, p: int = 16, q: int = 2, seed: int = 0,
 
     s are decomposition WEIGHTS (exact energy; sigma-tracking needs
     gapped spectra -- :func:`rsvd.utv.utv_rescore` recovers sigma), U is
-    unit-column, V orthonormal."""
+    unit-column, V orthonormal.
+
+    ``a`` may be a DTensor whose rows are sharded (each rank quantizes its
+    rows under 'int8'), or an :class:`Int8Stored` of row-sharded
+    DTensors: the driver reads it through its :class:`Int8Stored` view,
+    U comes back row-sharded and :func:`factor_health` reads it by its
+    rows."""
     if on_unhealthy not in ("raise", "warn", "ignore"):
         raise ValueError(f"unknown on_unhealthy {on_unhealthy!r}")
-    operand = a
-    if storage == "int8" and not isinstance(a, Int8Stored):
-        operand = quantize_int8_rows(a)
+    operand = _sharded_view(a)
+    # a row-split operand is quantized rank by rank (the scales are per
+    # row) by the driver's int8 storage mode
+    if storage == "int8" and not isinstance(operand, (Int8Stored, Sharded)):
+        operand = quantize_int8_rows(operand)
     u, s, v = rsvd(operand, k=k, p=p, q=q, seed=seed, method="eigh",
                    precision=storage, reorth="half", qr_method="cholqr1",
                    interior_qr=interior_qr, finish="rowspace_utv")

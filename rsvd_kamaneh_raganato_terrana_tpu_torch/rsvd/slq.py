@@ -16,11 +16,12 @@ one batched ``torch.linalg.eigh`` (``core/device.py::eigh_nan``).  A matrix-free
 ``torch.func.vmap``.  The probes come from ``rademacher`` on a generator
 seeded from ``seed`` (torch Philox draws, not JAX's values).
 
-A DTensor whose rows are sharded is read block by block: each step's
-A V is the local rows' product, gathered (one counted all-gather of the
-n x m block a step), and the Lanczos recurrence, its vectors and the
-quadrature run replicated on every rank, the probes drawn whole, as on
-one card.
+A DTensor whose rows are sharded is read block by block.  In
+``slq_trace`` each step's A V is the local rows' product, gathered (one
+counted all-gather of the n x m block a step), and the Lanczos
+recurrence, its vectors and the quadrature run replicated on every rank,
+the probes drawn whole, as on one card.  ``lanczos_tridiag`` keeps its
+vector row-split instead (its docstring).
 """
 
 from __future__ import annotations
@@ -39,8 +40,14 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     key_from_seed,
     rademacher,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _like,
+    _norm,
+    _reduce,
+    _row_block,
     _row_split,
+    _sharded_view,
     _whole,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
@@ -52,31 +59,41 @@ def _mv(a, v):
     return matmul_at(a, v, "highest")
 
 
-def _lanczos_block(apply_a, v0, steps: int):
+def _lanczos_block(apply_a, v0, steps: int, rows=None):
     """``steps`` Lanczos iterations from each column of the (unnormalized)
     n x m block v0, with full reorthogonalization against every stored
     vector of its own probe, twice.  Returns (alpha: steps x m,
     beta: (steps - 1) x m).
 
+    With ``rows`` a row split (:class:`Sharded`), v0 and every vector are
+    this rank's rows of them: the dot products and the norms are
+    completed over the rows (counted all-reduces, the norms' partials
+    combined as ``rsvd/_sharded.py::_norm`` does), and ``apply_a`` maps
+    this rank's rows of v to its rows of A v.
+
     An early (invariant-subspace) breakdown gives beta ~ 0, and the later
     quadrature weights vanish."""
     n, m = v0.shape
-    v = v0 / torch.clamp(torch.linalg.norm(v0, dim=0), min=_EPS)
+
+    def col_norm(x):
+        return _norm(_like(rows, x), dim=0)
+
+    v = v0 / torch.clamp(col_norm(v0), min=_EPS)
     basis = v0.new_zeros((steps, n, m))
     basis[0] = v
     alphas = v0.new_zeros((steps, m))
     betas = v0.new_zeros((steps, m))
     for i in range(steps):
         w = apply_a(v)
-        alpha = torch.sum(v * w, dim=0)
+        alpha = _reduce(torch.sum(v * w, dim=0), rows)
         w = w - alpha * v
         # rows past i are zero, so the products over the whole (steps, n)
         # basis are exact
         with ieee_fp32():
             for _ in range(2):
-                coeff = torch.einsum("snm,nm->sm", basis, w)
+                coeff = _reduce(torch.einsum("snm,nm->sm", basis, w), rows)
                 w = w - torch.einsum("snm,sm->nm", basis, coeff)
-        beta = torch.linalg.norm(w, dim=0)
+        beta = col_norm(w)
         v = w / torch.clamp(beta, min=_EPS)
         if i + 1 < steps:
             basis[i + 1] = v
@@ -88,10 +105,23 @@ def _lanczos_block(apply_a, v0, steps: int):
 def lanczos_tridiag(a, v0, steps: int):
     """``steps`` Lanczos iterations on the dense symmetric ``a`` from the
     (unnormalized) vector v0, fully reorthogonalized.  Returns
-    (alpha: steps, beta: steps - 1) of the tridiagonal T."""
-    a = as_tensor(a)
-    v0 = as_tensor(v0, device=a.device, dtype=a.dtype)
-    al, be = _lanczos_block(lambda x: _mv(a, x), v0[:, None], steps)
+    (alpha: steps, beta: steps - 1) of the tridiagonal T.
+
+    A DTensor whose rows are sharded takes v0 row-sharded alike or whole
+    (each rank keeps its rows): the Lanczos vectors stay row-split, each
+    step gathers the n-vector v once (a counted all-gather) for the local
+    rows' A v, and its dot products and norms are all-reduced."""
+    a = _row_split(a)
+    v0 = _sharded_view(v0)
+    if not isinstance(v0, Sharded):
+        v0 = as_tensor(v0, device=a.device, dtype=a.dtype)
+    if isinstance(a, Sharded):
+        mine = v0.local if isinstance(v0, Sharded) else _row_block(a, v0)
+        al, be = _lanczos_block(
+            lambda x: _mv(a.local, _whole(a.with_local(x))),
+            mine[:, None].to(a.dtype), steps, rows=a)
+    else:
+        al, be = _lanczos_block(lambda x: _mv(a, x), v0[:, None], steps)
     return al[:, 0], be[:, 0]
 
 
@@ -140,7 +170,15 @@ def slq_trace(a, fn: Callable, seed=0, num_probes: int = 16,
 
         def apply_a(x):
             return _whole(_mm(a, x, "highest"))
-    probes = rademacher(key_from_seed(seed, dev), (num_probes, n), dtype)
+    return slq_block(apply_a, n, dtype, dev, fn, seed, num_probes, steps)
+
+
+def slq_block(apply_a, n: int, dtype, device, fn: Callable, seed=0,
+              num_probes: int = 16, steps: int = 30):
+    """tr(f(A)) by SLQ with ``apply_a`` taking the n x m block of Lanczos
+    vectors to A times it (every rank's whole block, for an operator
+    that gathers its product): the body of :func:`slq_trace`."""
+    probes = rademacher(key_from_seed(seed, device), (num_probes, n), dtype)
     al, be = _lanczos_block(apply_a, probes.T, steps)
     return float(n) * torch.mean(_quadrature(al, be, fn))
 

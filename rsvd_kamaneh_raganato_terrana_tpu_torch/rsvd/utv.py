@@ -60,8 +60,10 @@ def utv_rescore(u, s, v):
     serving path: G = diag(s) U^T U diag(s) -> eigh -> (sigma^2, W),
     U* = U diag(s) W / sigma, V* = V W.  Returns (U*, sigma descending,
     V*); directions whose sigma sits at the roundoff floor are zeroed
-    rather than normalized noise."""
-    f = u * s[None, :]
+    rather than normalized noise.  A row-sharded U gives U* row-sharded
+    (G from the all-reduced local Grams, the eigh replicated)."""
+    u = _sharded_view(u)
+    f = _like(u, _local(u) * s[None, :])
     g = _mm(f.T, f)
     lam, w = torch.linalg.eigh(g)                   # ascending
     lam = torch.clamp(lam.flip(0), min=0.0)
@@ -69,7 +71,7 @@ def utv_rescore(u, s, v):
     sigma = torch.sqrt(lam)
     tiny = torch.finfo(u.dtype).tiny
     safe = torch.clamp(sigma, min=tiny)
-    u_true = _mm(f, w / safe[None, :])
+    u_true = _local(_mm(f, w / safe[None, :]))
     live = lam > torch.clamp(torch.finfo(u.dtype).eps * lam[0], min=tiny)
     u_true = torch.where(live[None, :], u_true, torch.zeros_like(u_true))
-    return u_true, sigma, _mm(v, w)
+    return _to_api(_like(u, u_true)), sigma, _mm(v, w)

@@ -283,8 +283,10 @@ def task_dcp(ckdir, a=None, omega=None, **kwargs):
 def _pack(x):
     """A result as NumPy: a DTensor as {"whole", "local", "placements"}
     (its whole tensor by DTensor's own gather, not counted), a tensor as
-    an array, a tuple (NamedTuples too) as a list, anything else as it
-    is."""
+    an array, a tuple (NamedTuples too) as a list, a dataclass (a POD) as
+    a dict of its fields, anything else as it is."""
+    import dataclasses
+
     import torch
 
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
@@ -298,6 +300,9 @@ def _pack(x):
         return _np(x)
     if isinstance(x, tuple):
         return [_pack(v) for v in x]
+    if dataclasses.is_dataclass(x):
+        return {f.name: _pack(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
     return x
 
 
@@ -305,8 +310,9 @@ def _placed_as(x, layout):
     """``x`` (NumPy) placed by ``layout``: 'rows' (dim 0 over the 1-D
     mesh), 'cols' (dim 1 over it), 'batch' (dim 0 over a ('batch',)
     mesh), 'ragged' (dim 0 over the 1-D mesh in DTensor's own uneven
-    split) or None (a tensor every rank holds whole; anything but an
-    array stays as it is)."""
+    split), 'sparse' or 'sparse_nse' (a sparse COO tensor's dim 0 over
+    the 1-D mesh) or None (a tensor every rank holds whole; anything but
+    an array stays as it is)."""
     from torch.distributed.tensor import Shard
 
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core import mesh as cm
@@ -320,6 +326,10 @@ def _placed_as(x, layout):
         from torch.distributed.tensor import distribute_tensor
 
         return distribute_tensor(t, _mesh("rows"), (Shard(0),))
+    if layout.startswith("sparse"):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(t.to_sparse(), _mesh("rows"), (Shard(0),))
     return cm.distribute(t, _mesh("rows"), (Shard(0 if layout == "rows"
                                                     else 1),))
 
@@ -348,8 +358,9 @@ def task_fit(cls, args=(), layouts=(), init=None, method=None, attrs=(),
     with the ``init`` keywords: without ``method`` made on ``args`` (as
     ``PCA(data)``), else ``obj.method(*args)``; each of ``attrs`` read
     (a method called without arguments), then each of ``then``'s
-    (method, args, layouts) called.  Placed as ``task_call`` places
-    them; the tally covers the making and ``method``."""
+    (method, args, layouts[, keywords]) called (a method returning the
+    object gives None).  Placed as ``task_call`` places them; the tally
+    covers the making and ``method``."""
     import importlib
 
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
@@ -374,9 +385,40 @@ def task_fit(cls, args=(), layouts=(), init=None, method=None, attrs=(),
     for attr in attrs:
         value = getattr(obj, attr)
         got[attr] = _pack(value() if callable(value) else value)
-    later = [_pack(getattr(obj, m)(*placed(xs, lays)))
-             for m, xs, lays in then]
+    later = []
+    for step in then:
+        res = getattr(obj, step[0])(*placed(step[1], step[2]),
+                                    **(step[3] if len(step) > 3 else {}))
+        later.append(None if res is obj else _pack(res))
     return dict(out=_pack(out), attrs=got, then=later, tally=tally)
+
+
+def task_chain(fn, args=(), layouts=(), then=(), **kwargs):
+    """The port's ``fn`` on ``args`` placed by ``layouts`` (as
+    ``task_call``), then each (fn2, args2, layouts2, keywords2) of
+    ``then`` called on that first result and its own placed args: every
+    result packed beside the tally of its own call."""
+    import importlib
+
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
+
+    def func(name):
+        module, attr = name.split(":")
+        return getattr(importlib.import_module(
+            "rsvd_kamaneh_raganato_terrana_tpu_torch." + module), attr)
+
+    def placed(xs, lays):
+        lays = tuple(lays) + (None,) * (len(xs) - len(lays))
+        return [_placed_as(x, lay) for x, lay in zip(xs, lays)]
+
+    collectives.reset()
+    first = func(fn)(*placed(args, layouts), **kwargs)
+    out = [dict(out=_pack(first), tally=collectives.tally())]
+    for fn2, args2, lays2, kw2 in then:
+        collectives.reset()
+        res = func(fn2)(first, *placed(args2, lays2), **kw2)
+        out.append(dict(out=_pack(res), tally=collectives.tally()))
+    return out
 
 
 def task_raises(fn, args=(), layouts=(), cls_init=None, cls_method=None,

@@ -492,7 +492,11 @@ def test_lstsq_residual_sharded(mesh8, ranks):
 @pytest.mark.parametrize("fn, extra", [
     ("rsvd.krylov:rsvd_krylov", {}), ("rsvd.interp:cur", {"k": 4}),
     ("rsvd.nystrom:reigh", {"k": 4}),
-    ("rsvd.driver:rsvd_onepass", {"k": 4})])
+    ("rsvd.driver:rsvd_onepass", {"k": 4}),
+    ("linalg.qr:qr_reduced", {}), ("linalg.svd:svd", {}),
+    ("rsvd.deim:deim_indices", {}), ("apps.pod:standard_pod", {"rank": 4}),
+    ("rsvd.hodlr:hodlr_build", {"levels": 1, "k": 4}),
+    ("apps.cluster:spectral_cluster", {"n_clusters": 2})])
 def test_ragged_rows_raise(ranks, fn, extra):
     """A DTensor in torch's own uneven split (98 rows over 4 ranks)
     raises, as ``core/mesh.py::shard_rows`` does; only ``rsvd_sharded``

@@ -8,11 +8,20 @@ twice on small f64 inputs: the JAX function on operands row-sharded over
 an 8-device CPU mesh (tensors on mode 0), and the port's twin on the
 same operands as row-sharded DTensors of 4 gloo ranks
 (``tests/_torch_ranks.py``).  A call "runs" when it returns; the first
-line of what it raised is recorded otherwise.  Run from the repo root:
+line of what it raised is recorded otherwise.
 
-    env PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_sharded_audit.py [out.json]
+Two rows hand ``rsvd`` and ``RandomizedSVD`` a sparse operand placed
+with the row sharding: on the JAX side a BCOO given
+``NamedSharding(mesh, P('rows'))``, which JAX applies to the leaves of
+the BCOO (its data and indices, split by nonzero entries, so nse must
+divide the devices: it is padded to a multiple of 8; a third row leaves
+nse as ``fromdense`` makes it); on the port side a sparse COO tensor
+placed as a row-sharded DTensor.  Run from the repo root:
 
-(~1 min; prints one line a function and writes the table as JSON).
+    env PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_sharded_audit.py [out.json [label]]
+
+(~1 min; prints one line a function, the port's column headed by
+``label``, and writes the table as JSON).
 """
 
 import json
@@ -44,7 +53,8 @@ def operands():
         Y2=g.standard_normal((64, 7)), P2=g.standard_normal((64, 2)),
         idx=np.arange(4), X4=g.standard_normal((4, 48)), E4=np.eye(4),
         v0=g.standard_normal(64), y1=g.standard_normal(64),
-        C4=g.standard_normal((64, 4)))
+        C4=g.standard_normal((64, 4)),
+        SP=a * (g.random((64, 48)) < 0.2))
 
 
 # (module:callable, operand names, which are row-sharded, keywords
@@ -127,6 +137,10 @@ CALLS = [
     ("apps.kpca:rff_features", "A", (R,), dict(n_features=16)),
     ("apps.estimators:RandomizedSVD", "A", (R,), {},
      dict(n_components=4), "fit_transform"),
+    ("rsvd.driver:rsvd", "SP", ("sparse",), dict(k=4)),
+    ("rsvd.driver:rsvd", "SP", ("sparse_nse",), dict(k=4)),
+    ("apps.estimators:RandomizedSVD", "SP", ("sparse",), {},
+     dict(n_components=4), "fit_transform"),
     ("apps.estimators:RandomizedPCA", "A", (R,), {},
      dict(n_components=4), "fit_transform"),
     ("apps.cluster:spectral_cluster", "P2", (R,), dict(n_clusters=2)),
@@ -151,10 +165,29 @@ CALLS = [
 
 
 def _label(call):
-    fn, _, _, kw = call[:4]
-    extra = ",".join(f"{k}={v}" for k, v in kw.items()
-                     if k in ("kind", "damp", "method"))
-    return fn.split(":")[1] + (f"[{extra}]" if extra else "")
+    fn, _, lays, kw = call[:4]
+    extra = [f"{k}={v}" for k, v in kw.items()
+             if k in ("kind", "damp", "method")]
+    extra += [lay for lay in lays if lay.startswith("sparse")]
+    return fn.split(":")[1] + (f"[{','.join(extra)}]" if extra else "")
+
+
+def _jax_operand(x, lay, mesh):
+    """``x`` on the JAX side: row-sharded, a sparse BCOO given the row
+    sharding (nse padded to a multiple of 8, or as ``fromdense`` makes
+    it), or whole."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import sparse as jsparse
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    rows = NamedSharding(mesh, PartitionSpec("rows"))
+    if lay in ("sparse", "sparse_nse"):
+        nse = int(np.count_nonzero(x))
+        bcoo = jsparse.BCOO.fromdense(
+            jnp.asarray(x), nse=-(-nse // 8) * 8 if lay == "sparse" else nse)
+        return jax.device_put(bcoo, rows)
+    return jax.device_put(jnp.asarray(x), rows) if lay else jnp.asarray(x)
 
 
 def _first_line(exc):
@@ -165,8 +198,7 @@ def jax_side(ops):
     import importlib
 
     import jax
-    import jax.numpy as jnp
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+    from jax.sharding import Mesh
 
     jax.config.update("jax_enable_x64", True)
     mesh = Mesh(np.array(jax.devices()[:8]), ("rows",))
@@ -177,10 +209,10 @@ def jax_side(ops):
         obj = getattr(importlib.import_module(
             "rsvd_kamaneh_raganato_terrana_tpu." + module), name)
         lays = tuple(lays) + (None,) * (len(names.split()) - len(lays))
-        args = [jax.device_put(jnp.asarray(ops[n]), NamedSharding(
-            mesh, PartitionSpec("rows"))) if lay else jnp.asarray(ops[n])
-            for n, lay in zip(names.split(), lays)]
+        print("jax:", _label(call), file=sys.stderr, flush=True)
         try:
+            args = [_jax_operand(ops[n], lay, mesh)
+                    for n, lay in zip(names.split(), lays)]
             if len(call) > 4:
                 obj = getattr(obj(**call[4]), call[5])
             jax.block_until_ready(jax.tree_util.tree_leaves(
@@ -215,11 +247,12 @@ if __name__ == "__main__":
     ops = operands()
     port = port_side(ops)
     jx = jax_side(ops)
-    table = {k: dict(jax=jx[k], port=port[k]) for k in port}
-    for k, v in table.items():
-        print(f"{k:44s} jax {'runs' if v['jax'] is None else 'FAILS'}"
-              f"  port {'runs' if v['port'] is None else 'FAILS: '}"
-              f"{v['port'] or ''}")
+    label = sys.argv[2] if len(sys.argv) > 2 else "this tree"
+    table = {k: {"jax": jx[k], "port, " + label: port[k]} for k in port}
+    print(f"{'function':44s} jax, 8-device mesh | port, {label}")
+    for k in table:
+        print(f"{k:44s} {'runs' if jx[k] is None else 'FAILS: ' + jx[k]}"
+              f" | {'runs' if port[k] is None else 'FAILS: ' + port[k]}")
     if len(sys.argv) > 1:
         with open(sys.argv[1], "w") as f:
             json.dump(table, f, indent=1)
