@@ -329,7 +329,20 @@ Phases (any failure raises; nothing is caught):
    its plain version.  (b) Four spawned ranks sharing the card over
    gloo at P16B's cuts, each within 1e-4 of the single call (1e-3 for
    CG, Lanczos, k-means, the completion), or 10x that shift.
-17. A ``kernels`` JSON line, the card's name and power limit, and as the
+17. Sparse operands split by their entries over the ranks, ``PCA.
+   add_data`` on row-sharded data, the exact ``KernelPCA`` on a sharded
+   fit.  (a) A one-rank NCCL group in this process: MovieLens-20M's
+   shape (phase 11's operand) split by entries through ``rsvd`` (its
+   defaults, and through K1 and K3), ``rsvd_adaptive``, ``rsvd_onepass``,
+   ``RandomizedSVD`` and the two error certificates, each within
+   SP_SIGMA_TOL of the single call (cuSPARSE is not bitwise) beside the
+   single call's own run-to-run and draw shifts, every K1 and K3 launch
+   held to its plain version; ``PCA(X, method='eigh').add_data(Y)`` at
+   phase 7's 262144 x 1024 plus 65536 rows and ``KernelPCA`` 'auto' at
+   1024 points and 'exact' at 4096 (phase 11's width), bitwise.  (b)
+   Four spawned ranks sharing the card over gloo at P17B's cuts, within
+   the bars of (b) above.
+18. A ``kernels`` JSON line, the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when no CUDA device is visible or
@@ -1394,6 +1407,27 @@ def k5_launch_only(x32, stochastic):
     return launch
 
 
+def k5_library(x):
+    """``torch.quantize_per_tensor`` of ``x`` to quint8 with K5a's lo and
+    scale as 0-dim tensors (the zero point round(-lo / scale)): its ms,
+    and its levels against K5a's plain version.  It computes round(x /
+    scale) + zero point, lo rounded to a whole step, where K5a computes
+    round((x - lo) * (1 / scale)): not the same rounding, so measured
+    beside K5a, never held to it."""
+    lo, scale = kernels._quantize_range(x.to(torch.float32))
+    zero = torch.round(-lo / scale).to(torch.int64)
+
+    def call():
+        return torch.quantize_per_tensor(x, scale, zero, torch.quint8)
+    ms = cuda_ms(call, 20)
+    diff = (call().int_repr().int()
+            - kernels.quantize_uint8_reference(x, False)[0].int()).abs()
+    return dict(call="torch.quantize_per_tensor(x, scale, zero_point, "
+                "quint8)", ms=ms, max_level_diff=int(diff.max()),
+                share_of_levels_differing=float(
+                    (diff > 0).float().mean()))
+
+
 def phase_k5():
     """K5a and K5b against their plain versions (bitwise), K5b's
     statistics; returns the kernels-line fields of K5a and K5b."""
@@ -1429,6 +1463,7 @@ def phase_k5():
     numel = big.numel()
     aminmax_ms = cuda_ms(lambda: torch.aminmax(big), 20)
     bound_ms, bound_by = bound(0, 5 * numel)       # 4 B read, 1 B written
+    lib = k5_library(big)
     out = {}
     for stochastic, key in ((False, "K5a"), (True, "K5b")):
         ms = cuda_ms(lambda: kernels.quantize_uint8(big, stochastic, 7), 20)
@@ -1441,9 +1476,12 @@ def phase_k5():
             f"({bound_by})")
         out[key] = dict(max_abs_err=worst[stochastic], ms=ms,
                         kernel_only_ms=kernel_ms, plain_ms=plain_ms,
-                        library_ms=None, aminmax_ms=aminmax_ms,
+                        library_ms=None if stochastic else lib["ms"],
+                        aminmax_ms=aminmax_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
                         bytes_moved=5 * numel)
+    out["K5a"]["library_vs_plain"] = lib
+    log(f"  K5a's library call at {BIG}^2: " + json.dumps(lib))
     del big
     torch.cuda.empty_cache()
     return out
@@ -3564,14 +3602,15 @@ def zipf_draw(n, exponent, size, gen):
     return torch.clamp(torch.searchsorted(cdf, u), max=n - 1)
 
 
-def ml20m_operand(seed=0):
+def ml20m_operand(seed=0, shape=ML20M):
     """A synthetic interaction matrix of MovieLens-20M's shape (138,493
-    users x 26,744 items, 20,000,263 ratings): (user, item) pairs drawn
+    users x 26,744 items, 20,000,263 ratings; or ``shape``'s (users,
+    items, ratings)): (user, item) pairs drawn
     from power laws of user activity and item popularity (``ML_ZIPF``),
     distinct, ratings from a rank-``ML_FACTORS`` preference model plus
     noise rounded to half stars in [0.5, 5].  A coalesced COO tensor on
     the card."""
-    users, items, nnz = ML20M
+    users, items, nnz = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     draw = nnz + nnz // 10
     keys = zipf_draw(users, ML_ZIPF[0], draw, gen) * items + zipf_draw(
@@ -5876,6 +5915,9 @@ def p15_run(item, meshes, rank, one_rank, say, draws=P15_DRAWS,
         diffs = p13_compare(item.kinds, item.pick(got), item.pick(want))
         out["vs_single"] = diffs
         bars = {name: item.tol for name in diffs}
+        if not item.exact:
+            out["single_repeat"] = p13_compare(
+                item.kinds, item.pick(again), item.pick(want))
         if not one_rank or not item.exact:
             with p13_perturbed(draws):
                 moved = item.call(item.place(p16_jittered(ops), None)
@@ -6325,6 +6367,166 @@ def phase_sharded_rest():
     launches = [x + y for x, y in zip(la, lb)]
     out["launches_k1_to_k5b"] = launches
     log(f"  phase 16: {out['s']:.1f} s ((a) {out['a_s']:.1f} s), "
+        f"launches {launches}")
+    return launches, out
+
+
+# --- phase 17: sparse operands split by entries, PCA.add_data, exact KPCA --
+
+P17_TIMEOUT = 420.0       # s: the four ranks' whole run
+# (a) a split sparse call against the single call: cuSPARSE's products are
+# not bitwise from run to run (phase 11), so sigma within SP_SIGMA_TOL of
+# sigma_1, beside the single call's own run-to-run and draw shifts
+P17_TOL = SP_SIGMA_TOL
+# (b) cuts (the four ranks share the card and gloo's host hops; PERF.md
+# lists them): a quarter of ML-20M's users and ratings at its full item
+# width, P15B's PCA with a quarter as many new rows, 1024 and 2048
+# kernel-PCA points
+P17B = dict(ml=(34624, 26744, 5000066), pca=(32768, 256), pca_new=8192,
+            kpca=(1024, 2048))
+P17_PCA_NEW = 65536       # (a): rows appended to phase 7's 262144
+P17_ADAPTIVE = dict(tol=1e-2, k0=K, k_max=2 * K)   # stops at k_max
+P17_DRAWS = (("rsvd.driver", "generate_omega"), ("rsvd.driver", "gaussian"),
+             ("rsvd.diagnostics", "_probes"))
+P17_ML = {}               # the ML-20M operand of this process, made once
+
+
+def p17_ml(shape):
+    """The ML-20M-shaped operand (``ml20m_operand``), made once a process
+    and kept: every sparse item reads the same one."""
+    if shape not in P17_ML:
+        P17_ML.clear()
+        P17_ML[shape] = ml20m_operand(shape=shape)
+    return P17_ML[shape]
+
+
+def p17_split(*split):
+    """``place`` for a sparse operand and others: the sparse one split by
+    its entries (``shard_rows`` of a sparse tensor) on the mesh, or as
+    the single call's ``SparseStored`` (its CSRs built outside the
+    timed call, as the split's are); those marked True row-sharded."""
+    def place(ops, meshes):
+        if not meshes:
+            return (driver.sparse_operand(ops[0]),) + tuple(ops[1:])
+        return (shard_rows(ops[0], meshes["rows"]),) + tuple(
+            shard_rows(x, meshes["rows"]) if s else x
+            for x, s in zip(ops[1:], split + (False,) * len(ops)))
+    return place
+
+
+def p17_items(full):
+    """Phase 17's calls: (a) ``full`` at phases 7 and 11's sizes, (b) at
+    P17B's cuts."""
+    ml = ML20M if full else P17B["ml"]
+    pca_rows, pca_d = (PCA_ROWS, PCA_D) if full else P17B["pca"]
+    pca_new = P17_PCA_NEW if full else P17B["pca_new"]
+    kpca_n = (KPCA_EXACT_N, 4 * KPCA_EXACT_N) if full else P17B["kpca"]
+    diag = p15_mod("rsvd.diagnostics")
+    sig = dict(sigma="sigma")
+    sparse_kw = dict(k=K, p=P, q=Q)
+
+    def ml_a():
+        return (p17_ml(ml),)
+
+    def ml_factors():
+        a = p17_ml(ml)
+        u, s, v = rsvd(driver.sparse_operand(a), **sparse_kw)
+        return a, u, s, v
+
+    def pca_ops():
+        return (pca_operand(0, pca_rows, pca_d),
+                pca_operand(1, pca_new, pca_d))
+
+    def pca_add(ops):
+        p = pca.PCA(ops[0], method="eigh")
+        p.add_data(ops[1])
+        return p.getS(), p.getV(), p.scores()
+
+    def kpca_ops(n):
+        def build():
+            gen = torch.Generator(device="cuda").manual_seed(23)
+            return (kpca_points(n, gen), kpca_points(KPCA_NEW // 4, gen))
+        return build
+
+    def kpca_call(solver):
+        def call(ops):
+            kp = kpca.KernelPCA(KPCA_K, solver=solver).fit(ops[0])
+            return (kp.eigenvalues_, kp.alphas_, kp.scores_,
+                    kp.transform(ops[1]))
+        return call
+
+    def est_call(ops):
+        e = estimators.RandomizedSVD(n_components=K)
+        z = e.fit_transform(ops[0])
+        return (z, e.components_, e.singular_values_,
+                e.explained_variance_ratio_)
+
+    def item(name, build, call, pick, kinds, **kw):
+        kw.setdefault("place", p17_split())
+        return P15Item(name, build, call, pick, kinds, exact=False,
+                       tol=P17_TOL, **kw)
+
+    return [
+        item("sparse_rsvd", ml_a, lambda ops: rsvd(ops[0], **sparse_kw),
+             lambda r: dict(sigma=r[1]), sig),
+        item("sparse_rsvd_cholqr1_fused_eigh_pallas", ml_a,
+             lambda ops: rsvd(ops[0], qr_method="cholqr1_fused",
+                              method="eigh_pallas", **sparse_kw),
+             lambda r: dict(sigma=r[1]), sig,
+             kernels_run=("fused_cholqr1", "eigh_small")),
+        item("sparse_rsvd_adaptive", ml_a,
+             lambda ops: rsvd_adaptive(ops[0], **P17_ADAPTIVE),
+             lambda r: dict(sigma=r[1], k=torch.tensor(r[3])),
+             dict(sigma="sigma", k="index")),
+        item("sparse_rsvd_onepass", ml_a,
+             lambda ops: rsvd_onepass(ops[0], k=K),
+             lambda r: dict(sigma=r[1]), sig),
+        item("sparse_randomized_svd", ml_a, est_call,
+             lambda r: dict(s=r[2], ratio=r[3]),
+             dict(s="sigma", ratio="value")),
+        item("sparse_range_error_estimate", lambda: ml_factors()[:2],
+             lambda ops: diag.range_error_estimate(ops[0], ops[1]),
+             lambda r: dict(bound=r), dict(bound="value")),
+        item("sparse_factorization_error_estimate", ml_factors,
+             lambda ops: diag.factorization_error_estimate(*ops),
+             lambda r: dict(bound=r), dict(bound="value")),
+        # the scores' row norms are the centred rows' (every component is
+        # kept): they hold the rows' global order [X; Y]
+        P15Item("pca_add_data", pca_ops, pca_add,
+                lambda r: dict(s=r[0], rows=torch.linalg.norm(r[2], dim=1)),
+                dict(s="sigma", rows="value"), place=p15_rows(True, True)),
+        P15Item("kernel_pca_auto", kpca_ops(kpca_n[0]), kpca_call("auto"),
+                lambda r: dict(lam=r[0], z=r[3]), dict(lam="sigma",
+                                                      z="gram"),
+                place=p15_rows(True, False)),
+        P15Item("kernel_pca_exact", kpca_ops(kpca_n[1]),
+                kpca_call("exact"),
+                lambda r: dict(lam=r[0], z=r[3]), dict(lam="sigma",
+                                                      z="gram"),
+                place=p15_rows(True, False)),
+    ]
+
+
+P17_RUN = functools.partial(p15_run, draws=P17_DRAWS, tag="phase 17",
+                            vs_plain=P16_VS_PLAIN)
+
+
+def phase_sharded_last():
+    """Phase 17: sparse operands split by entries, ``PCA.add_data`` on
+    row-sharded data, the exact ``KernelPCA`` on a sharded fit.  Returns
+    ((K1, K2, K3, K4, K5a, K5b) launches of its counted runs, summary)."""
+    t0 = time.perf_counter()
+    out = {}
+    la, out["nccl_one_rank"] = p13_one_rank_nccl(p17_items, P17_RUN)
+    P17_ML.clear()
+    torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t0
+    lb, out["gloo_four_ranks"] = p13_four_ranks(
+        p17_items, P17_RUN, "phase 17", P17_TIMEOUT, P17B)
+    out["s"] = time.perf_counter() - t0
+    launches = [x + y for x, y in zip(la, lb)]
+    out["launches_k1_to_k5b"] = launches
+    log(f"  phase 17: {out['s']:.1f} s ((a) {out['a_s']:.1f} s), "
         f"launches {launches}")
     return launches, out
 
@@ -6811,6 +7013,12 @@ def main(argv):
     rest_launches, rest_summary = phase_sharded_rest()
     launches_total = [t + c for t, c in zip(launches_total, rest_launches)]
 
+    phase("phase 17: sparse operands split by entries, PCA.add_data on "
+          "row-sharded data, the exact KernelPCA on a sharded fit (one-rank "
+          "NCCL group; four ranks sharing the card over gloo)")
+    last_launches, last_summary = phase_sharded_last()
+    launches_total = [t + c for t, c in zip(launches_total, last_launches)]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -6853,7 +7061,7 @@ def main(argv):
         "apps_streaming": app_summary, "distributed": dist_summary,
         "sharded_extensions": ext_sh_summary,
         "edge_and_checkpoint": edge_summary, "sharded_api": api_summary,
-        "sharded_rest": rest_summary}
+        "sharded_rest": rest_summary, "sharded_last": last_summary}
     phase("all phases done")
     log(json.dumps(kernels_line))
     log(smi.stdout.strip())

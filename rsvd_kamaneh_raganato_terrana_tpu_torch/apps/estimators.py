@@ -19,7 +19,11 @@ are the local ones), the fitted attributes are replicated numpy arrays
 as on one card, and the scores of ``fit_transform``, ``transform`` and
 ``inverse_transform`` of row-sharded rows come back as row-sharded
 DTensors (each rank's rows computed on the host as one card computes
-them).
+them).  ``RandomizedSVD`` also takes a sparse X split by its entries
+over the ranks (``core/mesh.py::shard_rows`` of a sparse tensor, as JAX
+places a BCOO): the fit and ``transform`` run on the all-reduced
+products of the sharded ``rsvd`` and come back whole, and the variance's
+per-column sums are summed over the ranks.
 
 sklearn is optional: if importable, the classes subclass
 BaseEstimator/TransformerMixin; otherwise a minimal duck-typed base with
@@ -35,6 +39,7 @@ import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.convert import to_numpy
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    EntrySplit,
     Sharded,
     is_dtensor,
 )
@@ -83,13 +88,14 @@ def _on_device(x, device):
     ``device`` names another, a sparse one becomes the driver's
     :class:`SparseStored` (built once, for the factorization and the
     variance alike); any other array goes to ``device`` (the card when
-    None); a DTensor becomes its row-split view."""
+    None); a DTensor becomes its row-split view, an entry-split sparse X
+    stays as it is."""
     if is_dtensor(x):
         return _row_split(x)
     if isinstance(x, torch.Tensor):
         x = x if device is None else x.to(device)
         return sparse_operand(x) if is_sparse(x) else x
-    if isinstance(x, SparseStored):
+    if isinstance(x, (SparseStored, EntrySplit)):
         return x
     return torch.as_tensor(np.asarray(x), device=device or "cuda")
 
@@ -97,16 +103,18 @@ def _on_device(x, device):
 def _total_column_variance(x) -> float:
     """sum_j Var(X[:, j]) (sklearn's TruncatedSVD ratio denominator),
     without densifying a sparse x: per-column sums of the stored values
-    and of their squares, in f64, duplicates summed first."""
+    and of their squares, in f64, duplicates summed first (an
+    entry-split x: its run's sums, all-reduced)."""
     if is_sparse(x):
-        xs = sparse_operand(x).fwd                 # CSR, duplicates summed
+        local = x.local if isinstance(x, EntrySplit) else sparse_operand(x)
+        xs = local.fwd                             # CSR, duplicates summed
         data = xs.values()
         col = xs.col_indices().to(torch.int64)
         n, nf = xs.shape
-        sq = torch.zeros(nf, dtype=torch.float64, device=data.device)
-        cs = torch.zeros(nf, dtype=torch.float64, device=data.device)
-        sq.index_add_(0, col, (data * data).to(torch.float64))
-        cs.index_add_(0, col, data.to(torch.float64))
+        sums = torch.zeros((2, nf), dtype=torch.float64, device=data.device)
+        sums[0].index_add_(0, col, (data * data).to(torch.float64))
+        sums[1].index_add_(0, col, data.to(torch.float64))
+        sq, cs = _reduce(sums, x)
         return float(torch.sum(sq / n - (cs / n) ** 2))
     if isinstance(x, (torch.Tensor, Sharded)):
         return float(torch.sum(_spread(x, correction=0)))

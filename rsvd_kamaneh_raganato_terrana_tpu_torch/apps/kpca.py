@@ -24,9 +24,13 @@ of K needs every point, so ``fit`` gathers X (n x d) once, a counted
 all-gather and the one whole gather of the sharded API; K (n x n) is
 built and kept row-split, its centring means are merged over the ranks,
 its symmetrization reads K^T through one all-to-all, and the
-randomized and Nystrom solvers run on the row-split K (the exact eigh
-needs K whole and refuses it).  ``alphas_`` and ``scores_`` come back
-row-sharded, ``transform`` of row-sharded rows row-sharded.  The
+randomized and Nystrom solvers run on the row-split K.  The exact solver
+(and 'auto' up to n = 1024) gathers the centred K (n x n, one counted
+all-gather of n^2 itemsize bytes a rank) and runs the eigh replicated on
+every rank, as XLA runs the JAX package's ``jnp.linalg.eigh`` of a
+sharded K; each rank keeps its rows of the eigenvectors.  ``alphas_``
+and ``scores_`` come back row-sharded, ``transform`` of row-sharded
+rows row-sharded.  The
 feature maps take row-sharded rows and return them row-sharded.
 """
 
@@ -42,7 +46,6 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     eigh,
     matmul_at,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import key_from_seed
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
@@ -51,6 +54,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _like,
     _local,
     _mean,
+    _row_block,
     _row_split,
     _sharded_view,
     _to_api,
@@ -132,8 +136,9 @@ def _fit_impl(x, kernel: str, gamma, degree: int, coef0, k: int,
     del kmat, local
     kc = _like(x, 0.5 * (_local(kc) + _local(_transpose(kc))))
     if solver == "exact":
-        w, v = eigh(kc)
+        w, v = eigh(_whole(kc))           # a row-split K gathered once
         w, v = w.flip(0)[:k], v.flip(1)[:, :k]
+        v = _like(kc, _row_block(kc, v))
     elif solver == "randomized":
         w, v = _reigh_impl(kc, k=k, p=p, q=2, seed=seed,
                            precision="highest")
@@ -198,10 +203,6 @@ class KernelPCA:
             solver = "exact" if x.shape[0] <= 1024 else "randomized"
         if solver not in ("exact", "randomized", "nystrom"):
             raise ValueError(f"unknown solver {solver!r}")
-        if solver == "exact" and isinstance(x, Sharded):
-            raise ValueError("the exact eigh reads K whole: fit sharded "
-                             "points with solver='randomized' or "
-                             "'nystrom'")
         gamma, degree, coef0 = self._params()
         (self._col_means, self._tot, self.eigenvalues_, alphas,
          self._inv_sqrt, scores) = _fit_impl(

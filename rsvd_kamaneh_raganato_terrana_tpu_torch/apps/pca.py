@@ -27,6 +27,7 @@ says (the Jacobi engines on the R factor of its row-split thin QR, the
 Gram engines on its all-reduced Gram); ``use_rsvd`` goes through the
 sharded ``rsvd``.  U, the scores and what ``project`` returns for
 row-sharded rows come back row-sharded, the rest replicated.
+``add_data`` appends to the row split and refits.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.io import (
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.svd import SVDMethod, svd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
+    _append_rows,
     _like,
     _local,
     _mean,
@@ -170,12 +172,19 @@ class PCA:
             matmul_at(self._v.T, self._v, "highest") - eye))
 
     def add_data(self, new_rows):
-        """Append observations and recompute (a PCA of whole data)."""
-        if isinstance(self._raw, Sharded):
-            raise ValueError("add_data appends to whole data; a sharded "
-                             "PCA is refitted on the new DTensor")
-        new = as_tensor(new_rows, self._raw.device, self._raw.dtype)
-        self._assign(torch.cat([self._raw, new], dim=0))
+        """Append observations and recompute (a PCA of whole data).  On
+        row-sharded data the new rows (a DTensor on the same mesh, a
+        tensor or an array) join the row split in the order [data; new]
+        (``rsvd/_sharded.py::_append_rows``: one all-to-all, nothing
+        gathered), and the PCA is refitted as a sharded one."""
+        raw = self._raw
+        if isinstance(raw, Sharded):
+            data = _append_rows(raw, _row_split(new_rows, raw.device,
+                                                raw.dtype))
+        else:
+            data = torch.cat([raw, as_tensor(new_rows, raw.device,
+                                             raw.dtype)], dim=0)
+        self._assign(data)
         self._initialize()
         return self
 

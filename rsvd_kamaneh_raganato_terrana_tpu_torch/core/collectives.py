@@ -112,13 +112,20 @@ def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
-def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+def all_to_all(t: torch.Tensor, group=None, send_rows=None,
+               recv_rows=None) -> torch.Tensor:
     """Block r of ``t``'s dim 0 goes to rank r; the received blocks are
-    stacked in rank order."""
+    stacked in rank order.  The blocks are even, or ``send_rows[r]`` rows
+    go to rank r and ``recv_rows[r]`` come from it (both lists given)."""
     t = t.contiguous()
     rec = _Record("all_to_all", t)
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=group)
+    if send_rows is None:
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group)
+    else:
+        out = t.new_empty((sum(recv_rows),) + tuple(t.shape[1:]))
+        dist.all_to_all_single(out, t, list(recv_rows), list(send_rows),
+                               group=group)
     rec.done()
     return out
 

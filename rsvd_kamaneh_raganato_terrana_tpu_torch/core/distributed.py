@@ -17,6 +17,9 @@ XLA's partitioner).
   (``core/collectives.py``), as the JAX ``*_sharded`` variants do:
   DTensor's op dispatch has no rules for Cholesky, eigh or the
   triangular solve, and cannot carry the hand-written kernels.
+- :class:`EntrySplit` is a sparse operand whose stored entries are split
+  over the ranks (:func:`shard_entries`), JAX's BCOO placed with the row
+  sharding; DTensor holds no sparse tensor.
 
 One process and no launcher: the same API with nothing to do.
 """
@@ -250,6 +253,71 @@ class Sharded:
             keep = max(0, min(local.shape[0], rows - self.row_start))
             local, m = local[:keep], rows
         return row_dtensor(local, self.mesh, self.rows, m)
+
+
+class EntrySplit:
+    """A sparse matrix whose stored entries are split over a mesh axis,
+    the counterpart of a BCOO placed by ``jax.device_put(a,
+    NamedSharding(mesh, P('rows')))``: JAX applies the placement to the
+    BCOO's data and indices, so each device holds a run of the nonzero
+    list, not a block of rows.  ``local`` is this rank's run held at A's
+    whole m x n shape, as the driver's ``SparseStored`` (the run's CSR
+    and its transpose's); ``entries`` is the :class:`Axis` the list is
+    split over.  A is the sum of the ranks' runs, so a product with A is
+    the local product summed over the axis (one counted all-reduce), and
+    replicated, as JAX's is.  ``.T`` swaps the local CSRs and moves
+    nothing.  Made by :func:`shard_entries`."""
+
+    def __init__(self, local, mesh: DeviceMesh, entries: Axis):
+        self.local, self.mesh, self.entries = local, mesh, entries
+
+    @property
+    def T(self):
+        return EntrySplit(self.local.T, self.mesh, self.entries)
+
+    @property
+    def shape(self):
+        return self.local.shape
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    @property
+    def device(self):
+        return self.local.device
+
+    def values(self):
+        """This rank's stored entries (duplicates summed)."""
+        return self.local.values()
+
+    def reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t``, this rank's part of a sum (or 'max', 'min') over A's
+        entries, completed over the axis by a counted all-reduce."""
+        return collectives.all_reduce(t, self.entries.group, op)
+
+
+def shard_entries(a, mesh: DeviceMesh, axis=ROWS_AXIS) -> EntrySplit:
+    """A torch sparse tensor (any layout, the same on every rank) split by
+    its stored entries over ``axis``: duplicates summed, the row-major
+    entry list cut into as many runs of near-equal length as the axis
+    has ranks (run r is entries [r nse / P, (r + 1) nse / P)), and this
+    rank's run kept as an :class:`EntrySplit`.  Nothing is sent.  Any
+    nse is taken; JAX's placement needs nse to divide the devices, a
+    rule of ``device_put``, not of the products."""
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
+        sparse_operand,
+    )
+
+    ax = mesh_axis(mesh, axis)
+    coo = a if a.layout == torch.sparse_coo else a.to_sparse_coo()
+    coo = coo.coalesce()
+    nse = coo._nnz()
+    lo, hi = ax.index * nse // ax.size, (ax.index + 1) * nse // ax.size
+    run = torch.sparse_coo_tensor(coo.indices()[:, lo:hi],
+                                  coo.values()[lo:hi], coo.shape,
+                                  check_invariants=False, is_coalesced=True)
+    return EntrySplit(sparse_operand(run), mesh, ax)
 
 
 def row_dtensor(local: torch.Tensor, mesh: DeviceMesh, rows: Axis,

@@ -131,7 +131,17 @@ def distribute(x: torch.Tensor, mesh: DeviceMesh, placements) -> DTensor:
 def shard_rows(x, mesh: DeviceMesh, axis=ROWS_AXIS) -> DTensor:
     """``x`` row-sharded over ``axis`` as a DTensor.  The row count must
     divide the axis' ranks (the JAX contract); zero-pad remainder shapes
-    first with :func:`pad_rows_for_mesh` and crop the results."""
+    first with :func:`pad_rows_for_mesh` and crop the results.
+
+    A torch sparse tensor (any layout) is placed as JAX places a BCOO
+    given the row sharding: split by its stored entries
+    (``core/distributed.py::shard_entries``), any nse."""
+    if isinstance(x, torch.Tensor) and x.layout != torch.strided:
+        from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+            shard_entries,
+        )
+
+        return shard_entries(x, mesh, axis)
     n = axis_size(mesh, axis)
     if x.shape[0] % n:
         raise ValueError(f"rows={x.shape[0]} not divisible by {n} ranks on "

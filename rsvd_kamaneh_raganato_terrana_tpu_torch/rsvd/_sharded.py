@@ -6,7 +6,11 @@ products, reductions and layouts through which a row-sharded operand
 A function that takes a sharded operand reads it as its :class:`Sharded`
 view (:func:`_row_split`, :func:`_sharded_view`), works on the local
 block through these helpers (never DTensor arithmetic), and hands an
-m-row result back as a row-sharded DTensor (:func:`_to_api`).  On one
+m-row result back as a row-sharded DTensor (:func:`_to_api`).  A sparse
+operand split by its entries (``core/distributed.py::EntrySplit``)
+passes through both as it is: its products (:func:`_entry_mm`) and
+reductions (:func:`_reduce`) come back replicated, so every panel of a
+call on it is a whole tensor, as JAX's are on such an operand.  On one
 rank every helper computes the single-card operation: a reduction of one
 partial is that partial, so a one-rank call is the single call to the
 bit.
@@ -29,6 +33,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     matmul_at,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    EntrySplit,
     Sharded,
     from_dtensor,
     is_dtensor,
@@ -40,7 +45,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
 def _sharded_view(a):
     """A DTensor operand, or an :class:`Int8Stored` of row-sharded
     DTensors, as :class:`Sharded` (``core/distributed.py``); anything else
-    as it is."""
+    (an :class:`EntrySplit` too) as it is."""
     if is_dtensor(a):
         return from_dtensor(a)
     if isinstance(a, driver.Int8Stored) and is_dtensor(a.q8):
@@ -95,6 +100,17 @@ def _t_mm_split(x: Sharded, y: Sharded, precision):
     if y.cols is not None:
         z = collectives.all_gather(z.T, y.cols.group).T
     return z
+
+
+def _entry_mm(a, b, precision):
+    """A product with an entry-split sparse operand (:class:`EntrySplit`)
+    and a whole one: the local run's product, a forward CSR product as on
+    one card, summed over the ranks by one counted all-reduce;
+    replicated.  On one rank the run is all of A, and this is the single
+    call's product."""
+    if isinstance(a, EntrySplit):
+        return a.reduce(driver._mm(a.local, b, precision))
+    return b.reduce(driver._mm(a, b.local, precision))
 
 
 def _sharded_mm(a, b, precision):
@@ -176,8 +192,11 @@ def _whole(x):
 
 def _reduce(t, x, op: str = "sum"):
     """``t``, a reduction ('sum', 'max' or 'min') over this rank's rows of
-    ``x``, completed over x's row group by a counted all-reduce where x is
-    split: the partitioner's reduction of a row-sharded operand."""
+    ``x`` (or its entries, for an :class:`EntrySplit`), completed over x's
+    row group by a counted all-reduce where x is split: the
+    partitioner's reduction of a row-sharded operand."""
+    if isinstance(x, EntrySplit):
+        return x.reduce(t, op)
     if isinstance(x, Sharded):
         return collectives.all_reduce(t, x.rows.group, op)
     return t
@@ -193,7 +212,10 @@ def _row_split(a, device=None, dtype=None):
     """An extension's operand: a DTensor as its :class:`Sharded` view,
     rows split and columns whole; any other operand as a tensor
     (``as_tensor(a, device, dtype)``: an array goes to the card unless
-    ``device`` names another); a view as it is."""
+    ``device`` names another); a view, a ``SparseStored`` or an
+    :class:`EntrySplit` as it is."""
+    if isinstance(a, (EntrySplit, driver.SparseStored)):
+        return a
     if isinstance(a, Sharded) or is_dtensor(a):
         return row_view(a)
     return as_tensor(a, device, dtype)
@@ -205,6 +227,54 @@ def _cat_cols(parts):
         return parts[0].with_local(torch.cat([p.local for p in parts],
                                              dim=1))
     return torch.cat(parts, dim=1)
+
+
+def _append_rows(x: Sharded, new) -> Sharded:
+    """[x; new] of a row-split panel ``x`` and rows ``new`` of its width
+    (a panel split by the same rows, or a tensor every rank holds whole),
+    split evenly over x's ranks in that global order, as
+    ``jnp.concatenate`` of two row-sharded arrays is.  Each rank's rows
+    arrive by one counted all-to-all of uneven blocks (rank r sends each
+    rank the rows of its blocks that land there; rows held whole are not
+    sent, each rank takes its own from its copy).  Nothing is gathered."""
+    p, me = x.rows.size, x.rows.index
+    m0, m1 = x.shape[0], new.shape[0]
+    if (m0 + m1) % p:
+        raise ValueError(f"{m0} + {m1} rows do not divide over {p} ranks")
+    b = (m0 + m1) // p
+    split_new = isinstance(new, Sharded)
+
+    def runs(r):
+        """(first global row, row count) of each block rank r sends."""
+        return [(r * (m0 // p), m0 // p)] + (
+            [(m0 + r * (m1 // p), m1 // p)] if split_new else [])
+
+    def cut(run, dest):
+        lo = max(run[0], dest * b)
+        return lo, max(lo, min(run[0] + run[1], (dest + 1) * b))
+
+    blocks = [x.local] + ([new.local] if split_new else [])
+    parts, send_rows = [], []
+    for dest in range(p):
+        cuts = [cut(run, dest) for run in runs(me)]
+        parts += [blk[lo - run[0]:hi - run[0]]
+                  for (lo, hi), run, blk in zip(cuts, runs(me), blocks)]
+        send_rows.append(sum(hi - lo for lo, hi in cuts))
+    pieces, recv_rows = [], []          # (first global row, rows) received
+    for src in range(p):
+        cuts = [cut(run, me) for run in runs(src)]
+        pieces += [(lo, hi - lo) for lo, hi in cuts if hi > lo]
+        recv_rows.append(sum(hi - lo for lo, hi in cuts))
+    got = collectives.all_to_all(torch.cat(parts), x.rows.group, send_rows,
+                                 recv_rows)
+    if pieces != sorted(pieces):        # received by rank, not by row
+        chunks = got.split([n for _, n in pieces])
+        got = torch.cat([c for _, c in sorted(
+            zip((lo for lo, _ in pieces), chunks), key=lambda t: t[0])])
+    if not split_new:
+        lo = max(me * b - m0, 0)
+        got = torch.cat([got, new[lo:max(lo, (me + 1) * b - m0)]])
+    return Sharded(got, (m0 + m1, x.shape[1]), x.mesh, x.rows)
 
 
 def _partials(t, x):

@@ -25,7 +25,11 @@ The certificates and the norm estimates take a DTensor whose rows are
 sharded (Q, U row-sharded alike, as ``rsvd`` returns them): the probes
 are drawn whole, as on one card, the m-sized panels stay row-split, and
 the column norms and the power iteration's norms are completed over the
-rows (``rsvd/_sharded.py``), so the estimates come back replicated.
+rows (``rsvd/_sharded.py``), so the estimates come back replicated.  The
+certificates also take a sparse operand split by its entries
+(``core/distributed.py::EntrySplit``; a row-sharded Q or U is then
+gathered): its products are all-reduced whole panels.  The norm
+estimates refuse one, as the JAX package fails on a BCOO so placed.
 """
 
 from __future__ import annotations
@@ -34,7 +38,10 @@ import math
 
 import torch
 
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    EntrySplit,
+    Sharded,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     fold_in_shard,
     gaussian,
@@ -53,6 +60,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _reduce,
     _row_split,
     _sharded_view,
+    _whole,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import _mm
 
@@ -87,6 +95,8 @@ def range_error_estimate(a, q_mat, seed=0, num_probes: int = 10):
     probability >= 1 - 10^{-num_probes} over the probes (drawn from a
     stream disjoint from ``generate_omega``'s for the same seed)."""
     a, q_mat = _row_split(a), _sharded_view(q_mat)
+    if isinstance(a, EntrySplit):
+        q_mat = _whole(q_mat)
     g = _probes(seed, (a.shape[1], num_probes), a.dtype, a.device)
     ag = _mm(a, g, _HI)                            # m x r
     proj = _mm(q_mat, _mm(q_mat.T, ag, _HI), _HI)
@@ -98,6 +108,8 @@ def factorization_error_estimate(a, u, s, v, seed=0, num_probes: int = 10):
     argument applied to the factorization's residual operator; probes
     from the salted stream, see ``_probe_key``)."""
     a, u = _row_split(a), _sharded_view(u)
+    if isinstance(a, EntrySplit):
+        u = _whole(u)
     g = _probes(seed, (a.shape[1], num_probes), a.dtype, a.device)
     ag = _mm(a, g, _HI)
     fit = _mm(_like(u, _local(u) * s[None, :]), _mm(v.T, g, _HI), _HI)
@@ -172,11 +184,24 @@ def factor_health(u, s, v, tol: float = 1e-2) -> dict:
     return out
 
 
+def _refuse_entry_split(a, name: str, jax_error: str):
+    """Raise for an entry-split sparse operand, naming what the JAX
+    package does with its counterpart (a BCOO placed with the row
+    sharding): it fails too, so the port adds no such path."""
+    if isinstance(a, EntrySplit):
+        raise TypeError(f"{name} takes no sparse operand split by entries "
+                        "over the ranks; the JAX package fails on a BCOO "
+                        f"placed with P('rows') as well ({jax_error})")
+
+
 def spectral_norm_estimate(a, seed=0, num_iters: int = 30):
     """||A||_2 estimate by power iteration on the Gram operator
     (x <- A^T (A x)).  A lower bound that converges geometrically in
     (sigma_2/sigma_1)^2."""
     a = _row_split(a)
+    _refuse_entry_split(a, "spectral_norm_estimate", "power_triplet's "
+                        "jnp.matmul raises 'matmul requires ndarray or "
+                        "scalar arguments, got BCOO'")
     x0 = _probes(seed, (a.shape[1],), a.dtype, a.device)
     if not isinstance(a, Sharded):
         sigma, _, _ = power_triplet(a, x0, num_iters)
@@ -195,6 +220,9 @@ def stable_rank_estimate(a, seed=0, num_iters: int = 30):
     and ||A||_2 from :func:`spectral_norm_estimate` (so a slight
     over-estimate while the power iteration has not converged)."""
     a = _row_split(a)
+    _refuse_entry_split(a, "stable_rank_estimate", "jnp.asarray of the "
+                        "BCOO raises 'setting an array element with a "
+                        "sequence'")
     fro_sq = _reduce(torch.sum(torch.square(_local(a))), a)
     sig = spectral_norm_estimate(a, seed=seed, num_iters=num_iters)
     return fro_sq / torch.clamp(sig * sig, min=torch.finfo(a.dtype).tiny)

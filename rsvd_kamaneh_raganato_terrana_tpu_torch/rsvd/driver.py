@@ -39,7 +39,14 @@ Sparse operands (a torch sparse tensor of any layout, the counterpart of
 the JAX package's BCOO) are held as :class:`SparseStored`: A and A^T as
 two CSR tensors built once, so every stage-A product is a forward CSR
 product (cuSPARSE SpMM on the card).  Precision flags do not apply to
-them, and the storage modes neither cast nor quantize them.
+them, and the storage modes neither cast nor quantize them.  A sparse
+operand split by its entries over the ranks (``core/mesh.py::
+shard_rows`` of a sparse tensor, an ``EntrySplit``: JAX's BCOO placed
+with the row sharding) goes through ``rsvd``, ``rsvd_with_omega``,
+``rsvd_adaptive``, ``rsvd_onepass``, ``rsvd_warm``, ``power_refine`` and
+``subspace_iteration``: each product is the rank's run of entries
+times a whole panel, all-reduced (``rsvd/_sharded.py::_entry_mm``), so
+every panel, and U, is replicated, as JAX's are.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import (
     resolve_precision,
 )
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
+    EntrySplit,
     Sharded,
     from_dtensor,
     is_dtensor,
@@ -88,6 +96,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _cat_cols,
     _cols,
+    _entry_mm,
     _like,
     _local,
     _norm,
@@ -96,6 +105,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _sharded_mm,
     _sharded_view,
     _to_api,
+    _whole,
 )
 
 _FINISHES = ("project", "rowspace", "utv", "rowspace_utv")
@@ -226,8 +236,9 @@ def _csr(coo):
 
 
 def is_sparse(x) -> bool:
-    """A :class:`SparseStored` or a torch sparse tensor of any layout."""
-    return isinstance(x, SparseStored) or (
+    """A :class:`SparseStored`, an entry-split one (``EntrySplit``) or a
+    torch sparse tensor of any layout."""
+    return isinstance(x, (SparseStored, EntrySplit)) or (
         isinstance(x, torch.Tensor) and x.layout != torch.strided)
 
 
@@ -243,11 +254,11 @@ def sparse_operand(a) -> SparseStored:
 
 
 def _as_operand(a):
-    """An :class:`Int8Stored` or :class:`SparseStored` stays as it is, a
-    sparse tensor becomes a :class:`SparseStored` on its device, a dense
-    tensor stays where it is; anything else (a numpy array, a list)
-    becomes a tensor on the card."""
-    if isinstance(a, (Int8Stored, SparseStored, Sharded)):
+    """An :class:`Int8Stored` or :class:`SparseStored` (entry-split too)
+    stays as it is, a sparse tensor becomes a :class:`SparseStored` on
+    its device, a dense tensor stays where it is; anything else (a numpy
+    array, a list) becomes a tensor on the card."""
+    if isinstance(a, (Int8Stored, SparseStored, Sharded, EntrySplit)):
         return a
     if isinstance(a, torch.Tensor):
         return sparse_operand(a) if is_sparse(a) else a
@@ -359,6 +370,8 @@ def _mm(a, b, precision=DOT_PRECISION):
     operand mixed with a wider one -> the SMALL side is rounded to bf16
     and the product accumulates and returns in the wide dtype (never
     widening the big operand); any other mix promotes."""
+    if isinstance(a, EntrySplit) or isinstance(b, EntrySplit):
+        return _entry_mm(a, b, precision)
     if isinstance(a, Sharded) or isinstance(b, Sharded):
         return _sharded_mm(a, b, precision)
     if isinstance(a, Int8Stored):
@@ -418,12 +431,15 @@ def power_refine(a, q_mat, q: int, qr_method: str = "robust",
     every orthonormalization except the final one; ``'none'`` only
     column-normalizes.  A sharded A (the module docstring) takes Q
     row-sharded alike, or whole on every rank (each rank keeps its
-    rows), and gives it back row-sharded."""
+    rows), and gives it back row-sharded; an entry-split sparse A
+    gathers a row-sharded Q and gives it back whole."""
     api = _at_api(a, q_mat)
     a, q_mat = _sharded_view(a), _sharded_view(q_mat)
     if isinstance(a, Sharded) and not a.transposed \
             and not isinstance(q_mat, Sharded):
         q_mat = a.with_local(_row_block(a, q_mat))
+    if isinstance(a, EntrySplit):
+        q_mat, api = _whole(q_mat), False       # replicated, as JAX's
     q_mat = _power_rounds(a, q_mat, q, qr_method, precision, reorth,
                           interior_qr)
     return _to_api(q_mat) if api else q_mat
@@ -493,7 +509,7 @@ def _stage_operand(a, precision):
         if precision in STORAGE_BF16 and a.dtype.itemsize > 2:
             return a.to(torch.bfloat16)
         return a
-    if isinstance(a, (Int8Stored, Sharded)):
+    if isinstance(a, (Int8Stored, Sharded, EntrySplit)):
         return a
     if is_sparse(a):
         return sparse_operand(a)
@@ -812,11 +828,13 @@ def rsvd_adaptive(a, tol: float, k0: int = 16, k_max: Optional[int] = None,
     ||A||_F^2 is the sum of its stored values' squares.  A DTensor
     whose rows are sharded runs on its blocks: ||A||_F^2 and the
     products are all-reduced, every block's Omega is drawn whole, U comes
-    back row-sharded."""
+    back row-sharded.  An entry-split sparse A sums its runs' squares
+    and products over the ranks; U comes back whole."""
     a = _sharded_view(_as_operand(a))
     if isinstance(_local(a), Int8Stored):
         raise TypeError("rsvd_adaptive takes a dense or sparse tensor")
-    vals = a.values() if isinstance(a, SparseStored) else _local(a)
+    vals = a.values() if isinstance(a, (SparseStored, EntrySplit)) \
+        else _local(a)
     a_norm_sq = float(_reduce(torch.sum(torch.square(vals)), a))
     m, n = a.shape
     min_dim = min(m, n)
@@ -875,7 +893,8 @@ def rsvd_onepass(a, k: int, p: int = 16, s_factor: int = 2,
     A DTensor whose rows are sharded (or an :class:`Int8Stored` of
     row-sharded DTensors) is read block by block: Omega and Psi are drawn
     whole, Psi^T A is the local rows' product all-reduced, the small
-    factors are replicated and U comes back row-sharded."""
+    factors are replicated and U comes back row-sharded.  An entry-split
+    sparse A all-reduces both sketches' products; U comes back whole."""
     a = _sharded_view(_as_operand(a))
     resolve_precision(precision)
     m, n = a.shape
@@ -888,7 +907,7 @@ def rsvd_onepass(a, k: int, p: int = 16, s_factor: int = 2,
         a_stage = Sharded(quantize_int8_rows(a.local), a.shape, a.mesh,
                           a.rows)
     elif precision in STORAGE_INT8 and not isinstance(
-            a, (Int8Stored, SparseStored, Sharded)):
+            a, (Int8Stored, SparseStored, Sharded, EntrySplit)):
         a_stage = quantize_int8_rows(a)
     key = key_from_seed(seed, a.device)
     omega = gaussian(key, (n, l), dtype)
@@ -915,7 +934,8 @@ def rsvd_warm(a, q_prev, k: int = 0, q: int = 1, method: str = "eigh",
 
     A DTensor whose rows are sharded takes ``q_prev`` row-sharded alike
     (the U of a previous sharded call) or whole on every rank (each rank
-    keeps its rows); U comes back row-sharded."""
+    keeps its rows); U comes back row-sharded.  An entry-split sparse A
+    takes ``q_prev`` either way and gives U whole."""
     a = _sharded_view(_as_operand(a))
     resolve_precision(precision)
     q_prev = _sharded_view(q_prev)
@@ -923,6 +943,8 @@ def rsvd_warm(a, q_prev, k: int = 0, q: int = 1, method: str = "eigh",
         q_prev = torch.as_tensor(q_prev, device=a.device)
     if isinstance(a, Sharded) and not isinstance(q_prev, Sharded):
         q_prev = a.with_local(_row_block(a, q_prev))
+    if isinstance(a, EntrySplit):
+        q_prev = _whole(q_prev)
     q_mat = orthonormal_basis(q_prev, qr_method)
     q_mat = power_refine(a, q_mat, q, qr_method, precision, reorth)
     b = _mm(q_mat.T, a, precision)

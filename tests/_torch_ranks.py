@@ -202,6 +202,26 @@ def _omega_patched(omega):
         yield
 
 
+@contextmanager
+def _draws_patched(draws):
+    """Each 'module:name' of ``draws`` (under the package) answering with
+    its list of arrays in order, one a call: the JAX draws a test sends
+    in place of the port's own."""
+    import importlib
+    from contextlib import ExitStack
+    from unittest import mock
+
+    with ExitStack() as stack:
+        for target, values in (draws or {}).items():
+            module, name = target.split(":")
+            queue = [_t(v) for v in values]
+            stack.enter_context(mock.patch.object(
+                importlib.import_module(
+                    "rsvd_kamaneh_raganato_terrana_tpu_torch." + module),
+                name, lambda *a, _q=queue, **k: _q.pop(0)))
+        yield
+
+
 def _placed(a, layout):
     """``a`` (NumPy) as the sharded operand of ``layout``: 'rows' and
     'pod' (rows over every mesh axis), 'rows_cols' (a 2-D split) or
@@ -310,8 +330,9 @@ def _placed_as(x, layout):
     """``x`` (NumPy) placed by ``layout``: 'rows' (dim 0 over the 1-D
     mesh), 'cols' (dim 1 over it), 'batch' (dim 0 over a ('batch',)
     mesh), 'ragged' (dim 0 over the 1-D mesh in DTensor's own uneven
-    split), 'sparse' or 'sparse_nse' (a sparse COO tensor's dim 0 over
-    the 1-D mesh) or None (a tensor every rank holds whole; anything but
+    split), 'sparse' or 'sparse_nse' (a sparse COO tensor split by its
+    entries over the 1-D mesh, ``shard_rows``'s placement of a sparse
+    tensor) or None (a tensor every rank holds whole; anything but
     an array stays as it is)."""
     from torch.distributed.tensor import Shard
 
@@ -327,17 +348,16 @@ def _placed_as(x, layout):
 
         return distribute_tensor(t, _mesh("rows"), (Shard(0),))
     if layout.startswith("sparse"):
-        from torch.distributed.tensor import distribute_tensor
-
-        return distribute_tensor(t.to_sparse(), _mesh("rows"), (Shard(0),))
+        return cm.shard_rows(t.to_sparse(), _mesh("rows"))
     return cm.distribute(t, _mesh("rows"), (Shard(0 if layout == "rows"
                                                     else 1),))
 
 
-def task_call(fn, args=(), layouts=(), **kwargs):
+def task_call(fn, args=(), layouts=(), draws=None, **kwargs):
     """The port's ``fn`` ('module:name' under the package) on ``args``,
-    each placed by its entry of ``layouts`` (None past its end): the
-    packed result and the collectives it issued."""
+    each placed by its entry of ``layouts`` (None past its end), with
+    ``draws`` patched in (``_draws_patched``): the packed result and the
+    collectives it issued."""
     import importlib
 
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
@@ -348,19 +368,41 @@ def task_call(fn, args=(), layouts=(), **kwargs):
     layouts = tuple(layouts) + (None,) * (len(args) - len(layouts))
     placed = [_placed_as(x, lay) for x, lay in zip(args, layouts)]
     collectives.reset()
-    out = func(*placed, **kwargs)
+    with _draws_patched(draws):
+        out = func(*placed, **kwargs)
     return dict(out=_pack(out), tally=collectives.tally())
 
 
+def task_entries(a, layout="sparse"):
+    """This rank's run of a sparse ``a`` split by its entries over the
+    1-D mesh (``shard_rows`` of a COO, CSR or CSC tensor, ``layout``
+    'sparse', 'csr' or 'csc'): the run as a dense array, its stored
+    entries in row-major order as (row, col) pairs, and the operand's
+    shape."""
+    import torch
+
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import mesh as cm
+
+    t = _t(a).to_sparse() if layout == "sparse" else {
+        "csr": _t(a).to_sparse_csr, "csc": _t(a).to_sparse_csc}[layout]()
+    run = cm.shard_rows(t, _mesh("rows")).local.fwd
+    rows = torch.repeat_interleave(
+        torch.arange(run.shape[0]), torch.diff(run.crow_indices().long()))
+    return dict(dense=_np(run.to_dense()), shape=tuple(run.shape),
+                entries=np.stack([_np(rows), _np(run.col_indices().long())],
+                                 axis=1))
+
+
 def task_fit(cls, args=(), layouts=(), init=None, method=None, attrs=(),
-             then=()):
+             then=(), draws=None):
     """The port's class ``cls`` ('module:Name' under the package), made
     with the ``init`` keywords: without ``method`` made on ``args`` (as
     ``PCA(data)``), else ``obj.method(*args)``; each of ``attrs`` read
     (a method called without arguments), then each of ``then``'s
     (method, args, layouts[, keywords]) called (a method returning the
-    object gives None).  Placed as ``task_call`` places them; the tally
-    covers the making and ``method``."""
+    object gives None).  Placed as ``task_call`` places them, ``draws``
+    patched in throughout; ``tally`` covers the making and ``method``,
+    ``then_tally`` each later step."""
     import importlib
 
     from rsvd_kamaneh_raganato_terrana_tpu_torch.core import collectives
@@ -374,23 +416,27 @@ def task_fit(cls, args=(), layouts=(), init=None, method=None, attrs=(),
         return [_placed_as(x, lay) for x, lay in zip(xs, lays)]
 
     collectives.reset()
-    if method is None:
-        obj, out = klass(*placed(args, layouts), **(init or {})), None
-    else:
-        obj = klass(**(init or {}))
-        out = getattr(obj, method)(*placed(args, layouts))
-        out = None if out is obj else out
-    tally = collectives.tally()
-    got = {}
-    for attr in attrs:
-        value = getattr(obj, attr)
-        got[attr] = _pack(value() if callable(value) else value)
-    later = []
-    for step in then:
-        res = getattr(obj, step[0])(*placed(step[1], step[2]),
-                                    **(step[3] if len(step) > 3 else {}))
-        later.append(None if res is obj else _pack(res))
-    return dict(out=_pack(out), attrs=got, then=later, tally=tally)
+    with _draws_patched(draws):
+        if method is None:
+            obj, out = klass(*placed(args, layouts), **(init or {})), None
+        else:
+            obj = klass(**(init or {}))
+            out = getattr(obj, method)(*placed(args, layouts))
+            out = None if out is obj else out
+        tally = collectives.tally()
+        got = {}
+        for attr in attrs:
+            value = getattr(obj, attr)
+            got[attr] = _pack(value() if callable(value) else value)
+        later, tallies = [], []
+        for step in then:
+            collectives.reset()
+            res = getattr(obj, step[0])(*placed(step[1], step[2]),
+                                        **(step[3] if len(step) > 3 else {}))
+            tallies.append(collectives.tally())
+            later.append(None if res is obj else _pack(res))
+    return dict(out=_pack(out), attrs=got, then=later, tally=tally,
+                then_tally=tallies)
 
 
 def task_chain(fn, args=(), layouts=(), then=(), **kwargs):
@@ -422,12 +468,13 @@ def task_chain(fn, args=(), layouts=(), then=(), **kwargs):
 
 
 def task_raises(fn, args=(), layouts=(), cls_init=None, cls_method=None,
-                **kwargs):
+                then=None, **kwargs):
     """The exception type and message the port's ``fn`` raises on
     ``args`` placed by ``layouts`` ('ragged': rows over the 1-D mesh in
     DTensor's own uneven split), or None; with ``cls_method``, ``fn`` is
     a class made with the ``cls_init`` keywords and ``cls_method`` is
-    called on the placed args."""
+    called on the placed args; with ``then`` (method, args, layouts), that
+    method of the result is called on its own placed args."""
     import importlib
 
     module, name = fn.split(":")
@@ -437,8 +484,12 @@ def task_raises(fn, args=(), layouts=(), cls_init=None, cls_method=None,
         func = getattr(func(**(cls_init or {})), cls_method)
     layouts = tuple(layouts) + (None,) * (len(args) - len(layouts))
     try:
-        func(*(_placed_as(x, lay) for x, lay in zip(args, layouts)),
-             **kwargs)
+        out = func(*(_placed_as(x, lay) for x, lay in zip(args, layouts)),
+                   **kwargs)
+        if then is not None:
+            lays = tuple(then[2]) + (None,) * (len(then[1]) - len(then[2]))
+            getattr(out, then[0])(*(_placed_as(x, lay)
+                                    for x, lay in zip(then[1], lays)))
     except Exception as exc:  # noqa: BLE001 -- the result under test
         return dict(type=type(exc).__name__, message=str(exc)[:200])
     return None

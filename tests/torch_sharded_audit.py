@@ -10,13 +10,17 @@ same operands as row-sharded DTensors of 4 gloo ranks
 (``tests/_torch_ranks.py``).  A call "runs" when it returns; the first
 line of what it raised is recorded otherwise.
 
-Two rows hand ``rsvd`` and ``RandomizedSVD`` a sparse operand placed
-with the row sharding: on the JAX side a BCOO given
+The rows marked ``sparse`` hand each driver, diagnostic, estimator and
+retrieval function that takes a sparse operand on one card a sparse
+operand placed with the row sharding: on the JAX side a BCOO given
 ``NamedSharding(mesh, P('rows'))``, which JAX applies to the leaves of
 the BCOO (its data and indices, split by nonzero entries, so nse must
-divide the devices: it is padded to a multiple of 8; a third row leaves
-nse as ``fromdense`` makes it); on the port side a sparse COO tensor
-placed as a row-sharded DTensor.  Run from the repo root:
+divide the devices: it is padded to a multiple of 8; the
+``sparse_nse`` row leaves nse as ``fromdense`` makes it); on the port
+side a sparse COO tensor split by its entries over the ranks
+(``core/mesh.py::shard_rows``).  A class row made on its operands may
+name a method called after it on operands of its own
+(``PCA.add_data``).  Run from the repo root:
 
     env PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_sharded_audit.py [out.json [label]]
 
@@ -53,14 +57,16 @@ def operands():
         Y2=g.standard_normal((64, 7)), P2=g.standard_normal((64, 2)),
         idx=np.arange(4), X4=g.standard_normal((4, 48)), E4=np.eye(4),
         v0=g.standard_normal(64), y1=g.standard_normal(64),
-        C4=g.standard_normal((64, 4)),
+        C4=g.standard_normal((64, 4)), Y16=g.standard_normal((16, 48)),
         SP=a * (g.random((64, 48)) < 0.2))
 
 
 # (module:callable, operand names, which are row-sharded, keywords
 # [, init keywords, method]): a class is made with ``init`` and
-# ``method`` called on the operands
+# ``method`` called on the operands; with ``init`` None it is made on the
+# operands and ``method`` is (name, operand names, layouts)
 R = "rows"
+SP = "sparse"
 CALLS = [
     ("rsvd.driver:rsvd", "A", (R,), {}),
     ("rsvd.driver:rsvd_with_omega", "A om", (R,), {}),
@@ -137,10 +143,26 @@ CALLS = [
     ("apps.kpca:rff_features", "A", (R,), dict(n_features=16)),
     ("apps.estimators:RandomizedSVD", "A", (R,), {},
      dict(n_components=4), "fit_transform"),
-    ("rsvd.driver:rsvd", "SP", ("sparse",), dict(k=4)),
+    ("rsvd.driver:rsvd", "SP", (SP,), dict(k=4)),
     ("rsvd.driver:rsvd", "SP", ("sparse_nse",), dict(k=4)),
-    ("apps.estimators:RandomizedSVD", "SP", ("sparse",), {},
+    ("rsvd.driver:rsvd_with_omega", "SP om", (SP,), {}),
+    ("rsvd.driver:rsvd_adaptive", "SP", (SP,), dict(tol=0.1)),
+    ("rsvd.driver:rsvd_onepass", "SP", (SP,), dict(k=4)),
+    ("rsvd.driver:rsvd_warm", "SP Q", (SP,), {}),
+    ("rsvd.driver:rsvd_image_preset", "SP", (SP,), {}),
+    ("rsvd.driver:subspace_iteration", "SP om", (SP,), dict(q=1)),
+    ("rsvd.driver:power_refine", "SP Q", (SP,), dict(q=1)),
+    ("rsvd.diagnostics:range_error_estimate", "SP Q", (SP,), {}),
+    ("rsvd.diagnostics:factorization_error_estimate", "SP U4 s4 V4",
+     (SP,), {}),
+    ("rsvd.diagnostics:spectral_norm_estimate", "SP", (SP,), {}),
+    ("rsvd.diagnostics:stable_rank_estimate", "SP", (SP,), {}),
+    ("apps.estimators:RandomizedSVD", "SP", (SP,), {},
      dict(n_components=4), "fit_transform"),
+    ("apps.retrieval:factorize_interactions", "SP", (SP,), dict(k=4)),
+    ("apps.pca:PCA", "A", (R,), {}, None, ("add_data", "Y16", (R,))),
+    ("apps.kpca:KernelPCA", "A", (R,), {}, dict(n_components=4,
+                                                solver="exact"), "fit"),
     ("apps.estimators:RandomizedPCA", "A", (R,), {},
      dict(n_components=4), "fit_transform"),
     ("apps.cluster:spectral_cluster", "P2", (R,), dict(n_clusters=2)),
@@ -166,10 +188,15 @@ CALLS = [
 
 def _label(call):
     fn, _, lays, kw = call[:4]
+    name = fn.split(":")[1]
+    if len(call) > 4 and call[4] is None:
+        name += "." + call[5][0]
     extra = [f"{k}={v}" for k, v in kw.items()
              if k in ("kind", "damp", "method")]
+    if len(call) > 4 and call[4] and "solver" in call[4]:
+        extra.append(f"solver={call[4]['solver']}")
     extra += [lay for lay in lays if lay.startswith("sparse")]
-    return fn.split(":")[1] + (f"[{','.join(extra)}]" if extra else "")
+    return name + (f"[{','.join(extra)}]" if extra else "")
 
 
 def _jax_operand(x, lay, mesh):
@@ -213,10 +240,17 @@ def jax_side(ops):
         try:
             args = [_jax_operand(ops[n], lay, mesh)
                     for n, lay in zip(names.split(), lays)]
-            if len(call) > 4:
-                obj = getattr(obj(**call[4]), call[5])
-            jax.block_until_ready(jax.tree_util.tree_leaves(
-                obj(*args, **kw)))
+            if len(call) > 4 and call[4] is None:
+                method, more, more_lays = call[5]
+                more_lays = tuple(more_lays) + (None,) * len(more.split())
+                res = getattr(obj(*args, **kw), method)(
+                    *(_jax_operand(ops[n], lay, mesh)
+                      for n, lay in zip(more.split(), more_lays)))
+            else:
+                if len(call) > 4:
+                    obj = getattr(obj(**call[4]), call[5])
+                res = obj(*args, **kw)
+            jax.block_until_ready(jax.tree_util.tree_leaves(res))
             out[_label(call)] = None
         except Exception as exc:  # noqa: BLE001 -- recorded
             out[_label(call)] = _first_line(exc)
@@ -231,8 +265,13 @@ def port_side(ops):
     try:
         for call in CALLS:
             fn, names, lays, kw = call[:4]
-            extra = dict(cls_init=call[4], cls_method=call[5]) \
-                if len(call) > 4 else {}
+            extra = {}
+            if len(call) > 4 and call[4] is None:
+                method, more, more_lays = call[5]
+                extra = dict(then=(method, tuple(ops[n] for n in
+                                                 more.split()), more_lays))
+            elif len(call) > 4:
+                extra = dict(cls_init=call[4], cls_method=call[5])
             res = group.run("raises", fn=fn, args=tuple(
                 ops[n] for n in names.split()), layouts=lays, timeout=120,
                 **extra, **kw)[0]
