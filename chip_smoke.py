@@ -4435,8 +4435,8 @@ def p12_stream_reference():
 
 def p12_split(call, rank, reps=3):
     """Rank 0's profiler pass over ``reps`` sharded calls (every rank runs
-    them): device busy and wall ms a call, and the ms a call spent in
-    the collectives (host clock, ``core/collectives.py``)."""
+    them): device busy and wall ms a call, and the collectives' tally
+    (``core/collectives.py``)."""
     collectives.reset()
     if rank == 0:
         prof = profile_call(call, reps=reps)
@@ -4444,12 +4444,10 @@ def p12_split(call, rank, reps=3):
         for _ in range(reps + 1):
             call()
         torch.cuda.synchronize()
-    comm = sum(t["seconds"] for t in collectives.tally().values())
     if rank:
         return None
     return dict(wall_ms_per_call=prof["wall_ms_per_call"],
                 device_busy_ms_per_call=prof["device_busy_ms_per_call"],
-                collectives_ms_per_call=1e3 * comm / (reps + 1),
                 collectives=collectives.tally())
 
 
@@ -5899,7 +5897,6 @@ def p15_run(item, meshes, rank, one_rank, say, draws=P15_DRAWS,
         tally = collectives.tally()
     got = p13_whole(got)
     out = dict(sharded_ms=1e3 * t_sh, collectives=tally,
-               collective_ms=1e3 * sum(v["seconds"] for v in tally.values()),
                launches_k1_to_k5b=list(launches))
     named = {w: launches[WRAPPERS.index(w)] for w in WRAPPERS[:4]}
     check(all(n >= 1 for w, n in named.items() if w in item.kernels_run)

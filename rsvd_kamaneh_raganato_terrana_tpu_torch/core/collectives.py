@@ -5,9 +5,12 @@ spelled out in ``shard_map`` (``psum``, ``all_gather``,
 ``psum_scatter``, ``all_to_all``, ``ppermute``); its tests read them
 from the compiled HLO.  Here each one is a ``torch.distributed`` call
 made through this module, which tallies it by kind: calls, bytes this
-rank handed in, calls staged through host memory, and host seconds
-(:func:`tally`, :func:`reset`).  The tests and ``chip_smoke.py`` read
-the tally where the JAX tests read the HLO.  A one-rank group's
+rank handed in, and calls staged through host memory (:func:`tally`,
+:func:`reset`), and opens the span ``rsvd/collective/<kind>`` around it
+(``core/profiling.py``), under which its NCCL kernels lie on the
+profiler's timeline: their time is read there, not from a host clock
+around an asynchronous call.  The tests and ``chip_smoke.py`` read the
+tally where the JAX tests read the HLO.  A one-rank group's
 collectives are issued too (NCCL's and gloo's handle one rank), so that
 a one-rank run drives the same transport.
 
@@ -25,46 +28,45 @@ ever swapped for another.
 
 from __future__ import annotations
 
-import time
 import torch
 import torch.distributed as dist
+
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import span
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
          "send_recv")
 
-_tally = {kind: [0, 0, 0, 0.0] for kind in KINDS}
+_tally = {kind: [0, 0, 0] for kind in KINDS}
 
 
 def reset() -> None:
     """Zero the tally."""
     for rec in _tally.values():
-        rec[:] = [0, 0, 0, 0.0]
+        rec[:] = [0, 0, 0]
 
 
 def tally() -> dict:
-    """{kind: {calls, bytes, staged, seconds}} since the last reset, for
-    every kind issued at least once; ``bytes`` counts what this rank
-    handed in (the send side of a point-to-point exchange)."""
-    return {kind: dict(zip(("calls", "bytes", "staged", "seconds"), rec))
+    """{kind: {calls, bytes, staged}} since the last reset, for every
+    kind issued at least once; ``bytes`` counts what this rank handed in
+    (the send side of a point-to-point exchange)."""
+    return {kind: dict(zip(("calls", "bytes", "staged"), rec))
             for kind, rec in _tally.items() if rec[0]}
 
 
 class _Record:
-    """Times one collective and adds it to the tally."""
+    """Adds one collective to the tally when it is done."""
 
     def __init__(self, kind: str, t: torch.Tensor, staged: bool = False):
         self.rec = _tally[kind]
         self.nbytes = t.numel() * t.element_size()
         self.staged = staged
-        self.t0 = time.perf_counter()
 
     def done(self):
         self.rec[0] += 1
         self.rec[1] += self.nbytes
         self.rec[2] += int(self.staged)
-        self.rec[3] += time.perf_counter() - self.t0
 
 
 def _group(group):
@@ -76,10 +78,11 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum"):
     returns it.  A non-contiguous ``t`` (a view with padding cropped) is
     reduced as a contiguous copy, which is returned: the backends reduce
     a tensor's storage as one dense run."""
-    t = t.contiguous()
-    rec = _Record("all_reduce", t)
-    dist.all_reduce(t, op=_OPS[op], group=group)
-    rec.done()
+    with span("collective/all_reduce"):
+        t = t.contiguous()
+        rec = _Record("all_reduce", t)
+        dist.all_reduce(t, op=_OPS[op], group=group)
+        rec.done()
     return t
 
 
@@ -92,23 +95,25 @@ _scatter_from = getattr(dist, "reduce_scatter_single", None) \
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """The blocks of ``group``'s ranks, in rank order, stacked along
     dim 0 (every block of ``t``'s shape)."""
-    n = dist.get_world_size(group)
-    t = t.contiguous()
-    rec = _Record("all_gather", t)
-    out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
-    _gather_into(out, t, group=group)
-    rec.done()
+    with span("collective/all_gather"):
+        n = dist.get_world_size(group)
+        t = t.contiguous()
+        rec = _Record("all_gather", t)
+        out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+        _gather_into(out, t, group=group)
+        rec.done()
     return out
 
 
 def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` summed over ``group``; rank r keeps block r of dim 0."""
-    n = dist.get_world_size(group)
-    t = t.contiguous()
-    rec = _Record("reduce_scatter", t)
-    out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
-    _scatter_from(out, t, group=group)
-    rec.done()
+    with span("collective/reduce_scatter"):
+        n = dist.get_world_size(group)
+        t = t.contiguous()
+        rec = _Record("reduce_scatter", t)
+        out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
+        _scatter_from(out, t, group=group)
+        rec.done()
     return out
 
 
@@ -117,16 +122,17 @@ def all_to_all(t: torch.Tensor, group=None, send_rows=None,
     """Block r of ``t``'s dim 0 goes to rank r; the received blocks are
     stacked in rank order.  The blocks are even, or ``send_rows[r]`` rows
     go to rank r and ``recv_rows[r]`` come from it (both lists given)."""
-    t = t.contiguous()
-    rec = _Record("all_to_all", t)
-    if send_rows is None:
-        out = torch.empty_like(t)
-        dist.all_to_all_single(out, t, group=group)
-    else:
-        out = t.new_empty((sum(recv_rows),) + tuple(t.shape[1:]))
-        dist.all_to_all_single(out, t, list(recv_rows), list(send_rows),
-                               group=group)
-    rec.done()
+    with span("collective/all_to_all"):
+        t = t.contiguous()
+        rec = _Record("all_to_all", t)
+        if send_rows is None:
+            out = torch.empty_like(t)
+            dist.all_to_all_single(out, t, group=group)
+        else:
+            out = t.new_empty((sum(recv_rows),) + tuple(t.shape[1:]))
+            dist.all_to_all_single(out, t, list(recv_rows),
+                                   list(send_rows), group=group)
+        rec.done()
     return out
 
 
@@ -152,7 +158,11 @@ def exchange(send: torch.Tensor, dst: int, src: int, group=None) -> Exchange:
     CUDA tensor goes through pinned host memory (the module docstring).
     On a one-rank group the tensor is its own neighbour: nothing is
     sent."""
-    group = _group(group)
+    with span("collective/send_recv"):
+        return _exchange(send, dst, src, _group(group))
+
+
+def _exchange(send, dst, src, group):
     if dist.get_world_size(group) == 1:
         return Exchange([], send.clone(), send.device, _Record("send_recv",
                                                                send))

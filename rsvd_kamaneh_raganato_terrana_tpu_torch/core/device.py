@@ -31,6 +31,8 @@ import contextlib
 
 import torch
 
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import span
+
 #: the storage modes, read by the driver; their dense products run at
 #: 'default'
 STORAGE_BF16 = ("bf16", "bfloat16")
@@ -90,8 +92,9 @@ def matmul_at(a, b, precision="highest", out_dtype=None):
     if a.dtype == torch.bfloat16:
         return _bf16_product(a, b, out_dtype)
     if prec == "default" and a.is_cuda and a.dtype == torch.float32:
-        return _bf16_product(a.to(torch.bfloat16), b.to(torch.bfloat16),
-                             out_dtype)
+        with span("cast"):
+            a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        return _bf16_product(a, b, out_dtype)
     if prec == "high" and a.is_cuda and a.dtype == torch.float32:
         return tf32_product(a, b).to(out_dtype)
     with ieee_fp32():

@@ -4,7 +4,36 @@
 A timer that waits for the card (``torch.cuda.synchronize`` where the
 JAX package blocks on its arrays), a phase-timer registry that exports
 the reference's CSV timing protocol, a ``torch.profiler`` trace written
-as a chrome trace under ``log_dir``, and FLOP counts.
+as a chrome trace under ``log_dir``, the program's own spans, and FLOP
+counts.
+
+Spans.  The driver, linalg, serving and collectives modules open
+:func:`span` where their work happens; :func:`spans` switches them on for
+a block (:func:`trace` does so for its own).  A span on is a
+``torch.profiler.record_function`` named ``rsvd/<name>``: a host event
+on the profiler's clock, which is the clock of the card's kernel events,
+and every launch inside it is tied to its kernel by correlation id.  A
+span off is one test of a boolean and returns one shared no-op context.
+The tree of one call (parents by nesting on the host thread):
+
+  rsvd/call                  the root, once a call (:func:`call_span`)
+    rsvd/stage               the operand cast or quantized for stage A
+    rsvd/sketch              Omega, Y = A Omega, its first basis
+    rsvd/power               one power round
+    rsvd/finish              B = Q^T A (or the rowspace Z, C) to (U, s, V)
+    rsvd/health              ``factor_health``
+  below the stages:
+    rsvd/product             a stage-A product (the driver's ``_mm``)
+      rsvd/cast              an operand narrowed to bf16 or int8 for it
+    rsvd/ortho               ``qr_reduced`` / ``orthonormal_basis`` /
+                             the column normalization
+    rsvd/tail                the small SVD (``linalg/svd.py::svd``)
+    rsvd/collective/<kind>   each ``core/collectives.py`` call
+    rsvd/read/<cause>        a deliberate device-to-host read
+
+A span's self time is its interval less its children's.  Spans stay off
+under a ``torch.func`` transform (a profiler op has no batching rule).
+The switch is one flag of this module, so it holds for every thread.
 """
 
 from __future__ import annotations
@@ -98,16 +127,16 @@ class PhaseTimer:
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Capture a ``torch.profiler`` trace of the block (the card's
-    kernels too when there is one) and write it as a chrome trace,
-    ``rsvd_<pid>_<ns>.pt.trace.json`` under ``log_dir`` (default:
-    ``rsvd_trace`` in the temporary directory), viewable in Perfetto.
-    Yields ``log_dir``."""
+    kernels too when there is one), with the program's spans on, and
+    write it as a chrome trace, ``rsvd_<pid>_<ns>.pt.trace.json`` under
+    ``log_dir`` (default: ``rsvd_trace`` in the temporary directory),
+    viewable in Perfetto.  Yields ``log_dir``."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "rsvd_trace")
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, spans():
         try:
             yield log_dir
         finally:
@@ -115,6 +144,52 @@ def trace(log_dir: Optional[str] = None):
                 torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(
         log_dir, f"rsvd_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
+
+
+#: the prefix of every span's name ('/' begins no C++ kernel name)
+PREFIX = "rsvd/"
+_OFF = contextlib.nullcontext()
+_on = False          # the switch (:func:`spans`)
+_in_call = False     # a root span is open
+
+
+@contextlib.contextmanager
+def spans(on: bool = True):
+    """Spans on (or off) for the block; the previous setting after it."""
+    global _on
+    prev, _on = _on, on
+    try:
+        yield
+    finally:
+        _on = prev
+
+
+def span(name: str):
+    """The span ``rsvd/<name>`` around a block where spans are on, else
+    one shared no-op context.  ``name`` is a constant string: nothing is
+    built while spans are off."""
+    if not _on or torch._C._are_functorch_transforms_active():
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name)
+
+
+@contextlib.contextmanager
+def _root():
+    global _in_call
+    _in_call = True
+    try:
+        with torch.profiler.record_function(PREFIX + "call"):
+            yield
+    finally:
+        _in_call = False
+
+
+def call_span():
+    """The root span ``rsvd/call`` of a public entry, where spans are on
+    and no root is open yet (an entry called by another opens none)."""
+    if not _on or _in_call or torch._C._are_functorch_transforms_active():
+        return _OFF
+    return _root()
 
 
 def matmul_gflops(m: int, n: int, k: int, seconds: float) -> float:

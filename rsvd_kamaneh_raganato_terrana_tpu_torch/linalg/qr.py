@@ -42,6 +42,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
     Sharded,
     row_sharded_api,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import span
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.polar import polar_qr
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
@@ -156,12 +157,15 @@ def _householder(a):
 def _householder_where(a, q, r, degraded):
     """(Q, R) from Householder QR where ``degraded``, else the given
     CholeskyQR factors.  Outside a ``torch.func`` transform the flag is
-    read on the host (one sync) and only the chosen branch runs; inside
-    one (a batched flag has no host value) both run and are selected."""
+    read on the host (one sync, the span ``rsvd/read/qr_degraded``) and
+    only the chosen branch runs; inside one (a batched flag has no host
+    value) both run and are selected."""
     if torch._C._are_functorch_transforms_active():
         hq, hr = _householder(a)
         return torch.where(degraded, hq, q), torch.where(degraded, hr, r)
-    return _householder(a) if bool(degraded) else (q, r)
+    with span("read/qr_degraded"):
+        fallback = bool(degraded)
+    return _householder(a) if fallback else (q, r)
 
 
 @row_sharded_api
@@ -187,14 +191,21 @@ def qr_reduced(a, method: str = "robust"):
     8 B <= 12 MiB) is the TPU's VMEM, and the Hopper kernels stream Y
     from device memory, so every f32 panel goes through the kernel
     whatever its size.
+
+    Runs under the span ``rsvd/ortho`` (``core/profiling.py``).
     """
+    with span("ortho"):
+        return _qr_reduced(a, method)
+
+
+def _qr_reduced(a, method):
     if a.dtype in (torch.bfloat16, torch.float16):
         # no low-precision Cholesky/QR: factor in f32, hand back the
         # input dtype
-        q, r = qr_reduced(a.to(torch.float32), method)
+        q, r = _qr_reduced(a.to(torch.float32), method)
         return q.to(a.dtype), r.to(a.dtype)
     if isinstance(a, Sharded) and method not in _ROW_SPLIT:
-        q, r = qr_reduced(a.gather(), method)
+        q, r = _qr_reduced(a.gather(), method)
         return a.keep_rows(q), r
     if method == "robust":
         return _householder_where(a, *robust_cholesky_qr2(a))

@@ -44,6 +44,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
     Sharded,
     row_sharded_api,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import span
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg import kernels
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.jacobi import jacobi_svd
 from rsvd_kamaneh_raganato_terrana_tpu_torch.linalg.power import power_svd
@@ -120,8 +121,13 @@ def svd(a, method=SVDMethod.Jacobi, r: int = 0, **kwargs):
     of its row-split thin QR (their own preconditioning), and 'power',
     'xla' and 'auto' on that R factor too; U stays row-split.  At the
     API such a matrix is a DTensor whose rows are sharded, and U comes
-    back row-sharded."""
-    method = SVDMethod.parse(method)
+    back row-sharded.  Runs under the span ``rsvd/tail``
+    (``core/profiling.py``)."""
+    with span("tail"):
+        return _svd(a, SVDMethod.parse(method), r, **kwargs)
+
+
+def _svd(a, method: SVDMethod, r: int, **kwargs):
     if isinstance(a, Sharded):
         return _svd_split(a, method, r, **kwargs)
     if a.is_complex() and method is not SVDMethod.XLA:

@@ -16,8 +16,9 @@ partial is that partial, so a one-rank call is the single call to the
 bit.
 
 The products (:func:`_sharded_mm`) and the int8 transposed product call
-back into ``rsvd/driver.py`` (``_mm`` and the int8 layouts), which
-imports this module.
+back into ``rsvd/driver.py`` (``_product``, the local product inside the
+driver's spanned ``_mm``, and the int8 layouts), which imports this
+module.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def _t_mm_split(x: Sharded, y: Sharded, precision):
         z = _int8_t_mm_split(x, y.local)
     else:
         z = collectives.all_reduce(
-            driver._mm(x.local.T, y.local, precision), x.rows.group)
+            driver._product(x.local.T, y.local, precision), x.rows.group)
     if x.cols is not None:
         z = collectives.all_gather(z, x.cols.group)
     if y.cols is not None:
@@ -109,8 +110,8 @@ def _entry_mm(a, b, precision):
     replicated.  On one rank the run is all of A, and this is the single
     call's product."""
     if isinstance(a, EntrySplit):
-        return a.reduce(driver._mm(a.local, b, precision))
-    return b.reduce(driver._mm(a, b.local, precision))
+        return a.reduce(driver._product(a.local, b, precision))
+    return b.reduce(driver._product(a, b.local, precision))
 
 
 def _sharded_mm(a, b, precision):
@@ -134,10 +135,11 @@ def _sharded_mm(a, b, precision):
             return _sharded_mm(b.T, a.T, precision).T
         if b.transposed:
             bt = b.T
-            return bt.with_local(driver._mm(a, bt.local.T, precision).T).T
+            return bt.with_local(
+                driver._product(a, bt.local.T, precision).T).T
         cols = slice(b.row_start, b.row_start + b.local.shape[0])
         return collectives.all_reduce(
-            driver._mm(a[:, cols], b.local, precision), b.rows.group)
+            driver._product(a[:, cols], b.local, precision), b.rows.group)
     if isinstance(a, Sharded) and a.transposed and not isinstance(b, Sharded):
         at = a.T
         b = at.with_local(_row_block(at, b))
@@ -153,7 +155,7 @@ def _sharded_mm(a, b, precision):
                         "their transposes")
     if a.cols is not None:
         b = b[a.col_start:a.col_start + a.local.shape[1]]
-    y = driver._mm(a.local, b, precision)
+    y = driver._product(a.local, b, precision)
     if a.cols is not None:
         y = collectives.all_reduce(y, a.cols.group)
     return Sharded(y, (a.shape[0], y.shape[1]), a.mesh, a.rows)

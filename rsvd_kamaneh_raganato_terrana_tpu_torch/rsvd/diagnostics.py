@@ -42,6 +42,7 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
     EntrySplit,
     Sharded,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import span
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     fold_in_shard,
     gaussian,
@@ -168,19 +169,23 @@ def factor_health(u, s, v, tol: float = 1e-2) -> dict:
     float}``; ``ok`` is the conjunction at ``tol`` (default 1e-2: loose
     enough for the cholqr1/polar O(eps cond^2) serving orthogonality,
     tight enough that NaNs, short columns or ascending weights trip
-    it)."""
-    stats = _factor_health_device(u, s, v).tolist()   # the one fetch
-    finite = bool(stats[0] > 0.5)
-    out = {
-        "finite": finite,
-        "u_col_err": float(stats[1]),
-        "v_orth_err": float(stats[2]),
-        "s_ascending_violation": float(stats[3]),
-        "s_min": float(stats[4]),
-    }
-    out["ok"] = (finite and out["u_col_err"] < tol
-                 and out["v_orth_err"] < tol
-                 and out["s_ascending_violation"] <= 0.0)
+    it).  Runs under the span ``rsvd/health``, its fetch under
+    ``rsvd/read/health_fetch`` (``core/profiling.py``)."""
+    with span("health"):
+        stats = _factor_health_device(u, s, v)
+        with span("read/health_fetch"):
+            stats = stats.tolist()                    # the one fetch
+        finite = bool(stats[0] > 0.5)
+        out = {
+            "finite": finite,
+            "u_col_err": float(stats[1]),
+            "v_orth_err": float(stats[2]),
+            "s_ascending_violation": float(stats[3]),
+            "s_min": float(stats[4]),
+        }
+        out["ok"] = (finite and out["u_col_err"] < tol
+                     and out["v_orth_err"] < tol
+                     and out["s_ascending_violation"] <= 0.0)
     return out
 
 

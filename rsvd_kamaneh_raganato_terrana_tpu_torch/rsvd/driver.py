@@ -75,7 +75,11 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.mesh import (
     pad_rows_for_mesh,
     shard_rows,
 )
-from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import rsvd_flops
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import (
+    call_span,
+    rsvd_flops,
+    span,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.rng import (
     gaussian,
     key_from_seed,
@@ -283,10 +287,11 @@ def _quant_cols(b, amax=None):
     """(B8, t): per-column int8 quantization of a small dense operand;
     ``amax`` (1 x columns) stands in for its column absmax (a row-split
     operand's, all-reduced)."""
-    if amax is None:
-        amax = torch.amax(torch.abs(b), dim=0, keepdim=True)
-    t = torch.clamp(amax, min=torch.finfo(b.dtype).tiny) / 127.0
-    return torch.round(b / t).to(torch.int8), t
+    with span("cast"):
+        if amax is None:
+            amax = torch.amax(torch.abs(b), dim=0, keepdim=True)
+        t = torch.clamp(amax, min=torch.finfo(b.dtype).tiny) / 127.0
+        return torch.round(b / t).to(torch.int8), t
 
 
 def _int8_width(d: int) -> int:
@@ -363,6 +368,13 @@ def _int8_mm(a: Int8Stored, b):
 
 
 def _mm(a, b, precision=DOT_PRECISION):
+    """A stage-A product, :func:`_product` under the ``rsvd/product``
+    span."""
+    with span("product"):
+        return _product(a, b, precision)
+
+
+def _product(a, b, precision=DOT_PRECISION):
     """A @ B with the JAX driver's dtype rules: an :class:`Int8Stored`
     operand takes the int8 path (precision does not apply); a sparse one
     a sparse x dense product (precision does not apply either, JAX
@@ -391,7 +403,9 @@ def _mm(a, b, precision=DOT_PRECISION):
         lo, out = ((a.dtype, b.dtype) if a.dtype.itemsize < b.dtype.itemsize
                    else (b.dtype, a.dtype))
         if lo == torch.bfloat16:
-            return matmul_at(a.to(lo), b.to(lo), precision, out_dtype=out)
+            with span("cast"):
+                a, b = a.to(lo), b.to(lo)
+            return matmul_at(a, b, precision, out_dtype=out)
         wide = torch.promote_types(a.dtype, b.dtype)
         return matmul_at(a.to(wide), b.to(wide), precision)
     return matmul_at(a, b, precision)
@@ -400,13 +414,14 @@ def _mm(a, b, precision=DOT_PRECISION):
 def _colnormalize(y):
     """Diagonal column scaling to unit norms (``interior_qr='none'``)."""
     acc = torch.promote_types(y.dtype, torch.float32)
-    if isinstance(y, Sharded):
-        scale = 1.0 / torch.clamp(torch.sqrt(y.col_sumsq()),
-                                  min=torch.finfo(acc).tiny)
-        return y.with_local(y.local * scale.to(y.dtype)[None, :])
-    norms = torch.sqrt(torch.sum(torch.square(y.to(acc)), dim=0))
-    scale = 1.0 / torch.clamp(norms, min=torch.finfo(acc).tiny)
-    return y * scale.to(y.dtype)[None, :]
+    with span("ortho"):
+        if isinstance(y, Sharded):
+            scale = 1.0 / torch.clamp(torch.sqrt(y.col_sumsq()),
+                                      min=torch.finfo(acc).tiny)
+            return y.with_local(y.local * scale.to(y.dtype)[None, :])
+        norms = torch.sqrt(torch.sum(torch.square(y.to(acc)), dim=0))
+        scale = 1.0 / torch.clamp(norms, min=torch.finfo(acc).tiny)
+        return y * scale.to(y.dtype)[None, :]
 
 
 def _interior_basis(y, method: str):
@@ -448,13 +463,14 @@ def power_refine(a, q_mat, q: int, qr_method: str = "robust",
 def _power_rounds(a, q_mat, q, qr_method, precision, reorth, interior_qr):
     inner = qr_method if interior_qr is None else interior_qr
     for i in range(q):
-        last = i == q - 1
-        z = _mm(a.T, q_mat, precision)
-        if reorth == "full" and inner != "none":
-            z = orthonormal_basis(z, inner)
-        y = _mm(a, z, precision)
-        q_mat = (_interior_basis(y, qr_method) if last
-                 else _interior_basis(y, inner))
+        with span("power"):
+            last = i == q - 1
+            z = _mm(a.T, q_mat, precision)
+            if reorth == "full" and inner != "none":
+                z = orthonormal_basis(z, inner)
+            y = _mm(a, z, precision)
+            q_mat = (_interior_basis(y, qr_method) if last
+                     else _interior_basis(y, inner))
     return q_mat
 
 
@@ -465,13 +481,26 @@ def subspace_iteration(a, omega, q: int, qr_method: str = "robust",
     sharded A (the module docstring) with Omega whole on every rank gives
     Q row-sharded."""
     api = _at_api(a)
-    a = _sharded_view(a)
-    y = _mm(a, omega, precision)
-    inner = qr_method if interior_qr is None or q == 0 else interior_qr
-    q_mat = _interior_basis(y, inner)
-    q_mat = _power_rounds(a, q_mat, q, qr_method, precision, reorth,
-                          interior_qr)
+    q_mat = _range_finder(_sharded_view(a), omega, q, qr_method, precision,
+                          reorth, interior_qr)
     return _to_api(q_mat) if api else q_mat
+
+
+def _sketch(a, omega, inner, precision):
+    """The first basis, of Y = A Omega, under the ``rsvd/sketch`` span;
+    ``omega`` is the test matrix or a function that draws it (timed in
+    the span)."""
+    with span("sketch"):
+        if callable(omega):
+            omega = omega()
+        return _interior_basis(_mm(a, omega, precision), inner)
+
+
+def _range_finder(a, omega, q, qr_method, precision, reorth, interior_qr):
+    inner = qr_method if interior_qr is None or q == 0 else interior_qr
+    q_mat = _sketch(a, omega, inner, precision)
+    return _power_rounds(a, q_mat, q, qr_method, precision, reorth,
+                         interior_qr)
 
 
 def _fold_weights(tri):
@@ -558,46 +587,66 @@ def rsvd_with_omega(a, omega, q: int = 2, k: int = 0,
 
     ``a`` may be sharded (the module docstring), Omega the same tensor on
     every rank: U is then a row-sharded DTensor, s and V replicated
-    tensors."""
+    tensors.
+
+    ``omega`` may also be a function of no arguments that returns it
+    (``rsvd`` passes its draw so): it is then drawn inside the
+    ``rsvd/sketch`` span (``core/profiling.py``)."""
+    with call_span():
+        return _factor(a, omega, q, k, method, qr_method, precision, reorth,
+                       interior_qr, finish)
+
+
+def _factor(a, omega, q, k, method, qr_method, precision, reorth,
+            interior_qr, finish):
+    """:func:`rsvd_with_omega`'s pipeline, each stage under its span.  The
+    finish's small products (U = Q U~, the UTV fold) are no stage-A
+    products: they go to :func:`_product` directly."""
     _check_options(method, precision, finish)
     a = _sharded_view(a)
-    a_stage = _stage_operand(a, precision)
-    if finish in ("rowspace", "rowspace_utv"):
+    with span("stage"):
+        a_stage = _stage_operand(a, precision)
+    rowspace = finish in ("rowspace", "rowspace_utv")
+    if rowspace:
         if q < 1:
             raise ValueError(f"finish={finish!r} needs q >= 1 (its final "
                              "half-round IS a power iteration)")
         inner = qr_method if interior_qr is None else interior_qr
-        y = _mm(a_stage, omega, precision)
-        q_mat = _interior_basis(y, inner)
+        q_mat = _sketch(a_stage, omega, inner, precision)
         # q-1 full rounds, every basis interior (the tail re-orthonormalizes)
         q_mat = power_refine(a_stage, q_mat, q - 1, inner, precision, reorth,
                              interior_qr)
-        z = _mm(a_stage.T, q_mat, precision)            # n x l co-range
-        z_q = orthonormal_basis(z, qr_method)           # final (full) QR
-        c = _mm(a_stage, z_q, precision)                # m x l: LAST pass
-        if finish == "rowspace_utv":
-            q_c, t = qr_reduced(c, qr_method)
-            s, safe = _fold_weights(t)
-            u, s, v = _sorted_by_weight(_mm(q_c, t / safe[None, :]), s, z_q)
-        else:
-            u_t, s, v_small = small_svd(c.T, method)    # c = v_small s u_t^T
-            u, v = v_small, _mm(z_q, u_t)
     else:
-        q_mat = subspace_iteration(a_stage, omega, q, qr_method, precision,
-                                   reorth, interior_qr)      # m x l
-        b = _mm(q_mat.T, a_stage, precision)                 # l x n
-        if finish == "utv":
-            v, r = qr_reduced(b.T, qr_method)                # B^T = V R
-            el = r.T                                         # B = L V^T
-            s, safe = _fold_weights(el)
-            u, s, v = _sorted_by_weight(_mm(q_mat, el / safe[None, :]), s, v)
+        q_mat = _range_finder(a_stage, omega, q, qr_method, precision,
+                              reorth, interior_qr)            # m x l
+    with span("finish"):
+        if rowspace:
+            z = _mm(a_stage.T, q_mat, precision)        # n x l co-range
+            z_q = orthonormal_basis(z, qr_method)       # final (full) QR
+            c = _mm(a_stage, z_q, precision)            # m x l: LAST pass
+            if finish == "rowspace_utv":
+                q_c, t = qr_reduced(c, qr_method)
+                s, safe = _fold_weights(t)
+                u, s, v = _sorted_by_weight(
+                    _product(q_c, t / safe[None, :]), s, z_q)
+            else:
+                u_t, s, v_small = small_svd(c.T, method)  # c = v_small s u_t^T
+                u, v = v_small, _product(z_q, u_t)
         else:
-            u_t, s, v = small_svd(b, method)
-            u = _mm(q_mat, u_t)
-    if k > 0:
-        u, s, v = _cols(u, slice(None, k)), s[:k], v[:, :k]
-    if isinstance(u, Sharded):
-        u = u.to_dtensor()
+            b = _mm(q_mat.T, a_stage, precision)        # l x n
+            if finish == "utv":
+                v, r = qr_reduced(b.T, qr_method)       # B^T = V R
+                el = r.T                                # B = L V^T
+                s, safe = _fold_weights(el)
+                u, s, v = _sorted_by_weight(
+                    _product(q_mat, el / safe[None, :]), s, v)
+            else:
+                u_t, s, v = small_svd(b, method)
+                u = _product(q_mat, u_t)
+        if k > 0:
+            u, s, v = _cols(u, slice(None, k)), s[:k], v[:, :k]
+        if isinstance(u, Sharded):
+            u = u.to_dtensor()
     return u, s, v
 
 
@@ -625,20 +674,25 @@ def rsvd_core(a, seed, *, k, p, q, method, sketch, qr_method, precision,
             raise TypeError("sketch='fused' reads a dense single-card "
                             "operand (kernel K4); use sketch='gaussian'")
         _check_options(method, precision, finish)
-        y = kernels.fused_sketch_matmul(a, l, seed)
-        inner = qr_method if interior_qr is None or q == 0 else interior_qr
-        q_mat = _interior_basis(y, inner)
+        with span("sketch"):
+            y = kernels.fused_sketch_matmul(a, l, seed)
+            inner = qr_method if interior_qr is None or q == 0 \
+                else interior_qr
+            q_mat = _interior_basis(y, inner)
         q_mat = power_refine(a, q_mat, q, qr_method, precision, reorth,
                              interior_qr)
-        b = _mm(q_mat.T, a, precision)
-        u_t, s, v = small_svd(b, method)
-        u = _mm(q_mat, u_t)
-        if k > 0:
-            u, s, v = u[:, :k], s[:k], v[:, :k]
+        with span("finish"):
+            b = _mm(q_mat.T, a, precision)
+            u_t, s, v = small_svd(b, method)
+            u = _product(q_mat, u_t)
+            if k > 0:
+                u, s, v = u[:, :k], s[:k], v[:, :k]
         return u, s, v
-    omega = generate_omega(seed, n, l, a.dtype, sketch, device=a.device)
-    return rsvd_with_omega(a, omega, q, k, method, qr_method, precision,
-                           reorth, interior_qr, finish)
+    # Omega is drawn in the sketch's span
+    return rsvd_with_omega(
+        a, lambda: generate_omega(seed, n, l, a.dtype, sketch,
+                                  device=a.device),
+        q, k, method, qr_method, precision, reorth, interior_qr, finish)
 
 
 def rsvd(
@@ -673,9 +727,11 @@ def rsvd(
     if a.dtype.is_complex:
         raise TypeError("rsvd supports real dtypes only (the Gram/"
                         "projection chain uses plain transposes)")
-    return rsvd_core(a, seed, k=k, p=p, q=q, method=method.value,
-                     sketch=sketch, qr_method=qr_method, precision=precision,
-                     reorth=reorth, interior_qr=interior_qr, finish=finish)
+    with call_span():
+        return rsvd_core(a, seed, k=k, p=p, q=q, method=method.value,
+                         sketch=sketch, qr_method=qr_method,
+                         precision=precision, reorth=reorth,
+                         interior_qr=interior_qr, finish=finish)
 
 
 def reconstruct(u, s, v):

@@ -24,6 +24,10 @@ from __future__ import annotations
 import warnings
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import Sharded
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import (
+    call_span,
+    span,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd._sharded import (
     _sharded_view,
 )
@@ -63,14 +67,23 @@ def rsvd_serving(a, k: int, p: int = 16, q: int = 2, seed: int = 0,
     rows under 'int8'), or an :class:`Int8Stored` of row-sharded
     DTensors: the driver reads it through its :class:`Int8Stored` view,
     U comes back row-sharded and :func:`factor_health` reads it by its
-    rows."""
+    rows.  The call and its check run under one ``rsvd/call`` span
+    (``core/profiling.py``)."""
     if on_unhealthy not in ("raise", "warn", "ignore"):
         raise ValueError(f"unknown on_unhealthy {on_unhealthy!r}")
+    with call_span():
+        return _serve(a, k, p, q, seed, interior_qr, storage, on_unhealthy,
+                      health_tol)
+
+
+def _serve(a, k, p, q, seed, interior_qr, storage, on_unhealthy,
+           health_tol):
     operand = _sharded_view(a)
     # a row-split operand is quantized rank by rank (the scales are per
     # row) by the driver's int8 storage mode
     if storage == "int8" and not isinstance(operand, (Int8Stored, Sharded)):
-        operand = quantize_int8_rows(operand)
+        with span("stage"):
+            operand = quantize_int8_rows(operand)
     u, s, v = rsvd(operand, k=k, p=p, q=q, seed=seed, method="eigh",
                    precision=storage, reorth="half", qr_method="cholqr1",
                    interior_qr=interior_qr, finish="rowspace_utv")

@@ -276,6 +276,40 @@ def task_rsvd(a, layout, call="rsvd_with_omega", omega=None, **kwargs):
                 tally=tally)
 
 
+def task_spans(a, omega, **kwargs):
+    """``rsvd_with_omega`` on ``a`` row-sharded over the 1-D mesh, under a
+    CPU profiler with the program's spans off, then on: the count of
+    each span name and the tally of each traced call, and whether the
+    factors of the two calls are bitwise equal."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.core import (
+        collectives,
+        profiling,
+    )
+    from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd import driver
+
+    out = {}
+    for on in (False, True):
+        collectives.reset()
+        with profile(activities=[ProfilerActivity.CPU]) as prof, \
+                profiling.spans(on):
+            u, s, v = driver.rsvd_with_omega(_placed(a, "rows"), _t(omega),
+                                             **kwargs)
+        out[on] = dict(
+            factors=(u.to_local(), s, v), tally=collectives.tally(),
+            spans=dict(collections.Counter(
+                e.name() for e in prof.profiler.kineto_results.events()
+                if e.name().startswith(profiling.PREFIX))))
+    same = all(torch.equal(x, y) for x, y in zip(out[False]["factors"],
+                                                 out[True]["factors"]))
+    return dict(same=same, off=out[False]["spans"], on=out[True]["spans"],
+                tally=out[True]["tally"], tally_off=out[False]["tally"])
+
+
 def task_dcp(ckdir, a=None, omega=None, **kwargs):
     """The factor checkpoint on the group: with ``a``, ``rsvd_with_omega``
     of ``a`` row-sharded over the 1-D mesh, saved to ``ckdir`` by

@@ -160,8 +160,7 @@ def test_sharded_gram_is_partitioned(mesh8, rng, ranks):
     res = ranks.run("primitive", name="gram_sharded", args=(a,))
     np.testing.assert_allclose(res[0]["out"], want, rtol=1e-12)
     assert res[0]["tally"] == {"all_reduce": dict(
-        calls=1, bytes=32 * 32 * 8, staged=0,
-        seconds=res[0]["tally"]["all_reduce"]["seconds"])}
+        calls=1, bytes=32 * 32 * 8, staged=0)}
 
 
 def test_rsvd_ring_matches_plain(mesh8, rng, ranks):
