@@ -9,7 +9,8 @@
   out_dtype=torch.float32)``) -- the numerics of one bf16 MXU pass on
   the TPU.  On the CPU it runs in f32, which is what JAX's DEFAULT
   precision gives on the CPU.  A product is never returned rounded to
-  bf16.
+  bf16.  The driver's stage-A operand is rounded once a call instead of
+  once a product (``rsvd/driver.py::Bf16OnFirstUse``), to the same bits.
 - ``'bf16'``/``'bfloat16'`` and ``'int8'`` are storage modes of the
   driver (A cast once to bf16, or quantized to row-scaled int8); their
   dense products get the numerics of ``'default'``, as the JAX

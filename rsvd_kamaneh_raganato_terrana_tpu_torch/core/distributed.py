@@ -165,7 +165,8 @@ class Sharded:
     ``local`` is this rank's block of the ``shape`` matrix, its rows
     split over the ``rows`` :class:`Axis` and,
     for a 2-D split, its columns over ``cols`` (None: every rank holds
-    all columns).  ``local`` is a tensor or an ``Int8Stored`` block.
+    all columns).  ``local`` is a tensor, an ``Int8Stored`` block or a
+    ``Bf16OnFirstUse`` one.
     ``.T`` flips a flag and moves nothing, as ``Int8Stored.T`` does; the
     driver's ``_mm`` dispatches on it.  ``start`` gives this rank's first
     row where the blocks are not even (rows appended to the last rank's
@@ -216,9 +217,14 @@ class Sharded:
         return Sharded(local, (self._shape[0], local.shape[1]), self.mesh,
                        self.rows, start=self._start)
 
+    def with_block(self, local) -> "Sharded":
+        """The same split and orientation holding ``local``, another
+        form of this rank's block (a cast or staged copy of it)."""
+        return Sharded(local, self._shape, self.mesh, self.rows, self.cols,
+                       self.transposed, self._start)
+
     def to(self, dtype) -> "Sharded":
-        return Sharded(self.local.to(dtype), self._shape, self.mesh,
-                       self.rows, self.cols, self.transposed, self._start)
+        return self.with_block(self.local.to(dtype))
 
     def gram(self) -> torch.Tensor:
         """A^T A of a row-split panel: the local Gram at full precision,

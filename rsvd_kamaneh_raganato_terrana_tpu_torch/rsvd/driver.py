@@ -7,7 +7,10 @@ package's ``rsvd/driver.py``:
 
 with the finishes 'project', 'rowspace', 'utv' and 'rowspace_utv', and
 the stage-A storage modes 'bf16' (A cast once) and 'int8' (row-scaled
-int8, :class:`Int8Stored`, products on ``torch._int_mm``).
+int8, :class:`Int8Stored`, products on ``torch._int_mm``).  At
+'default' an f32 operand on the card is rounded to bf16 once a call, by
+its first product (:class:`Bf16OnFirstUse`), and the copy dropped after
+the last pass over A.
 
 The dense stage-A GEMMs go to ``torch.matmul``/``torch.mm`` at the
 requested precision (``core/device.py``); the orthonormalizations go
@@ -226,6 +229,81 @@ class SparseStored:
         return self.fwd.values()
 
 
+# casts and reuses of Bf16OnFirstUse copies since the last reset
+_stage_counts = [0, 0]
+
+
+def stage_tally() -> dict:
+    """{casts, reuses} since the last :func:`reset_stage_tally`: how
+    often a :class:`Bf16OnFirstUse` operand was rounded to bf16, and how
+    often a product read the copy already made.  The fit's settings
+    (q = 2, 'project') read one cast and 2q + 1 = 5 reuses a call."""
+    return dict(zip(("casts", "reuses"), _stage_counts))
+
+
+def reset_stage_tally() -> None:
+    """Zero :func:`stage_tally`."""
+    _stage_counts[:] = [0, 0]
+
+
+class Bf16OnFirstUse:
+    """The stage-A operand of a 'default' call on an f32 CUDA tensor: A,
+    rounded to bf16 once a call, by the first product that reads it.
+
+    A 'default' product of f32 operands rounds both to bf16
+    (``core/device.py::matmul_at``); A rounds to the same copy in every
+    pass, so one copy serves all 2q + 2 of a call's products, in both
+    orientations.  The copy is ``a.to(torch.bfloat16)``, with A's
+    strides, and ``.T`` reads it transposed, with the strides of
+    ``a.T.to(torch.bfloat16)``: every GEMM gets the operands, layouts and
+    f32 accumulation of the per-product cast, so the factors are those
+    of a cast in each product, bit for bit.  The copy takes half of A's
+    bytes while the call runs: :func:`_factor` releases it after the last
+    pass over A, and nothing keeps it between calls.  ``.T`` shares the
+    copy and flips a flag, as :class:`Int8Stored`'s does; ``_product``
+    dispatches on it."""
+
+    def __init__(self, a, transposed: bool = False, held=None):
+        self.a, self.transposed = a, transposed
+        self._held = [None] if held is None else held
+
+    @property
+    def T(self):
+        return Bf16OnFirstUse(self.a, not self.transposed, self._held)
+
+    @property
+    def shape(self):
+        m, n = self.a.shape
+        return (n, m) if self.transposed else (m, n)
+
+    @property
+    def dtype(self):          # logical compute dtype of the products
+        return self.a.dtype
+
+    @property
+    def device(self):
+        return self.a.device
+
+    def plain(self):
+        """A (or A^T) as the caller gave it."""
+        return self.a.T if self.transposed else self.a
+
+    def bf16(self):
+        """bf16(A) (or its transpose), made by the first call; called
+        under the ``rsvd/cast`` span."""
+        copy = self._held[0]
+        if copy is None:
+            copy = self._held[0] = self.a.to(torch.bfloat16)
+            _stage_counts[0] += 1
+        else:
+            _stage_counts[1] += 1
+        return copy.T if self.transposed else copy
+
+    def release(self):
+        """Drop the copy; a later product would make it again."""
+        self._held[0] = None
+
+
 def _csr(coo):
     """CSR of a coalesced COO tensor, int32 indices where they fit."""
     with warnings.catch_warnings():      # torch's "CSR support is in beta"
@@ -391,6 +469,8 @@ def _product(a, b, precision=DOT_PRECISION):
     if isinstance(b, Int8Stored):
         # X @ A = (A^T @ X^T)^T: one transposed int8 product
         return _int8_mm(b.T, a.T).T
+    if isinstance(a, Bf16OnFirstUse) or isinstance(b, Bf16OnFirstUse):
+        return _staged_mm(a, b, precision)
     if isinstance(a, SparseStored):
         # a column-major dense operand costs cuSPARSE ~11x (PERF.md)
         return a.fwd @ b.contiguous()
@@ -409,6 +489,23 @@ def _product(a, b, precision=DOT_PRECISION):
         wide = torch.promote_types(a.dtype, b.dtype)
         return matmul_at(a.to(wide), b.to(wide), precision)
     return matmul_at(a, b, precision)
+
+
+def _staged_mm(a, b, precision):
+    """A product with a :class:`Bf16OnFirstUse` operand: A read from its
+    one bf16 copy, the other side rounded to bf16, accumulated and
+    returned in f32, under one ``rsvd/cast`` span as ``matmul_at``'s
+    casts are.  Beside a wider operand (f64) A is promoted unrounded, as
+    it would be unstaged."""
+    other = b if isinstance(a, Bf16OnFirstUse) else a
+    if other.dtype.itemsize > 4:
+        a, b = (x.plain() if isinstance(x, Bf16OnFirstUse) else x
+                for x in (a, b))
+        return _product(a, b, precision)
+    with span("cast"):
+        a, b = (x.bf16() if isinstance(x, Bf16OnFirstUse)
+                else x.to(torch.bfloat16) for x in (a, b))
+    return matmul_at(a, b, precision, out_dtype=torch.float32)
 
 
 def _colnormalize(y):
@@ -524,11 +621,13 @@ def _check_options(method, precision, finish):
 
 def _stage_operand(a, precision):
     """The operand stage A reads: A cast once to bf16 for the 'bf16'
-    storage mode, quantized to :class:`Int8Stored` for 'int8', else A.
-    An :class:`Int8Stored` is read as it is under any precision; a
-    sparse operand becomes a :class:`SparseStored`, neither cast nor
-    quantized (JAX driver.py:333-343).  A row-split operand is cast or
-    quantized block by block (the scales are per row)."""
+    storage mode, quantized to :class:`Int8Stored` for 'int8', held as
+    :class:`Bf16OnFirstUse` where 'default' products would round it to
+    bf16 in each pass (an f32 CUDA tensor), else A.  An
+    :class:`Int8Stored` is read as it is under any precision; a sparse
+    operand becomes a :class:`SparseStored`, neither cast nor quantized
+    (JAX driver.py:333-343).  A row-split operand is cast, quantized or
+    held block by block (the scales are per row)."""
     if isinstance(a, Sharded) and not isinstance(a.local, Int8Stored):
         if precision in STORAGE_INT8:
             if a.cols is not None:
@@ -537,8 +636,10 @@ def _stage_operand(a, precision):
                            a.rows)
         if precision in STORAGE_BF16 and a.dtype.itemsize > 2:
             return a.to(torch.bfloat16)
+        if _rounded_each_pass(a.local, precision):
+            return a.with_block(Bf16OnFirstUse(a.local))
         return a
-    if isinstance(a, (Int8Stored, Sharded, EntrySplit)):
+    if isinstance(a, (Int8Stored, Sharded, EntrySplit, Bf16OnFirstUse)):
         return a
     if is_sparse(a):
         return sparse_operand(a)
@@ -546,7 +647,26 @@ def _stage_operand(a, precision):
         return a.to(torch.bfloat16)
     if precision in STORAGE_INT8:
         return quantize_int8_rows(a)
+    if _rounded_each_pass(a, precision):
+        return Bf16OnFirstUse(a)
     return a
+
+
+def _rounded_each_pass(a, precision) -> bool:
+    """Whether each 'default' product would round ``a`` to bf16: the
+    condition of ``matmul_at``'s cast, an f32 CUDA tensor at 'default'
+    (the storage modes are staged before this is asked)."""
+    return (str(precision).lower() == "default"
+            and isinstance(a, torch.Tensor) and a.is_cuda
+            and a.dtype == torch.float32)
+
+
+def _release(a_stage):
+    """Drop a :class:`Bf16OnFirstUse` copy once the call's last pass over
+    A has run."""
+    stage = _local(a_stage)
+    if isinstance(stage, Bf16OnFirstUse):
+        stage.release()
 
 
 def _sorted_by_weight(u, s, v):
@@ -624,6 +744,7 @@ def _factor(a, omega, q, k, method, qr_method, precision, reorth,
             z = _mm(a_stage.T, q_mat, precision)        # n x l co-range
             z_q = orthonormal_basis(z, qr_method)       # final (full) QR
             c = _mm(a_stage, z_q, precision)            # m x l: LAST pass
+            _release(a_stage)
             if finish == "rowspace_utv":
                 q_c, t = qr_reduced(c, qr_method)
                 s, safe = _fold_weights(t)
@@ -633,7 +754,8 @@ def _factor(a, omega, q, k, method, qr_method, precision, reorth,
                 u_t, s, v_small = small_svd(c.T, method)  # c = v_small s u_t^T
                 u, v = v_small, _product(z_q, u_t)
         else:
-            b = _mm(q_mat.T, a_stage, precision)        # l x n
+            b = _mm(q_mat.T, a_stage, precision)        # l x n: LAST pass
+            _release(a_stage)
             if finish == "utv":
                 v, r = qr_reduced(b.T, qr_method)       # B^T = V R
                 el = r.T                                # B = L V^T
