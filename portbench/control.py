@@ -7,14 +7,14 @@ benchmark's runs).
 
 For each seed, at the cell's own size and on its own path (a cell on
 several cards starts one process a card, as ``run.py`` does): the
-operand made from the seed, the cell's entry called on the first
-``--calls`` sketch seeds of a run (those of calls 0, 1, ...), each
-call's factors held to the plain f64 reference (the program's
-readings), then the reference itself computed at the control's lower
-precision in the program's place (the control's readings: they have to
-come out above a limit).  One JSON line a seed on standard output, then
-the largest program reading and the smallest control reading of each
-number.
+operand made from the seed by the cell's kind (``kinds/<kind>.py``), the
+cell's entry called on the first ``--calls`` sketch seeds of a run
+(those of calls 0, 1, ...), each call's output held to the kind's plain
+reference (the program's readings), then the reference itself computed
+at the control's lower precision in the program's place (the control's
+readings: they have to come out above a limit).  One JSON line a seed on
+standard output, then the largest program reading and the smallest
+control reading of each number.
 """
 
 from __future__ import annotations
@@ -35,40 +35,37 @@ from portbench.reference.operand import Comm, DistComm  # noqa: E402
 
 
 def seed_readings(wl, cfg, seed, device, calls, control=True, rank=0,
-                  mesh=None, comm=None):
+                  mesh=None, comm=None, root=loader.ROOT):
     """(program readings, control readings or None) of one seed."""
     import torch
     comm = comm or Comm()
-    operand, held = forms.build(wl, cfg, seed, device, rank, mesh)
+    kind = loader.kind(wl, root)
+    operand, held = kind.build(wl, cfg, seed, device, rank, mesh)
     entry = forms.resolve(wl["entry"])
     kwargs = {**cfg["settings"], **wl["kwargs"]}
     samples = []
     for i in range(calls):
         s = operands.call_seed(seed, i)
         out = entry(operand, seed=s, **kwargs)
-        u = out[0].to_local() if hasattr(out[0], "to_local") else out[0]
-        samples.append(dict(seed=s, u=u, s=out[1], v=out[2],
-                            health=out[3] if len(out) > 3 else None))
+        samples.append(dict(seed=s, **kind.sample(out)[0]))
     del operand, out
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    ref = wl["reference"]
-    if held is None and wl["form"] != "sparse":
-        held = operands.planted_part(cfg["operand"], seed, rank, device)
-    ref_view = check.view(wl, cfg, seed, held, device, comm, ref["operand"])
     if not control:
-        return check.readings(wl, cfg, samples, ref_view, device), None
-    ctl_view = check.view(wl, cfg, seed, held, device, comm, ref["control"])
-    return check.readings(wl, cfg, samples, ref_view, device, ctl_view)
+        return kind.readings(wl, cfg, samples, held, seed, device,
+                             comm), None
+    return kind.readings(wl, cfg, samples, held, seed, device, comm,
+                         wl["reference"]["control"])
 
 
 def _seeds(args, wl, cfg, device, rank=0, mesh=None, comm=None,
-           out=sys.stdout):
+           out=sys.stdout, root=loader.ROOT):
     hi, lo = {}, {}
     for seed in (int(x) for x in args.seeds.split(",")):
         prog, ctl = seed_readings(wl, cfg, seed, device, args.calls,
-                                  not args.no_control, rank, mesh, comm)
+                                  not args.no_control, rank, mesh, comm,
+                                  root)
         if rank == 0:
             print(json.dumps({"seed": seed, "program": prog,
                               "control": ctl}), file=out, flush=True)
@@ -120,7 +117,8 @@ def _rank(rank, world, port, argv, root, device, backend):
             forms.load_kernels()
         from torch.distributed.device_mesh import init_device_mesh
         mesh = init_device_mesh(device, (world,), mesh_dim_names=("rows",))
-        return _seeds(args, wl, cfg, device, rank, mesh, DistComm())
+        return _seeds(args, wl, cfg, device, rank, mesh, DistComm(),
+                      root=Path(root))
     finally:
         dist.destroy_process_group()
 
@@ -139,7 +137,7 @@ def main(argv=None, root=None, device="cuda", out=sys.stdout):
     if chips == 1:
         if device == "cuda":
             forms.load_kernels()
-        return _seeds(args, wl, cfg, device, out=out)
+        return _seeds(args, wl, cfg, device, out=out, root=root)
     import multiprocessing as mp
     from portbench.run import _free_port
     if device == "cuda":

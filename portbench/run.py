@@ -9,10 +9,13 @@ into the package's fixed ``build/`` directory), makes the cell's operand
 on the card from the seed, and warms up the cell's calls.  The window is
 a closed loop with one caller: the cell's entry called back to back on
 the stored operand, each call with its own sketch seed and ended by
-``torch.cuda.synchronize()``.  With ``--trace 1`` the window runs under
+``torch.cuda.synchronize()``.  The cell's kind (``kinds/<kind>.py``)
+builds the operand, keeps what the check needs of each call's output,
+holds it to the kind's plain reference and counts the least time of a
+call's products.  With ``--trace 1`` the window runs under
 ``torch.profiler`` for the cell's ``trace_seconds`` and the per-layer
 metrics are printed instead of the end-to-end ones.  After the window a
-sample of the calls, drawn from the seed, is held to the plain f64
+sample of the calls, drawn from the seed, is held to the kind's plain
 reference (``check.py``).  The last line of standard output is one JSON
 object: ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``
 (with ``--trace 1`` also ``breakdown``) and ``checks``; the checks are
@@ -65,7 +68,7 @@ import random  # noqa: E402
 import socket  # noqa: E402
 import subprocess  # noqa: E402
 
-from portbench import loader, operands, roofline, stats  # noqa: E402
+from portbench import loader, operands, stats  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "rsvd_kamaneh_raganato_terrana_tpu")
 
@@ -149,9 +152,9 @@ class Group:
             self.dist.destroy_process_group()
 
 
-def _window(call, seed, seconds, n_sample, group, device):
+def _window(call, sample, seed, seconds, n_sample, group, device):
     """The closed loop: (latencies, samples, failures, non-finite flag
-    count on the device, window seconds)."""
+    count on the device, window seconds).  ``sample``: the kind's."""
     import torch
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     rng = random.Random(operands.mix(seed, 7))
@@ -172,13 +175,11 @@ def _window(call, seed, seconds, n_sample, group, device):
                 log(f"call {i} failed: {type(e).__name__}: {e}")
         lat.append(time.perf_counter() - t0)
         if out is not None:
-            u, sv, v = out[0], out[1], out[2]
-            u = u.to_local() if hasattr(u, "to_local") else u
-            nonfinite += ~torch.isfinite(u.sum() + sv.sum() + v.sum())
-            health = out[3] if len(out) > 3 else None
-            if health is not None and not health["ok"]:
-                failed += 1         # factor_health tripped ('warn' mode)
-            smp = dict(index=i, seed=s, u=u, s=sv, v=v, health=health)
+            kept, bad, unhealthy = sample(out)
+            nonfinite += bad
+            if unhealthy:
+                failed += 1         # the program's health verdict tripped
+            smp = dict(index=i, seed=s, **kept)
             # reservoir sample of the calls, drawn from the seed
             if len(samples) < n_sample:
                 samples.append(smp)
@@ -186,7 +187,7 @@ def _window(call, seed, seconds, n_sample, group, device):
                 j = rng.randrange(i + 1)
                 if j < n_sample:
                     samples[j] = smp
-            del out, u, sv, v, smp
+            del out, kept, bad, smp
         i += 1
     sync()
     return lat, samples, failed, nonfinite, time.perf_counter() - t_start
@@ -205,6 +206,7 @@ def run_rank(rank, world, args, port, device="cuda", backend="nccl",
     root = Path(root) if root else loader.ROOT
     bench_root = root.parent if root != loader.ROOT else loader.REPO
     wl, cfg, e2e, per_layer = loader.cell(args.workload, root, bench_root)
+    kind = loader.kind(wl, root)
     loop = wl["loop"]
     marks = {"imports": time.perf_counter()}
     if device == "cuda":
@@ -219,7 +221,7 @@ def run_rank(rank, world, args, port, device="cuda", backend="nccl",
         log(f"rank {rank}: {n} kernel libraries loaded")
     marks["kernels"] = time.perf_counter()
     mesh = group.make_mesh(device)
-    operand, held = forms.build(wl, cfg, args.seed, device, rank, mesh)
+    operand, held = kind.build(wl, cfg, args.seed, device, rank, mesh)
     if device == "cuda":
         torch.cuda.synchronize()
     marks["operand"] = time.perf_counter()
@@ -254,7 +256,7 @@ def run_rank(rank, world, args, port, device="cuda", backend="nccl",
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device == "cuda" else [])
         seconds = min(args.seconds, loop["trace_seconds"])
-        with trace.layer_spans(root):
+        with trace.layer_spans(root, getattr(kind, "SPANS", None)):
             with profile(activities=acts) as prof:
                 call(operands.call_seed(args.seed, -100))    # CUPTI warm-up
                 if device == "cuda":
@@ -266,15 +268,15 @@ def run_rank(rank, world, args, port, device="cuda", backend="nccl",
                     with record_function(trace.CALL):
                         return call(s)
                 lat, samples, failed, bad, window_s = _window(
-                    traced, args.seed, seconds, loop["sample_calls"], group,
-                    device)
+                    traced, kind.sample, args.seed, seconds,
+                    loop["sample_calls"], group, device)
         red = trace.reduce(*trace.events_from_profiler(prof))
         del prof
     else:
         collectives.reset()
         lat, samples, failed, bad, window_s = _window(
-            call, args.seed, args.seconds, loop["sample_calls"], group,
-            device)
+            call, kind.sample, args.seed, args.seconds, loop["sample_calls"],
+            group, device)
     tally = collectives.tally()
     peak_window = peak_all = 0
     if device == "cuda":
@@ -290,14 +292,12 @@ def run_rank(rank, world, args, port, device="cuda", backend="nccl",
         torch.cuda.empty_cache()
     comm = DistComm() if world > 1 else Comm()
     t_ref = time.perf_counter()
-    ref_view = check.view(wl, cfg, args.seed, held, device, comm,
-                          wl["reference"]["operand"])
-    found = check.readings(wl, cfg, samples, ref_view, device)
+    found = kind.readings(wl, cfg, samples, held, args.seed, device, comm)
     ref_s = time.perf_counter() - t_ref
     if rank == 0:
         log(f"sampled calls {[smp['index'] for smp in samples]}: "
             + json.dumps(found))
-    del ref_view, held, samples
+    del held, samples
 
     mine = dict(peak=peak_window, peak_all=peak_all, failed=failed,
                 busy=(red or {}).get("busy_s", 0.0),
@@ -313,7 +313,8 @@ def run_rank(rank, world, args, port, device="cuda", backend="nccl",
     correct = bool(ok and failed == 0 and attempted > 0)
     gib = max(m["peak"] for m in every) / 2 ** 30
     if args.trace:
-        metrics = _per_layer(per_layer, root, red, every, cfg, wl, world)
+        metrics = _per_layer(per_layer, root, red, every,
+                             kind.least(wl, cfg, world), world)
     else:
         values = {"call_ms": stats.per_call_ms(window_s, attempted),
                   "call_ms_p95": 1e3 * stats.percentile(lat, 95.0),
@@ -359,16 +360,9 @@ def run_rank(rank, world, args, port, device="cuda", backend="nccl",
     return result
 
 
-def _per_layer(per_layer, root, red, every, cfg, wl, world):
+def _per_layer(per_layer, root, red, every, least_by, world):
     from portbench import trace
-    s = cfg["settings"]
-    op = cfg["operand"]
-    if op["kind"] == "ml20m":
-        m, n, nnz = op["users"], op["items"], op["ratings"]
-    else:                                   # one card's rows of A
-        m, n, nnz = operands.part_rows(op), op["cols"], 0
-    least, by, _, _ = roofline.products_least(
-        wl["products"], m, n, s["k"] + s["p"], nnz)
+    least, by = least_by
     log(f"products' least time {1e3 * least:.4f} ms a call, bound by {by}")
     calls = red.get("calls", 0)
     reading = trace.Reading(red, sum(x["busy"] for x in every) / world,

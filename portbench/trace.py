@@ -3,12 +3,12 @@ numbers.
 
 Layers.  The harness opens ``record_function`` spans named
 ``portbench/<layer>`` around the program's functions that
-``layers.json`` lists (only in a traced run), and ``portbench/call``
-around each call.  A device operation belongs to the innermost layer
-span open on the host when it was launched (found through the
-profiler's correlation ids); an NCCL kernel always belongs to
-``collectives``; an operation launched outside every layer span is
-filed by name (:data:`KERNEL_GROUPS`, a repaired copy of
+``layers.json`` lists, and those the cell's kind adds (``SPANS``), only
+in a traced run, and ``portbench/call`` around each call.  A device
+operation belongs to the innermost layer span open on the host when it
+was launched (found through the profiler's correlation ids); an NCCL
+kernel always belongs to ``collectives``; an operation launched outside
+every layer span is filed by name (:data:`KERNEL_GROUPS`, a repaired copy of
 ``chip_smoke.py``'s, with cuSPARSE added).
 
 Repairs against ``chip_smoke.py::profile_call``: the busy time is the
@@ -71,16 +71,26 @@ def _spec(root: Path) -> dict:
     return json.loads((root / "layers.json").read_text())
 
 
+def span_targets(root: Path, extra=None) -> dict:
+    """{layer: [module:attribute, ...]}: ``layers.json``'s, with a kind's
+    own ``SPANS`` (``extra``) added in the cells of that kind."""
+    targets = {k: list(v) for k, v in _spec(root)["spans"].items()}
+    for layer, more in (extra or {}).items():
+        have = targets.setdefault(layer, [])
+        have += [t for t in more if t not in have]
+    return targets
+
+
 @contextlib.contextmanager
-def layer_spans(root: Path):
-    """Wrap the functions ``layers.json`` names in ``portbench/<layer>``
-    spans for the duration of the block; names the program does not have
-    are left alone (their kernels are then filed by name)."""
+def layer_spans(root: Path, extra=None):
+    """Wrap the functions :func:`span_targets` names in
+    ``portbench/<layer>`` spans for the duration of the block, which is
+    given the (layer, target) pairs wrapped; names the program does not
+    have are left alone (their kernels are then filed by name)."""
     from torch.profiler import record_function
 
-    spec = _spec(root)
-    undo = []
-    for layer, targets in spec["spans"].items():
+    undo, wrapped_targets = [], []
+    for layer, targets in span_targets(root, extra).items():
         for target in targets:
             mod_name, attr = target.split(":")
             mod = importlib.import_module(mod_name)
@@ -94,8 +104,9 @@ def layer_spans(root: Path):
             functools.update_wrapper(wrapped, fn)
             setattr(mod, attr, wrapped)
             undo.append((mod, attr, fn))
+            wrapped_targets.append((layer, target))
     try:
-        yield
+        yield wrapped_targets
     finally:
         for mod, attr, fn in reversed(undo):
             setattr(mod, attr, fn)
