@@ -22,6 +22,10 @@ The tree of one call (parents by nesting on the host thread):
     rsvd/power               one power round
     rsvd/finish              B = Q^T A (or the rowspace Z, C) to (U, s, V)
     rsvd/health              ``factor_health``
+    rsvd/mode                one mode of a Tucker call (``rsvd/tucker.py``),
+                             around its own stages
+      rsvd/unfold            the mode's unfolding (no device work where
+                             it is a view)
   below the stages:
     rsvd/product             a stage-A product (the driver's ``_mm``)
       rsvd/cast              an operand narrowed to bf16 or int8 for it

@@ -7,12 +7,13 @@ rSVD range finder, tighten the oversampled basis to exactly r directions
 via the projected Gram's eigenvectors, and contract the factor into the
 remainder.
 
-The projected Gram's eigh is ``core/device.py::eigh`` (torch's eigh plus
-one Newton--Schulz step): ``jnp.linalg.eigh`` returns eigenvectors
-orthogonal to working precision, torch's f32 eigh on the card only to
-~1e-5.  The tolerance-adaptive variants fetch one spectrum per mode to
-the host between :func:`mode_spectrum` and :func:`mode_contract`, the
-same host sync the JAX package makes between its two jitted pieces.
+The projected Gram's eigh (under the ``rsvd/tail`` span) is
+``core/device.py::eigh`` (torch's eigh plus one Newton--Schulz step):
+``jnp.linalg.eigh`` returns eigenvectors orthogonal to working
+precision, torch's f32 eigh on the card only to ~1e-5. The
+tolerance-adaptive variants fetch one spectrum per mode to the host
+between :func:`mode_spectrum` and :func:`mode_contract`, the same host
+sync the JAX package makes between its two jitted pieces.
 
 An unfolding may be split over the ranks (``core/distributed.py::
 Sharded``: mode 0's by rows, another mode's by columns, held as the
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from rsvd_kamaneh_raganato_terrana_tpu_torch.core.device import eigh
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import span
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
 )
@@ -47,7 +49,8 @@ def tighten_contract(unf, q_mat, r: int, prec):
     eigenvectors of (Q^T unf)(Q^T unf)^T mapped back through Q."""
     b = _mm(q_mat.T, unf, prec)
     g = _mm(b, b.T, DOT_PRECISION)
-    _, vecs = eigh(0.5 * (g + g.T))
+    with span("tail"):
+        _, vecs = eigh(0.5 * (g + g.T))
     u = _mm(q_mat, vecs.flip(1)[:, :r])
     return u, _mm(u.T, unf, prec)
 
@@ -61,7 +64,8 @@ def mode_spectrum(unf, seed, l: int, q: int):
     q_mat = subspace_iteration(unf, omega, q)
     b = _mm(q_mat.T, unf, DOT_PRECISION)
     g = _mm(b, b.T, DOT_PRECISION)
-    w, vecs = eigh(0.5 * (g + g.T))
+    with span("tail"):
+        w, vecs = eigh(0.5 * (g + g.T))
     total = _reduce(torch.sum(torch.square(_local(unf))), unf)
     return q_mat, w.flip(0), vecs.flip(1), total
 

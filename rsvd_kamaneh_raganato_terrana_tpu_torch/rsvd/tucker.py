@@ -13,6 +13,16 @@ Error: ||A - [G; U]||_F^2 <= sum_i eps_i^2, eps_i mode i's truncation
 error.  Each mode's range finder uses the driver's 'robust' QR, which
 reads its fallback flag on the host once per QR, as the main path does.
 
+A mode's unfolding is a view where its axes merge without a copy (the
+input's first or last mode), else a copy of the current core; each
+mode's Omega is drawn inside the sketch (``driver._sketch``) and freed
+after it, so it is not held through the power rounds. Spans
+(``core/profiling.py``): ``rsvd/call`` once a call, ``rsvd/mode`` once a
+mode, ``rsvd/unfold`` around each unfolding (empty on the device where
+it is a view), and the driver's and
+``_modewise``'s own below them; :func:`unfold_tally` counts the calls,
+the copies and the bytes they wrote.
+
 A DTensor sharded on mode 0 is read block by block: mode 0's unfolding
 is split by rows, every other mode's by columns (held as the transpose
 of a row split), and the driver's split products all-reduce the Grams
@@ -39,6 +49,10 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.core.distributed import (
     is_dtensor,
     row_dtensor,
 )
+from rsvd_kamaneh_raganato_terrana_tpu_torch.core.profiling import (
+    call_span,
+    span,
+)
 from rsvd_kamaneh_raganato_terrana_tpu_torch.ops.primitives import (
     DOT_PRECISION,
 )
@@ -60,10 +74,34 @@ from rsvd_kamaneh_raganato_terrana_tpu_torch.rsvd.driver import (
 
 _HI = DOT_PRECISION
 
+# tucker / tucker_adaptive calls, copying unfoldings and the bytes they
+# wrote since the last reset_unfold_tally()
+_unfold_counts = [0, 0, 0]
+
+
+def unfold_tally() -> dict:
+    """{calls, copies, bytes} since the last :func:`reset_unfold_tally`:
+    calls of :func:`tucker` and :func:`tucker_adaptive`, the unfoldings
+    that copied the current core, and the bytes those copies wrote (an
+    unfolding that is a view counts none)."""
+    return dict(zip(("calls", "copies", "bytes"), _unfold_counts))
+
+
+def reset_unfold_tally() -> None:
+    """Zero :func:`unfold_tally`."""
+    _unfold_counts[:] = [0, 0, 0]
+
 
 def _unfold(t, mode: int):
-    """Mode-`mode` unfolding: n_mode x prod(other dims)."""
-    return t.movedim(mode, 0).reshape(t.shape[mode], -1)
+    """Mode-`mode` unfolding: n_mode x prod(other dims), under the
+    ``rsvd/unfold`` span; a copy (where the axes do not merge) is
+    counted in :func:`unfold_tally`."""
+    with span("unfold"):
+        out = t.movedim(mode, 0).reshape(t.shape[mode], -1)
+    if out.untyped_storage().data_ptr() != t.untyped_storage().data_ptr():
+        _unfold_counts[1] += 1
+        _unfold_counts[2] += out.numel() * out.element_size()
+    return out
 
 
 def _fold(mat, mode: int, shape):
@@ -110,22 +148,25 @@ def _tucker_impl(a, seed, ranks: Tuple[int, ...], p: int, q: int,
     shape = list(a.shape)                          # the whole core's
     factors = [None] * len(shape)
     for mode in _order(a.shape):
-        unf = (_split_unfold(view, core, mode) if view
-               else _unfold(core, mode))           # n_mode x rest
-        rest = math.prod(shape) // shape[mode]
-        l = min(ranks[mode] + p, shape[mode], rest)
-        omega = generate_omega(seed + 7919 * mode, rest, l, core.dtype,
-                               device=core.device)
-        q_mat = subspace_iteration(unf, omega, q, precision=prec)
-        u, contracted = tighten_contract(unf, q_mat, ranks[mode], prec)
-        factors[mode] = _to_api(u)
-        shape[mode] = ranks[mode]
-        if view and mode == 0:
-            view = None                            # contracted: replicated
-        elif view:
-            contracted = contracted.T.local.T      # this rank's columns
-        core = _fold(contracted, mode, shape if view is None
-                     else (core.shape[0],) + tuple(shape[1:]))
+        with span("mode"):
+            unf = (_split_unfold(view, core, mode) if view
+                   else _unfold(core, mode))       # n_mode x rest
+            rest = math.prod(shape) // shape[mode]
+            l = min(ranks[mode] + p, shape[mode], rest)
+            # drawn inside the sketch, freed before the power rounds
+            q_mat = subspace_iteration(
+                unf, lambda: generate_omega(seed + 7919 * mode, rest, l,
+                                            core.dtype, device=core.device),
+                q, precision=prec)
+            u, contracted = tighten_contract(unf, q_mat, ranks[mode], prec)
+            factors[mode] = _to_api(u)
+            shape[mode] = ranks[mode]
+            if view and mode == 0:
+                view = None                        # contracted: replicated
+            elif view:
+                contracted = contracted.T.local.T  # this rank's columns
+            core = _fold(contracted, mode, shape if view is None
+                         else (core.shape[0],) + tuple(shape[1:]))
     return core, tuple(factors)
 
 
@@ -161,7 +202,9 @@ def tucker(
         rest = math.prod(s for j, s in enumerate(cur) if j != mode)
         eff[mode] = min(eff[mode], rest)
         cur[mode] = eff[mode]
-    return _tucker_impl(a, seed, tuple(eff), p, q, precision)
+    _unfold_counts[0] += 1
+    with call_span():
+        return _tucker_impl(a, seed, tuple(eff), p, q, precision)
 
 
 def tucker_reconstruct(core, factors, precision=_HI):
@@ -193,6 +236,12 @@ def tucker_adaptive(
     factors, ranks)``.  A DTensor sharded on mode 0 is read block by
     block (the module docstring)."""
     a = _row_split(a)
+    _unfold_counts[0] += 1
+    with call_span():
+        return _adaptive_impl(a, tol, p, q, seed, rank_cap)
+
+
+def _adaptive_impl(a, tol, p, q, seed, rank_cap):
     d = len(a.shape)
     budget = float(tol) / math.sqrt(d)
     caps = tuple(rank_cap) if rank_cap is not None else a.shape
@@ -201,20 +250,21 @@ def tucker_adaptive(
     shape = list(a.shape)                          # the whole core's
     factors = [None] * d
     for mode in _order(a.shape):
-        unf = (_split_unfold(view, core, mode) if view
-               else _unfold(core, mode))
-        cap = int(min(caps[mode], min(unf.shape)))
-        l = min(cap + p, min(unf.shape))
-        q_mat, w, vecs, total = mode_spectrum(
-            unf, seed + 7919 * mode, l, q)
-        r = rank_for_budget(w, total, budget, cap)
-        u, contracted = mode_contract(unf, q_mat, vecs, r)
-        factors[mode] = _to_api(u)
-        shape[mode] = r
-        if view and mode == 0:
-            view = None                            # contracted: replicated
-        elif view:
-            contracted = contracted.T.local.T      # this rank's columns
-        core = _fold(contracted, mode, shape if view is None
-                     else (core.shape[0],) + tuple(shape[1:]))
+        with span("mode"):
+            unf = (_split_unfold(view, core, mode) if view
+                   else _unfold(core, mode))
+            cap = int(min(caps[mode], min(unf.shape)))
+            l = min(cap + p, min(unf.shape))
+            q_mat, w, vecs, total = mode_spectrum(
+                unf, seed + 7919 * mode, l, q)
+            r = rank_for_budget(w, total, budget, cap)
+            u, contracted = mode_contract(unf, q_mat, vecs, r)
+            factors[mode] = _to_api(u)
+            shape[mode] = r
+            if view and mode == 0:
+                view = None                        # contracted: replicated
+            elif view:
+                contracted = contracted.T.local.T  # this rank's columns
+            core = _fold(contracted, mode, shape if view is None
+                         else (core.shape[0],) + tuple(shape[1:]))
     return core, tuple(factors), tuple(f.shape[1] for f in factors)
