@@ -44,6 +44,16 @@ Phases (any failure raises; nothing is caught):
    on the image phase's factor shapes, 1-D 1000, 3 x 5 x 7, 4099 x
    4001, a constant, the 256-level grid and 16384^2; K5b within one
    level of K5a, unbiased at 6 sigma over 64 seeds, exact on the grid.
+   K6 (``cast_sketch``) at 16384 x 8192 x 144, 4099 x 1040 x 17 and
+   4096^2 x 80: its copy bitwise ``a.to(torch.bfloat16)``, Y within
+   K6_Y_TOL of ``torch.mm`` on the same bf16 operands and of its plain
+   version; at the fit's 100000^2 x 144 the same checks in row blocks
+   against ``torch.mm``, then one ``rsvd()`` call at the fit's settings
+   with K6's count zeroed just before (one launch, ``stage_tally()`` one
+   fused copy; the kernels line reports that count); timed there and at
+   4096^2 x 80 against the pair it replaces (``a.to(torch.bfloat16)``
+   and ``torch.mm``), and swept over rows at n = 100000 and 16384 (the
+   routing threshold).
    Kernel, plain version and library yardsticks are timed with CUDA
    events.  ``--kernels-only`` stops here.
 3. The main path -- ``entry()``'s rank-64 rSVD (k=64, p=16, q=2) of a
@@ -544,6 +554,21 @@ K3_LAM_TOL = 1e-5        # K3: max |d lambda| / max |lambda| vs plain, odd n
 K3_ORTH_TOL = K3_REC_TOL = 1e-3
 K4_OMEGA_ULPS = 4        # K4: recovered Omega vs plain, in ulps of |Omega|
 K4_Y_TOL = 1e-5          # K4: max |dY| / max |Y| vs plain
+# K6: max over Y of |dY| / (|a16| @ |Omega|), against torch.mm on the same
+# bf16 operands: both add the same exact products in f32, in another
+# order (expected ~1e-7 at n = 8192, the worst case n 2^-24 = 4.9e-4)
+K6_Y_TOL = 1e-5
+K6_CHECKS = ((16384, 8192, 144), (4099, 1040, 17), (4096, 4096, 80))
+K6_MAIN = (100000, 100000, 144)    # the fit's first product
+K6_NARROW = (4096, 4096, 80)       # phase 3's
+K6_BLOCK_ROWS = 10000              # the row blocks of the check at K6_MAIN
+# the sweep that sets driver._CAST_SKETCH_WAVES: rows at l = 144 and each
+# width (the fit's n, and a narrower one)
+K6_SWEEP_ROWS = (1024, 2048, 4096, 6144, 8192, 8448, 12288, 16384, 16896,
+                 25600, 33792, 50000, 100000)
+K6_SWEEP_COLS = (100000, 16384)
+K6_FIT = dict(k=128, p=16, q=2, method="eigh", qr_method="cholqr1_fused",
+              interior_qr="cholqr1_fused", reorth="half")
 DEFAULT_P = 10           # rsvd()'s default oversampling
 FUSED = dict(k=K, p=P, q=Q, seed=0, method="eigh_pallas", sketch="fused",
              qr_method="cholqr1_fused", interior_qr="cholqr1_fused",
@@ -551,6 +576,7 @@ FUSED = dict(k=K, p=P, q=Q, seed=0, method="eigh_pallas", sketch="fused",
 ENGINES = ("jacobi", "parallel_jacobi", "power", "auto")
 # the H100 SXM's published peaks: dense fp32 FLOP/s and HBM3 bytes/s
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 POLAR_ITERS = 8
 K2_STAGES = ("gram", "gt", "w1", "h1", "h2", "h4", "h8")
@@ -1483,6 +1509,179 @@ def phase_k5():
     out["K5a"]["library_vs_plain"] = lib
     log(f"  K5a's library call at {BIG}^2: " + json.dumps(lib))
     del big
+    torch.cuda.empty_cache()
+    return out
+
+
+
+def k6_y_error(a16, omega16, y, rows=None):
+    """max over Y of |Y - torch.mm(a16, Omega)| / (|a16| @ |Omega|), both
+    products in f32 on the card, in blocks of ``rows`` rows (all at once
+    where None)."""
+    rows = rows or a16.shape[0]
+    worst = 0.0
+    for r in range(0, a16.shape[0], rows):
+        part = a16[r:r + rows]
+        want = torch.mm(part, omega16, out_dtype=torch.float32)
+        scale = torch.mm(part.abs(), omega16.abs(), out_dtype=torch.float32)
+        worst = max(worst, float(((y[r:r + rows] - want).abs()
+                                  / scale.clamp(min=1e-30)).max()))
+    return worst
+
+
+def k6_copy_bitwise(a, a16, rows):
+    """Whether a16 is bitwise ``a.to(torch.bfloat16)``, in row blocks."""
+    return all(torch.equal(a16[r:r + rows], a[r:r + rows].to(torch.bfloat16))
+               for r in range(0, a.shape[0], rows))
+
+
+def k6_library(a, omega16):
+    """The pair K6 replaces: the cast of A, then cuBLAS's bf16 GEMM."""
+    return torch.mm(a.to(torch.bfloat16), omega16, out_dtype=torch.float32)
+
+
+def k6_bound(m, n, l):
+    """(bound_ms, bound_by, bytes): A read at f32, the copy written, Omega
+    read and Y written once; 2 m n l operations at the bf16 peak."""
+    nbytes = 6 * m * n + 2 * n * l + 4 * m * l
+    t_ops, t_bytes = 2 * m * n * l / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
+
+
+def k6_timed(a, omega16, reps, plain=True):
+    """K6's, its plain version's (where asked) and the library pair's ms
+    on (A, Omega), the pair's cast and GEMM apart, and the bound.  One
+    bf16 copy of A is held at a time (A and two copies overfill the card
+    at 100000^2)."""
+    m, n = a.shape
+    l = omega16.shape[1]
+    omega_k = omega16.T.contiguous().T        # the driver's layout
+    out = dict(shape=[m, n, l],
+               ms=cuda_ms(lambda: kernels.cast_sketch(a, omega_k), reps),
+               library_ms=cuda_ms(lambda: k6_library(a, omega16), reps),
+               cast_ms=cuda_ms(lambda: a.to(torch.bfloat16), reps))
+    a16 = a.to(torch.bfloat16)
+    out["gemm_ms"] = cuda_ms(
+        lambda: torch.mm(a16, omega16, out_dtype=torch.float32), reps)
+    del a16
+    out["plain_ms"] = (cuda_ms(lambda: kernels.cast_sketch_reference(
+        a, omega_k), max(1, reps // 4)) if plain else None)
+    out["bound_ms"], out["bound_by"], nbytes = k6_bound(m, n, l)
+    out["tb_per_s"] = nbytes / out["ms"] / 1e9
+    out["tiles"] = -(-m // 128)
+    return out
+
+
+def k6_checked(a, omega16, rows=None):
+    """K6 once on (A, Omega): (copy bitwise ``a.to``, max |dY| against
+    ``torch.mm`` on the same bf16 operands), counted."""
+    before = kernels.cast_sketch.launches
+    a16, y = kernels.cast_sketch(a, omega16.T.contiguous().T)
+    torch.cuda.synchronize()
+    check(kernels.cast_sketch.launches == before + 1, "K6 launches")
+    return (k6_copy_bitwise(a, a16, rows or a.shape[0]),
+            k6_y_error(a16, omega16, y, rows), a16, y)
+
+
+def phase_k6():
+    """K6 (``cast_sketch``) against ``a.to(torch.bfloat16)`` (bitwise) and
+    against torch.mm on the same bf16 operands (``K6_Y_TOL``), and against
+    its plain version, at ``K6_CHECKS`` and (without the plain version,
+    which would overfill the card) at the fit's ``K6_MAIN``; one
+    ``rsvd()`` call at the fit's settings there with K6's count zeroed
+    just before (one launch, one fused copy); its times at ``K6_MAIN``
+    and ``K6_NARROW``, and the row sweep behind
+    ``driver._CAST_SKETCH_WAVES``; returns the kernels-line fields."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for m, n, l in K6_CHECKS:
+        a = torch.randn(m, n, device="cuda", generator=gen)
+        omega16 = torch.randn(n, l, device="cuda",
+                              generator=gen).to(torch.bfloat16)
+        same, rel, a16, y = k6_checked(a, omega16)
+        p16, py = kernels.cast_sketch_reference(a, omega16)
+        plain_rel = float(((y - py).abs() / torch.mm(
+            p16.abs(), omega16.abs(), out_dtype=torch.float32).clamp(
+                min=1e-30)).max())
+        log(f"  K6 {m}x{n} x {l}: copy bitwise {same}, max |dY| / "
+            f"(|a16| |Omega|) = {rel:.3e} against torch.mm, {plain_rel:.3e} "
+            f"against the plain version")
+        check(same and torch.equal(p16, a16), f"K6 {m}x{n}: copy differs")
+        check(rel <= K6_Y_TOL and plain_rel <= K6_Y_TOL,
+              f"K6 {m}x{n} x {l}: {rel}, {plain_rel}")
+        worst = max(worst, rel)
+    del a, a16, y, p16, py
+
+    out = {}
+    m, n, l = K6_MAIN
+    a = torch.randn(m, n, device="cuda", generator=gen)
+    omega16 = torch.randn(n, l, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    same, rel, a16, y = k6_checked(a, omega16, K6_BLOCK_ROWS)
+    log(f"  K6 {m}x{n} x {l}: copy bitwise {same}, max |dY| / "
+        f"(|a16| |Omega|) = {rel:.3e} against torch.mm (row blocks of "
+        f"{K6_BLOCK_ROWS})")
+    check(same and rel <= K6_Y_TOL, f"K6 {m}x{n} x {l}: {same}, {rel}")
+    worst = max(worst, rel)
+    del a16, y
+    torch.cuda.empty_cache()
+
+    # the main path at the fit's shape and settings, counted from zero
+    kernels.cast_sketch.launches = 0
+    driver.reset_stage_tally()
+    _, s, _ = driver.rsvd(a, seed=3, precision="default", **K6_FIT)
+    torch.cuda.synchronize()
+    out["launches"] = kernels.cast_sketch.launches
+    tally = driver.stage_tally()
+    _, s16, _ = driver.rsvd(a, seed=3, precision="bf16", **K6_FIT)
+    ds = float(((s - s16).abs() / s16[0]).max())
+    out["main_path"] = dict(shape=[m, n], stage_tally=tally,
+                            max_rel_ds_vs_bf16_storage=ds)
+    log(f"  K6 in rsvd() at {m}x{n}, the fit's settings: launches "
+        f"{out['launches']}, stage_tally {tally}, max |ds| / s_1 against "
+        f"'bf16' storage {ds:.3e}")
+    check(out["launches"] == 1
+          and tally == {"casts": 1, "reuses": 5, "fused": 1},
+          f"K6 in rsvd(): launches {out['launches']}, {tally}")
+    check(ds <= 1e-4, f"K6 in rsvd(): s differs by {ds}")
+    del s, s16
+    torch.cuda.empty_cache()
+
+    out["main"] = k6_timed(a, omega16, 10, plain=False)
+    log(f"  K6 at {m}x{n} x {l}: " + json.dumps(out["main"]))
+    sweep = []
+    for cols in K6_SWEEP_COLS:
+        # rows of A's first `cols` columns, copied contiguous
+        rows_a = a if cols == n else a[:max(K6_SWEEP_ROWS), :cols].clone()
+        om16 = omega16[:cols]
+        om_k = om16.T.contiguous().T
+        for rows in K6_SWEEP_ROWS:
+            if rows > rows_a.shape[0]:
+                continue
+            part = rows_a[:rows]
+            reps = max(5, int(2e10 // (rows * cols)))
+            k_ms = cuda_ms(lambda: kernels.cast_sketch(part, om_k), reps)
+            lib_ms = cuda_ms(lambda: k6_library(part, om16), reps)
+            sweep.append(dict(rows=rows, cols=cols, tiles=-(-rows // 128),
+                              ms=k_ms, library_ms=lib_ms,
+                              ratio=k_ms / lib_ms))
+            log(f"  K6 sweep {rows}x{cols} x {l}: " + json.dumps(sweep[-1]))
+        del rows_a, part
+    out["sweep"] = sweep
+    del a
+    torch.cuda.empty_cache()
+
+    m, n, l = K6_NARROW
+    a = torch.randn(m, n, device="cuda", generator=gen)
+    omega16 = torch.randn(n, l, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    out["narrow"] = k6_timed(a, omega16, 50)
+    log(f"  K6 at {m}x{n} x {l}: " + json.dumps(out["narrow"]))
+    out["max_rel_err"] = worst
+    out["ptxas"] = ptxas_report("cast_sketch", "cast_sketch_kernel")
+    log(f"  K6 ptxas {out['ptxas']}")
+    del a
     torch.cuda.empty_cache()
     return out
 
@@ -6595,8 +6794,8 @@ def tail_orthogonality(q_mat, b, eighs):
 
 def tail_capture(module_names):
     """Patches that record the basis and the projected B of one call:
-    ``subspace_iteration`` / ``krylov_basis`` return Q, ``small_svd``
-    takes B."""
+    ``_range_finder`` / ``_krylov_basis`` return Q, ``small_svd`` takes
+    B."""
     seen = {}
 
     def spy(name, fn):
@@ -6616,7 +6815,7 @@ def fault_c_main_path(a, forward):
     """Fault C on one main-path call: its Q and B, the tail with
     ``eigh_nan`` (torch's eigh as it comes) and with ``core/device.py::
     eigh`` (one Newton-Schulz step), each against f64."""
-    stack, seen = tail_capture(((driver, "subspace_iteration", "q"),
+    stack, seen = tail_capture(((driver, "_range_finder", "q"),
                                 (driver, "small_svd", "b")))
     with stack:
         forward(a)
@@ -6819,6 +7018,7 @@ def main(argv):
     k3 = phase_k3(tail_gram(a))
     k4 = phase_k4(a)
     k5 = phase_k5()
+    k6 = phase_k6()
     if "--kernels-only" in argv:
         phase("stopping after phase 2 (--kernels-only)")
         return 0
@@ -7052,6 +7252,8 @@ def main(argv):
              replaces="rsvd_kamaneh_raganato_terrana_tpu/linalg/"
                       "pallas_kernels.py:178",
              launches=launches_total[5], **k5["K5b"]),
+        dict(name="cast_sketch", route="cuda",
+             source=f"{pkg}/csrc/cast_sketch.cu", replaces=None, **k6),
     ], "main_path": summary, "serving": serving, "image": image_summary,
         "driver_modes": modes, "pca": pca_summary, "pod": pod_summary,
         "extensions": ext_summary, "formats": fmt_summary,

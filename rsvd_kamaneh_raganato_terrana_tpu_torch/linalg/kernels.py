@@ -11,7 +11,10 @@ versions (the counterpart of the JAX package's
 - K4 ``fused_sketch_matmul`` (``csrc/sketch.cu``): the sketch Y = A Omega
   with the Gaussian Omega drawn inside the kernel (``sketch='fused'``);
 - K5 ``quantize_uint8`` (``csrc/quantize.cu``): affine uint8
-  quantization, deterministic (K5a) or with stochastic rounding (K5b).
+  quantization, deterministic (K5a) or with stochastic rounding (K5b);
+- K6 ``cast_sketch`` (``csrc/cast_sketch.cu``): bf16(A) and the sketch
+  Y = bf16(A) Omega in one pass over A, for the driver's first product
+  over a 'default' operand (it replaces no TPU kernel).
 
 Each kernel has:
 
@@ -649,3 +652,75 @@ def quantize_uint8(x, stochastic: bool = False, seed: int = 0,
 
 quantize_uint8.launches = 0              # K5a
 quantize_uint8.launches_stochastic = 0   # K5b
+
+
+#: the widest sketch K6 takes (its one wgmma tile width)
+CAST_SKETCH_MAX_WIDTH = 144
+
+
+def cast_sketch_reference(a, omega):
+    """(bf16(A), Y = bf16(A) @ Omega) in plain torch ops: A rounded to
+    bf16 as ``a.to(torch.bfloat16)`` does, then both bf16 operands
+    widened to f32 (exact) and multiplied at IEEE f32, Y returned in
+    f32."""
+    a16 = a.to(torch.bfloat16)
+    with ieee_fp32():
+        y = a16.to(torch.float32) @ omega.to(torch.float32)
+    return a16, y
+
+
+def _cast_sketch_lib():
+    return _library("cast_sketch", {
+        "rsvd_cast_sketch_bf16": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p])})
+
+
+def cast_sketch(a, omega):
+    """(a16, Y): a16 = bf16(A), bitwise ``a.to(torch.bfloat16)``, and Y =
+    a16 @ Omega accumulated and returned in f32, in one pass over A
+    (K6).  A is f32, m x n, row-major and contiguous, with n % 8 == 0;
+    Omega is bf16, n x l with 1 <= l <= ``CAST_SKETCH_MAX_WIDTH``, best
+    held column-major (Omega^T contiguous, as the driver casts it; else
+    it is copied so).  On a CUDA tensor it launches
+    ``csrc/cast_sketch.cu`` on the current stream; on a CPU tensor it
+    runs :func:`cast_sketch_reference`.  Y's sums run in another order
+    than ``torch.mm(a16, omega, out_dtype=torch.float32)``'s."""
+    if not isinstance(a, torch.Tensor) or a.ndim != 2 or omega.ndim != 2:
+        raise TypeError("cast_sketch takes two 2-D tensors")
+    if a.dtype != torch.float32 or omega.dtype != torch.bfloat16:
+        raise TypeError("cast_sketch takes an f32 A and a bf16 Omega, got "
+                        f"{a.dtype} and {omega.dtype}")
+    m, n = a.shape
+    l = omega.shape[1]
+    if omega.shape[0] != n:
+        raise ValueError(f"cast_sketch: A {tuple(a.shape)} and Omega "
+                         f"{tuple(omega.shape)} do not chain")
+    if a.device.type == "cpu":
+        return cast_sketch_reference(a, omega)
+    if a.device.type != "cuda":
+        raise ValueError(f"cast_sketch has no kernel for {a.device}")
+    if not 1 <= l <= CAST_SKETCH_MAX_WIDTH or n % 8 or max(m, n) >= 2 ** 31:
+        raise ValueError(f"cast_sketch takes n % 8 == 0 and 1 <= l <= "
+                         f"{CAST_SKETCH_MAX_WIDTH}, got {tuple(a.shape)} x "
+                         f"{l}")
+    if not a.is_contiguous() or a.data_ptr() % 16:
+        raise ValueError("cast_sketch reads a contiguous, 16-byte aligned A")
+    omega_t = omega.T.contiguous()   # no copy where Omega is column-major
+    if omega_t.data_ptr() % 16:
+        omega_t = omega_t.clone()
+    a16 = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    y = torch.empty((m, l), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return a16, y.zero_()
+    lib = _cast_sketch_lib()
+    # as in fused_cholqr1: the allocator reuses omega_t's block only for
+    # work queued after the kernel on this stream
+    err = _on_card(a.device, lambda stream: lib.rsvd_cast_sketch_bf16(
+        a.data_ptr(), a16.data_ptr(), omega_t.data_ptr(), y.data_ptr(), m, n,
+        l, stream))
+    _check_launch(lib, err, "cast_sketch")
+    cast_sketch.launches += 1
+    return a16, y
+
+
+cast_sketch.launches = 0

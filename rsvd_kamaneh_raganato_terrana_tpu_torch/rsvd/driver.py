@@ -9,8 +9,9 @@ with the finishes 'project', 'rowspace', 'utv' and 'rowspace_utv', and
 the stage-A storage modes 'bf16' (A cast once) and 'int8' (row-scaled
 int8, :class:`Int8Stored`, products on ``torch._int_mm``).  At
 'default' an f32 operand on the card is rounded to bf16 once a call, by
-its first product (:class:`Bf16OnFirstUse`), and the copy dropped after
-the last pass over A.
+its first product (:class:`Bf16OnFirstUse`; where that is the sketch of
+a tall A, kernel K6 makes the copy as it computes Y = A Omega), and the
+copy dropped after the last pass over A.
 
 The dense stage-A GEMMs go to ``torch.matmul``/``torch.mm`` at the
 requested precision (``core/device.py``); the orthonormalizations go
@@ -229,21 +230,24 @@ class SparseStored:
         return self.fwd.values()
 
 
-# casts and reuses of Bf16OnFirstUse copies since the last reset
-_stage_counts = [0, 0]
+# casts, reuses and K6-made copies of Bf16OnFirstUse since the last reset
+_stage_counts = [0, 0, 0]
 
 
 def stage_tally() -> dict:
-    """{casts, reuses} since the last :func:`reset_stage_tally`: how
-    often a :class:`Bf16OnFirstUse` operand was rounded to bf16, and how
-    often a product read the copy already made.  The fit's settings
-    (q = 2, 'project') read one cast and 2q + 1 = 5 reuses a call."""
-    return dict(zip(("casts", "reuses"), _stage_counts))
+    """{casts, reuses, fused} since the last :func:`reset_stage_tally`:
+    how often a :class:`Bf16OnFirstUse` operand was rounded to bf16, how
+    often a product read the copy already made, and how many of the
+    copies K6 made in the first product (:func:`_cast_in_sketch`; each
+    counts among the casts too).  The fit's settings (q = 2, 'project')
+    read one cast and 2q + 1 = 5 reuses a call, and one fused on the
+    card at the fit's shape."""
+    return dict(zip(("casts", "reuses", "fused"), _stage_counts))
 
 
 def reset_stage_tally() -> None:
     """Zero :func:`stage_tally`."""
-    _stage_counts[:] = [0, 0]
+    _stage_counts[:] = [0, 0, 0]
 
 
 class Bf16OnFirstUse:
@@ -298,6 +302,16 @@ class Bf16OnFirstUse:
         else:
             _stage_counts[1] += 1
         return copy.T if self.transposed else copy
+
+    def bf16_times(self, x16):
+        """A @ x16 in f32 by K6 (``kernels.cast_sketch``), which makes
+        the copy as it reads A: the first product, where
+        :func:`_cast_in_sketch` routes it.  The copy is the bytes, strides
+        and lifetime :meth:`bf16` gives it."""
+        self._held[0], y = kernels.cast_sketch(self.a, x16)
+        _stage_counts[0] += 1
+        _stage_counts[2] += 1
+        return y
 
     def release(self):
         """Drop the copy; a later product would make it again."""
@@ -496,16 +510,55 @@ def _staged_mm(a, b, precision):
     one bf16 copy, the other side rounded to bf16, accumulated and
     returned in f32, under one ``rsvd/cast`` span as ``matmul_at``'s
     casts are.  Beside a wider operand (f64) A is promoted unrounded, as
-    it would be unstaged."""
+    it would be unstaged.  Where :func:`_cast_in_sketch` routes the first
+    product to K6, the copy is made by the product itself, and only the
+    other side's cast is under ``rsvd/cast``."""
     other = b if isinstance(a, Bf16OnFirstUse) else a
     if other.dtype.itemsize > 4:
         a, b = (x.plain() if isinstance(x, Bf16OnFirstUse) else x
                 for x in (a, b))
         return _product(a, b, precision)
+    if (isinstance(a, Bf16OnFirstUse) and a._held[0] is None
+            and a.device.type == "cuda"
+            and _cast_in_sketch(a, b.shape[1], _sm_count(a.device))):
+        with span("cast"):          # K6 reads Omega^T contiguous
+            b16 = b.T.to(torch.bfloat16,
+                         memory_format=torch.contiguous_format).T
+        return a.bf16_times(b16)
     with span("cast"):
         a, b = (x.bf16() if isinstance(x, Bf16OnFirstUse)
                 else x.to(torch.bfloat16) for x in (a, b))
     return matmul_at(a, b, precision, out_dtype=torch.float32)
+
+
+#: K6 takes a first product only where A has at least this many 128-row
+#: tiles an SM of the card (K6 runs one block a tile, at most one an SM).
+#: The row sweep on an H100 (PERF.md, K6's row) at l = 144, n = 100000 and
+#: 16384: 3.1-3.7x the cast and GEMM's time at 8 tiles, 1.7-1.9x at 16,
+#: 0.95-0.99x at 32, 0.77-0.81x at 48 and 0.79-0.83x from 64 up
+_CAST_SKETCH_WAVES = 0.25
+
+
+def _cast_in_sketch(stage, width: int, sms: int) -> bool:
+    """Whether the first product over the staged operand ``stage`` (a
+    :class:`Bf16OnFirstUse`), times a panel ``width`` columns wide, is
+    K6 (``kernels.cast_sketch``) on a card of ``sms`` SMs: A read
+    untransposed as the left factor; A f32, row-major, contiguous and
+    16-byte aligned with n a multiple of 8 (TMA's 16-byte rows of the
+    copy); the panel at most ``kernels.CAST_SKETCH_MAX_WIDTH`` wide; and
+    at least ``_CAST_SKETCH_WAVES`` of a 128-row tile of A an SM, so
+    that enough SMs stream A to keep the card's memory busy.
+    Every other first use is ``a.to(torch.bfloat16)`` and ``torch.mm``."""
+    a = stage.a
+    m, n = a.shape
+    return (not stage.transposed and a.dtype == torch.float32
+            and a.is_contiguous() and a.data_ptr() % 16 == 0 and n % 8 == 0
+            and 1 <= width <= kernels.CAST_SKETCH_MAX_WIDTH
+            and -(-m // 128) >= _CAST_SKETCH_WAVES * sms)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _colnormalize(y):

@@ -126,8 +126,9 @@ def test_wrapper_refuses_a_device_without_kernel():
 
 def test_build_names_sm90a_and_only_package_sources():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["cholqr1.cu", "eigh.cu", "polar.cu",
-                                      "quantize.cu", "sketch.cu"]
+    assert [s.name for s in srcs] == ["cast_sketch.cu", "cholqr1.cu",
+                                      "eigh.cu", "polar.cu", "quantize.cu",
+                                      "sketch.cu"]
     assert [h.name for h in _build.headers()] == ["dsmem.cuh", "hash.cuh",
                                                   "panel.cuh"]
     for src in srcs:

@@ -7,8 +7,8 @@ each later pass (``driver.stage_tally``); the finish releases it; and
 ``_stage_operand`` holds only an f32 CUDA tensor at 'default' so.  On a
 card (the ``card`` marker; skipped without one): a 4096^2 call at the
 fit's settings gives the factors of the 'bf16' storage mode bitwise,
-launches one bf16 copy of A, and leaves no memory behind, on a single
-tensor and on a row-sharded one.  Imports torch and the port only, never
+launches one bf16 copy of A (by ``a.to``: too few row tiles for K6), and
+leaves no memory behind, on a single tensor and on a row-sharded one.  Imports torch and the port only, never
 JAX, so that the card test runs where JAX is not installed.
 """
 
@@ -98,13 +98,14 @@ def test_a_call_casts_once_and_releases(finish):
     got = driver.rsvd_with_omega(staged, omega, q=q, k=8, precision="default",
                                  finish=finish, **FIT)
     passes = 2 * q + FINISH_PASSES[finish]
-    assert driver.stage_tally() == {"casts": 1, "reuses": passes - 1}
+    assert driver.stage_tally() == {"casts": 1, "reuses": passes - 1,
+                                    "fused": 0}
     assert staged._held[0] is None
     want = driver.rsvd_with_omega(a, omega, q=q, k=8, precision="bf16",
                                   finish=finish, **FIT)
     assert _bits(got, want)
     driver.reset_stage_tally()
-    assert driver.stage_tally() == {"casts": 0, "reuses": 0}
+    assert driver.stage_tally() == {"casts": 0, "reuses": 0, "fused": 0}
 
 
 def test_transpose_shares_one_copy_and_release_drops_it():
@@ -119,11 +120,11 @@ def test_transpose_shares_one_copy_and_release_drops_it():
     assert torch.equal(again, a.to(torch.bfloat16))
     # the strides .to() gives A^T: the GEMMs see today's layouts
     assert first.stride() == a.T.to(torch.bfloat16).stride()
-    assert driver.stage_tally() == {"casts": 1, "reuses": 1}
+    assert driver.stage_tally() == {"casts": 1, "reuses": 1, "fused": 0}
     staged.T.release()                        # either view releases
     assert staged._held[0] is None
     staged.bf16()
-    assert driver.stage_tally() == {"casts": 2, "reuses": 1}
+    assert driver.stage_tally() == {"casts": 2, "reuses": 1, "fused": 0}
 
 
 def test_stage_operand_holds_only_an_f32_card_tensor_at_default():
@@ -150,7 +151,7 @@ def test_stage_operand_holds_only_an_f32_card_tensor_at_default():
     driver.rsvd(driver.quantize_int8_rows(a), k=8, p=8, q=2, seed=3, **FIT)
     driver.rsvd(a.to_sparse(), k=8, p=8, q=2, seed=3, precision="default",
                 **FIT)
-    assert driver.stage_tally() == {"casts": 0, "reuses": 0}
+    assert driver.stage_tally() == {"casts": 0, "reuses": 0, "fused": 0}
 
 
 def test_row_sharded_block_casts_once():
@@ -165,7 +166,7 @@ def test_row_sharded_block_casts_once():
         driver.reset_stage_tally()
         got = driver.rsvd_with_omega(staged, omega, q=2, k=8,
                                      precision="default", **FIT)
-        assert driver.stage_tally() == {"casts": 1, "reuses": 5}
+        assert driver.stage_tally() == {"casts": 1, "reuses": 5, "fused": 0}
         assert staged.local._held[0] is None
         want = driver.rsvd_with_omega(view, omega, q=2, k=8,
                                       precision="bf16", **FIT)
@@ -203,7 +204,7 @@ def _check_on_card(a, call):
                  record_shapes=True) as prof:
         got = call("default")
         torch.cuda.synchronize()
-    assert driver.stage_tally() == {"casts": 1, "reuses": 5}
+    assert driver.stage_tally() == {"casts": 1, "reuses": 5, "fused": 0}
     assert _copies_of(prof, a.shape) == 1
     assert _bits(got, want)
     del got
